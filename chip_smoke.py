@@ -5,13 +5,21 @@
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
 its plain PyTorch twin on the card, checks renders against the JAX package's
-golden statistics, then drives the main path once — the CLI render of
-rand_spheres at 400x225, 500 spp, depth 50 — with the kernels' launch
-counters reset just before and read just after. The main path runs the
-persistent render kernel; the closest-hit kernel serves other entry points
-(its math runs inside the persistent kernel), so its main-path count is 0.
-Every phase prints one line; any failure raises and exits non-zero. The
-second-to-last line is the per-kernel JSON record, the last line
+golden statistics, then drives each path once with the kernels' launch
+counters reset just before and read just after:
+
+* the render path (phase 5): the CLI render of rand_spheres at 400x225,
+  500 spp, depth 50, through the persistent render kernel (kernel 2);
+* the training path (phase 7): five Adam steps of the inverse renderer's
+  tape-forward ("bucketed") backend at 400x225, 8 spp, depth 50, through
+  the tape kernel (kernel 3), then one step of its "scan" backend, whose
+  closest hit is kernel 1.
+
+Phase 6 holds the tape kernel against its twin at the training path's
+shape, phase 7a the whole gradient step on the card against the step on
+the CPU, and phase 7 kernel 1 against its twin on the scan step's own
+rays. Every phase prints one line; any failure raises and exits non-zero.
+The second-to-last line is the per-kernel JSON record, the last line
 `{"ok": true, "device": {...}}`.
 
 Needs one CUDA device; exits non-zero without one, or without the package
@@ -20,7 +28,9 @@ next to this file. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,6 +45,21 @@ GOLDEN_SEED = 12345
 # cornell is held by phase 3 here and by the CPU statistical test instead.
 GOLDEN_SCENES = ("rand_spheres", "quads", "one_weekend_final")
 OUT_DIR = REPO / "chiprun_out"
+# The training path's shape: the JAX package's gradient reference point
+# (bench.py:_measure_grad_depth50).
+TRAIN_CFG = dict(width=400, spp=8, max_depth=50)
+TRAIN_SEEDS = (101, 102, 103, 104, 105)
+
+# Least time bounds: NVIDIA's published H100
+# SXM peaks at 700 W, FP32 outside the tensor cores and HBM bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 arithmetic of one closest-hit candidate in csrc/closest_hit.cuh
+# (compares and selects not counted), and of the per-ray terms. Shading adds
+# about 1% per segment at rand_spheres' 490 rows and is not counted.
+SPHERE_OPS = 21
+QUAD_OPS = 40
+RAY_OPS = 15
 
 
 def fail(msg: str):
@@ -138,6 +163,243 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def hit_ops(segments, ns, nq):
+    """Closest-hit FP32 operations of `segments` rays over ns spheres and nq
+    quads."""
+    return float(segments) * (ns * SPHERE_OPS + nq * QUAD_OPS + RAY_OPS)
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the FP32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tape_pair(name, seed, **scene_kw):
+    """Kernel 3 and its plain twin on the same CUDA tables: (kernel, plain,
+    n lanes, settings, scene)."""
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene, cam, st = get_scene(name, **scene_kw)
+    tables = pk.pack_persistent_tables(scene.to("cuda"))
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, st.width, st.height),
+                                      cam.background).cuda()
+    n = st.width * st.height * st.samples_per_pixel
+    cfg = dict(width=st.width, height=st.height, max_depth=st.max_depth,
+               sky_gradient=st.sky_gradient)
+
+    def kernel():
+        return pk.render_persistent_tape(*tables, cam_s, seed, n, **cfg)
+
+    def plain():
+        return wf.trace_tape_plain(*tables, cam_s, seed, n, **cfg)
+
+    return kernel, plain, n, st, scene
+
+
+def check_tape(label, kernel_out, plain_out):
+    """Kernel 3 against its twin: the fraction of tape entries and of lanes
+    (radiance and segments) that are bit-equal; fails below 99.99%."""
+    import torch
+
+    from raytracer_tpu_torch.utils.metrics import warp_slots
+
+    (rad_k, tape_k, segs_k), (rad_p, tape_p, segs_p) = kernel_out, plain_out
+    tape_eq = float((tape_k == tape_p).float().mean())
+    lane_eq = float(((rad_k == rad_p).all(dim=0) & (segs_k == segs_p)).float().mean())
+    if tape_eq < 0.9999 or lane_eq < 0.9999:
+        fail(f"kernel 3 {label}: tape equal on {tape_eq:.6f}, lanes on {lane_eq:.6f} (< 0.9999)")
+    if not bool(torch.isfinite(rad_k).all()):
+        fail(f"kernel 3 {label}: non-finite radiance")
+    segments = int(segs_k.sum())
+    return dict(tape_equal=tape_eq, lanes_equal=lane_eq,
+                max_abs=float((rad_k - rad_p).abs().max()), segments=segments,
+                warp_occupancy=segments / warp_slots(segs_k), deepest=int(segs_k.max()),
+                lanes=int(tape_k.shape[1]), hit_frac_b0=float((tape_k[0] >= 0).float().mean()))
+
+
+def mixed_scene():
+    """tests/test_ktape.py's scene (all four materials, a quad, a checker,
+    thin lens; its largest sphere r = 100) and its camera at 64x36."""
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+
+    b = SceneBuilder(0)
+    ground = b.lambertian(b.checker(0.6, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.add_sphere((0, -100.5, -1), 100, ground)
+    b.add_sphere((0, 0, -1), 0.5, b.dielectric(1.5))
+    b.add_sphere((-1.1, 0, -1), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
+    b.add_sphere((1.1, 0.8, -1), 0.3, b.diffuse_light((4, 4, 4)))
+    b.add_quad((-2, -0.4, -2.5), (4, 0, 0), (0, 2, 0), b.lambertian((0.4, 0.5, 0.8)))
+    cam, _ = make_camera(16 / 9, 64, look_from=(0, 0.5, 2), look_at=(0, 0, -1), fov_degrees=60,
+                         background=(0.7, 0.8, 1.0), defocus_angle_degrees=2.0)
+    return b.build(), cam
+
+
+# Limits of the step on CUDA against the step on the CPU, per leaf: (rtol,
+# atol as a fraction of the CPU gradient's largest entry, None for 1e-4).
+# Loss, albedo and texture colors at rtol 1e-4; sphere centers and radii
+# at the bound JAX holds between its own forward variants
+# (tests/test_ktape.py:165-176); the metal fuzz at the same rtol, since
+# it moves scatter directions and its gradient flows through the replayed
+# hit points as theirs does.
+STEP_LIMITS = {"sph_center": (6e-3, None), "sph_radius": (6e-3, None),
+               "mat_fuzz": (6e-3, 1e-3), "mat_albedo": (1e-4, 1e-4), "tex_c0": (1e-4, 1e-4)}
+
+
+def step_devices(scene, cam, seed, w=64, h=36, k=2, depth=8):
+    """The tape-forward step (diff/bucketed.py) on the same inputs: on CUDA
+    with kernel 3 as its forward ("cuda"), on CUDA with kernel 3's twin as
+    its forward ("cuda_twin"), on the CPU (the twin in CPU arithmetic,
+    "cpu"), and on the CPU with every sphere center one float32 step up
+    ("cpu_ulp"). Returns ({way: (loss, grads)}, fraction of tape entries
+    CUDA's kernel and the CPU twin share)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.diff import bucketed
+    from raytracer_tpu_torch.diff.grad import split_scene
+    from raytracer_tpu_torch.integrator.wavefront import trace_tape_plain
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+
+    target = torch.from_numpy(
+        np.random.default_rng(3).uniform(0, 1, (h, w, 3)).astype(np.float32))
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background)
+    runs, tapes = {}, {}
+    for dev in ("cuda", "cpu"):
+        params, rebuild = split_scene(scene.to(dev))
+        step = bucketed.make_bucketed_grad_fn(rebuild, cam, target.to(dev), width=w, height=h,
+                                              samples_per_pass=k, max_depth=depth)
+        runs[dev] = step(params, seed)
+        with torch.no_grad():
+            tables = pk.pack_persistent_tables(scene.to(dev))
+            tapes[dev] = pk.render_persistent_tape(*tables, cam_s.to(dev), seed, w * h * k,
+                                                   width=w, height=h, max_depth=depth)[1].cpu()
+        if dev == "cuda":
+            kernel, bucketed.render_persistent_tape = (bucketed.render_persistent_tape,
+                                                       trace_tape_plain)
+            try:
+                runs["cuda_twin"] = step(params, seed)
+            finally:
+                bucketed.render_persistent_tape = kernel
+        else:
+            c = params["sph_center"].detach()
+            up = torch.nextafter(c, torch.full_like(c, math.inf)).requires_grad_(True)
+            runs["cpu_ulp"] = step({**params, "sph_center": up}, seed)
+    return runs, float((tapes["cuda"] == tapes["cpu"]).float().mean())
+
+
+def step_check(seed=21):
+    """Phase 7a: the tape-forward step at 64x36, 2 spp, depth 8.
+
+    On both scenes, the step with kernel 3 against the same step with its
+    twin on CUDA: loss equal, every gradient within rtol 1e-5 (autograd
+    sums gathered rows with atomics, in no fixed order). On the mixed scene
+    (tests/test_ktape.py's, largest sphere r = 100), the CUDA step against
+    the CPU step: loss within rtol 1e-5, every gradient within STEP_LIMITS.
+    On rand_spheres the CUDA and CPU gradients are reported, not held: its
+    r = 1000 ground sphere makes the reference's expanded-form winner t
+    cancel in float32 (ROADMAP Queue 3). Two witnesses are printed for each
+    scene: the share of tape entries the CUDA kernel and the CPU twin agree
+    on (so the two steps replay the same paths), and how far the CPU step's
+    own gradients move when every sphere center moves one float32 step
+    ("cpu_one_ulp_rel_to_max"), the scale of float32 rounding noise in each
+    gradient, beside the CUDA-vs-CPU gap ("cuda_vs_cpu_rel_to_max")."""
+    import torch
+
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene_r, cam_r, _ = get_scene("rand_spheres", width=64, spp=2, max_depth=8)
+    out, bad = {}, []
+    for label, (scene, cam) in (("mixed", mixed_scene()), ("rand_spheres", (scene_r, cam_r))):
+        runs, tape_eq = step_devices(scene, cam, seed)
+        (loss_k, g_k), (loss_t, g_t), (loss_c, g_c) = runs["cuda"], runs["cuda_twin"], runs["cpu"]
+        if float(loss_k) != float(loss_t):
+            bad.append(f"{label}: loss with kernel 3 {float(loss_k)} vs its twin {float(loss_t)}")
+        for name in g_k:
+            if not torch.allclose(g_k[name], g_t[name], rtol=1e-5, atol=1e-9):
+                bad.append(f"{label}: {name} gradient with kernel 3 vs its twin beyond rtol 1e-5")
+        rel, ulp = {}, {}
+        for name, gc in g_c.items():
+            gk, top = g_k[name].cpu(), float(gc.abs().max())
+            rel[name] = float((gk - gc).abs().max()) / max(top, 1e-30)
+            ulp[name] = float((runs["cpu_ulp"][1][name] - gc).abs().max()) / max(top, 1e-30)
+            rtol, atol = STEP_LIMITS[name]
+            atol = 1e-4 if atol is None else atol * top
+            if label == "mixed" and not torch.allclose(gk, gc, rtol=rtol, atol=atol):
+                bad.append(f"mixed: {name} gradient CUDA vs CPU beyond rtol {rtol}, atol {atol:.3g}")
+        loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+        if label == "mixed" and loss_rel > 1e-5:
+            bad.append(f"mixed: loss CUDA {float(loss_k)} vs CPU {float(loss_c)}")
+        out[label] = dict(held_cuda_vs_cpu=label == "mixed", loss_kernel=float(loss_k),
+                          loss_twin=float(loss_t), loss_cpu=float(loss_c), loss_rel_cuda_cpu=loss_rel,
+                          tape_equal_cuda_cpu=tape_eq, cuda_vs_cpu_rel_to_max=rel,
+                          cpu_one_ulp_rel_to_max=ulp,
+                          grads_finite=all(bool(torch.isfinite(g).all()) for g in g_k.values()))
+    if bad or not all(v["grads_finite"] for v in out.values()):
+        fail(f"phase 7a: {bad}; readings {json.dumps(out)}")
+    return out
+
+
+def check_hit(label, sph, quad, o, d):
+    """Kernel 1 against its twin on one ray batch: prim equal on >= 99.99%
+    of rays, t within rtol 1e-5 where prims agree; then both timed."""
+    import torch
+
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+
+    t_k, p_k = ik.intersect(sph, quad, o, d)
+    t_p, p_p = ik.intersect_plain(sph, quad, o, d)
+    torch.cuda.synchronize()
+    same = p_k == p_p
+    frac = float(same.float().mean())
+    fin = same & torch.isfinite(t_p)
+    rel = ((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs().clamp(min=1e-30))
+    max_rel = float(rel.max()) if rel.numel() else 0.0
+    n_off = int((rel > 1e-5).sum())
+    max_abs = float((t_k[fin] - t_p[fin]).abs().max()) if rel.numel() else 0.0
+    hit_frac = float((p_p >= 0).float().mean())
+    if frac < 0.9999:
+        fail(f"{label}: prim agrees on {frac:.6f} < 0.9999 of rays")
+    if max_rel > 1e-5:
+        fail(f"{label}: t max rel err {max_rel:.3g} > 1e-5 on {n_off} rays")
+    ms = time_cuda(lambda: ik.intersect(sph, quad, o, d), reps=20, warm=3)
+    plain_ms = time_cuda(lambda: ik.intersect_plain(sph, quad, o, d), reps=3)
+    return dict(prim_agree=frac, t_max_rel=max_rel, t_max_abs=max_abs, hit_frac=hit_frac,
+                ms=ms, plain_ms=plain_ms, rays=int(o.shape[0]), ns=int(sph.shape[0]),
+                nq=int(quad.shape[0]))
+
+
+class HitRecorder:
+    """Stands in for ops.intersect_kernel.intersect while a path runs and
+    passes every call on to it: keeps each call's ray count, and copies of
+    the inputs of the first call and of the first later call whose ray
+    count leaves the kernel's last block partial."""
+
+    def __init__(self, ik):
+        self.ik, self.real = ik, ik.intersect
+        self.counts, self.kept = [], {}
+
+    def __enter__(self):
+        self.ik.intersect = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ik.intersect = self.real
+
+    def __call__(self, sph, quad, o, d):
+        i, n = len(self.counts), o.shape[0]
+        self.counts.append(n)
+        if i == 0 or (len(self.kept) == 1 and n % self.ik.THREADS):
+            self.kept[i] = tuple(x.clone() for x in (sph, quad, o, d))
+        return self.real(sph, quad, o, d)
+
+
 def check_pair(label, kernel_out, plain_out, fold):
     """Kernel 2's render against its twin's: >= 99% of pixels within rtol
     1e-3, image mean within 1e-3 relative, segments within 0.1%."""
@@ -206,25 +468,7 @@ def main() -> int:
         scene, _, _ = get_scene(name)
         sph, quad = scene_tables(scene.to("cuda"))
         o, d = (x.cuda() for x in random_rays(1 << 20, lo, hi, seed=7))
-        t_k, p_k = ik.intersect(sph, quad, o, d)
-        t_p, p_p = ik.intersect_plain(sph, quad, o, d)
-        torch.cuda.synchronize()
-        same = p_k == p_p
-        frac = float(same.float().mean())
-        fin = same & torch.isfinite(t_p)
-        rel = ((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs().clamp(min=1e-30))
-        max_rel = float(rel.max()) if rel.numel() else 0.0
-        n_off = int((rel > 1e-5).sum())
-        max_abs = float((t_k[fin] - t_p[fin]).abs().max()) if rel.numel() else 0.0
-        hit_frac = float((p_p >= 0).float().mean())
-        if frac < 0.9999:
-            fail(f"kernel 1 {name}: prim agrees on {frac:.6f} < 0.9999 of rays")
-        if max_rel > 1e-5:
-            fail(f"kernel 1 {name}: t max rel err {max_rel:.3g} > 1e-5 on {n_off} rays")
-        ms = time_cuda(lambda: ik.intersect(sph, quad, o, d), reps=20, warm=3)
-        plain_ms = time_cuda(lambda: ik.intersect_plain(sph, quad, o, d), reps=3)
-        k1[name] = dict(prim_agree=frac, t_max_rel=max_rel, t_max_abs=max_abs,
-                        hit_frac=hit_frac, ms=ms, plain_ms=plain_ms)
+        k1[name] = check_hit(f"kernel 1 {name}", sph, quad, o, d)
     record["intersect"] = k1
     print(f"phase 2 kernel 1 vs plain, 2^20 rays: {json.dumps(k1)}", flush=True)
 
@@ -240,12 +484,15 @@ def main() -> int:
     scene, cam, settings = get_scene("rand_spheres")
     kernel, plain, fold = persistent_pair(scene, cam, settings, DEFAULT_WAVEFRONT, seed=0)
     kernel_out = kernel()
+    kernel_out_shape = tuple(kernel_out[0].shape[1:])  # (slots, lanes)
     plain_out, k2_plain_ms = timed(plain)
     main_shape = check_pair("main shape", kernel_out, plain_out, fold)
     del kernel_out, plain_out
     k2_ms = time_cuda(kernel, reps=3)
     k2["main_shape"] = dict(main_shape, ms=k2_ms, plain_ms=k2_plain_ms,
-                            size=[settings.width, settings.height], lanes=DEFAULT_WAVEFRONT)
+                            size=[settings.width, settings.height], lanes=DEFAULT_WAVEFRONT,
+                            ns=scene.num_spheres, nq=scene.num_quads,
+                            log_bytes=3 * kernel_out_shape[0] * kernel_out_shape[1] * 4)
     record["persistent"] = k2
     print("phase 3 kernel 2 vs plain, 8 spp depth 10 with 8192 lanes, and 400x225@500spp "
           f"depth 50 with {DEFAULT_WAVEFRONT} lanes: {json.dumps(k2)}", flush=True)
@@ -292,18 +539,127 @@ def main() -> int:
     print(f"phase 5 main path: {json.dumps(report)}; launches {json.dumps(launches)}; "
           f"linear mean {lin_mean.round(4).tolist()}", flush=True)
 
+    # ---- phase 6: kernel 3 vs its plain twin ----
+    # A small cornell shape (quads, the emitter), then the training path's
+    # own shape: rand_spheres 400x225, 8 spp, depth 50, one lane per sample.
+    k3 = {}
+    kernel, plain, _, _, _ = tape_pair("cornell", 7, width=64, spp=2, max_depth=12)
+    k3["cornell"] = check_tape("cornell", kernel(), plain())
+    kernel, plain, n3, st3, scene3 = tape_pair("rand_spheres", 1234, **TRAIN_CFG)
+    kernel_out = kernel()
+    plain_out, k3_plain_ms = timed(plain)
+    k3["train_shape"] = check_tape("train shape", kernel_out, plain_out)
+    del kernel_out, plain_out
+    k3_ms = time_cuda(kernel, reps=5)
+    k3["train_shape"].update(ms=k3_ms, plain_ms=k3_plain_ms, size=[st3.width, st3.height],
+                             spp=st3.samples_per_pixel, max_depth=st3.max_depth)
+    record["tape"] = k3
+    print(f"phase 6 kernel 3 vs plain, cornell 64x64@2spp depth 12 and rand_spheres "
+          f"400x225@8spp depth 50 ({n3} lanes): {json.dumps(k3)}", flush=True)
+
+    # ---- phase 7: the training path, counted ----
+    from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
+
+    step_7a = step_check()
+    print(f"phase 7a tape-forward step at 64x36@2spp depth 8, kernel 3 vs its twin on CUDA "
+          f"and CUDA vs CPU (held on the mixed scene, reported on rand_spheres): "
+          f"{json.dumps(step_7a)}", flush=True)
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    train_kw = dict(width=st.width, height=st.height, samples_per_pass=st.samples_per_pixel,
+                    max_depth=st.max_depth, learning_rate=1e-2, device="cuda")
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width, height=st.height,
+                                    samples_per_pass=st.samples_per_pixel,
+                                    max_depth=st.max_depth)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    params, _, step = make_inverse_renderer(start, cam, target, backend="bucketed", **train_kw)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    ik.LAUNCHES = 0
+    pk.LAUNCHES = 0
+    pk.LAUNCHES_TAPE = 0
+    torch.cuda.synchronize()
+    for seed in TRAIN_SEEDS:
+        timings = {}
+        t0 = time.perf_counter()
+        loss = float(step(seed, timings))  # the step's phases end in device syncs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+        if not (math.isfinite(loss) and grads_ok):
+            fail(f"training step {seed}: loss {loss}, finite grads {grads_ok}")
+        steps.append(dict(loss=loss, wall_s=wall, **{k: v for k, v in timings.items()}))
+    launches_train = {"closest_hit": ik.LAUNCHES, "persistent_render": pk.LAUNCHES,
+                      "persistent_tape": pk.LAUNCHES_TAPE}
+    if launches_train["persistent_tape"] != len(TRAIN_SEEDS):
+        fail(f"training path launched the tape kernel {launches_train['persistent_tape']} "
+             f"times in {len(TRAIN_SEEDS)} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for i, s_ in enumerate(steps):
+        print(f"phase 7 step {i}: loss {s_['loss']:.6g}, wall {s_['wall_s']:.4f} s = tape forward "
+              f"{s_['tape_forward']:.4f} + loss/cotangent {s_['loss_cotangent']:.4f} + replay "
+              f"forward {s_['replay_forward']:.4f} + backward {s_['backward']:.4f} + optimizer "
+              f"{s_['optimizer']:.4f} s; {smi}", flush=True)
+    params_s, _, step_s = make_inverse_renderer(start, cam, target, backend="scan", **train_kw)
+    ik.LAUNCHES = 0
+    torch.cuda.synchronize()
+    scan_t = {}
+    with HitRecorder(ik) as hits:
+        t0 = time.perf_counter()
+        scan_loss = float(step_s(TRAIN_SEEDS[0], scan_t))
+        torch.cuda.synchronize()
+        scan_t["wall_s"] = time.perf_counter() - t0
+    launches_scan = ik.LAUNCHES
+    if launches_scan <= 0:
+        fail("the scan backend's step launched no closest-hit kernel")
+    if not (math.isfinite(scan_loss)
+            and all(bool(torch.isfinite(p.grad).all()) for p in params_s.values())):
+        fail(f"scan step: loss {scan_loss} or its gradients not finite")
+    # Same estimator and uniforms; the scan's winner t is recomputed in
+    # expanded form, so a rare path may round onto another winner.
+    if abs(scan_loss - steps[0]["loss"]) > 1e-2 * abs(steps[0]["loss"]):
+        fail(f"scan loss {scan_loss} vs bucketed {steps[0]['loss']} from the same start and seed")
+    # Kernel 1 against its twin on the scan step's own inputs, phase 2's
+    # limits: bounce 0's camera rays, and a later bounce's compacted rays.
+    if len(hits.kept) < 2:
+        fail(f"scan step: no bounce after the first left a partial block ({hits.counts})")
+    k1_path = {}
+    for i, (sph, quad, o, d) in hits.kept.items():
+        k1_path[f"bounce_{i}"] = check_hit(f"kernel 1 on the scan step's bounce {i}", sph, quad, o, d)
+    del hits.kept
+    train = dict(steps=steps, launches=launches_train, peak_gb=peak_gb, scan_loss=scan_loss,
+                 scan_timings=scan_t, scan_closest_hit_launches=launches_scan,
+                 scan_rays_per_bounce=hits.counts, closest_hit_on_path=k1_path)
+    record["train"] = train
+    print(f"phase 7 training path: 5 bucketed steps at 400x225@8spp depth 50, launches "
+          f"{json.dumps(launches_train)}, peak {peak_gb:.2f} GiB; scan step {json.dumps(scan_t)}, "
+          f"loss {scan_loss:.6g} (bucketed {steps[0]['loss']:.6g}), closest-hit launches "
+          f"{launches_scan}; kernel 1 vs plain on the step's own rays {json.dumps(k1_path)}",
+          flush=True)
+
+    k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
+    b1 = bound(hit_ops(k1r["rays"], k1r["ns"], k1r["nq"]), k1r["rays"] * (24 + 8))
+    b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
+               k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
+    b3 = bound(hit_ops(k3t["segments"], scene3.num_spheres, scene3.num_quads),
+               n3 * (12 + 4 * st3.max_depth + 4))
     kernels = [
         {
             "name": "closest_hit",
             "route": "cuda",
             "source": "raytracer_tpu_torch/csrc/intersect_kernel.cu",
             "replaces": "raytracer_tpu/ops/intersect_kernel.py:115",
-            "launches": launches["closest_hit"],
-            "on_main_path": False,
-            "max_abs_err": max(v["t_max_abs"] for v in k1.values()),
-            "ms": k1["rand_spheres"]["ms"],
-            "plain_ms": k1["rand_spheres"]["plain_ms"],
-            "shape": "2^20 random rays x rand_spheres (489 spheres, 1 quad)",
+            "launches": launches_scan,
+            "on_main_path": True,
+            "path": "training, scan backend (one step, phase 7)",
+            "max_abs_err": max(v["t_max_abs"] for v in (*k1.values(), *k1_path.values())),
+            "ms": k1r["ms"],
+            "plain_ms": k1r["plain_ms"],
+            "bound_ms": b1[0],
+            "bound_by": b1[1],
+            "library_ms": None,
+            "shape": f"scan step bounce 0, {k1r['rays']} camera rays x rand_spheres "
+                     f"({k1r['ns']} spheres, {k1r['nq']} quad)",
         },
         {
             "name": "persistent_render",
@@ -312,15 +668,35 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/persistent_kernel.py:1214",
             "launches": launches["persistent_render"],
             "on_main_path": True,
+            "path": "render, the CLI (phase 5)",
             "max_abs_err": max(v["max_abs"] for v in k2.values()),
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": b2[0],
+            "bound_by": b2[1],
+            "library_ms": None,
             "shape": f"rand_spheres 400x225@500spp depth 50, {DEFAULT_WAVEFRONT} lanes",
+        },
+        {
+            "name": "persistent_tape",
+            "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/persistent_kernel.cu",
+            "replaces": "raytracer_tpu/ops/persistent_kernel.py:1403",
+            "launches": launches_train["persistent_tape"],
+            "on_main_path": True,
+            "path": "training, bucketed backend (five steps, phase 7)",
+            "max_abs_err": max(v["max_abs"] for v in k3.values()),
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+            "bound_ms": b3[0],
+            "bound_by": b3[1],
+            "library_ms": None,
+            "shape": f"rand_spheres 400x225@8spp depth 50, {n3} lanes",
         },
     ]
     (OUT_DIR / "chip_smoke_record.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "record": record, "golden_means": g4,
-         "main_path": report, "kernels": kernels}, indent=1))
+         "main_path": report, "step_check": step_7a, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -29,6 +29,21 @@
 // Plain twin (and spec): raytracer_tpu_torch/integrator/wavefront.py:
 // regen_plain. Shading math follows persistent_kernel.py:860-989 line by line;
 // the sphere normal is normalized as in materials.py:resolve_and_shade.
+//
+// Kernel 3, the tape mode (kTape = true), replaces
+// raytracer_tpu/ops/persistent_kernel.py:render_persistent_tape
+// (_persistent_kernel_tape), the forward of the bucketed gradient: one
+// sample per lane (sample id = lane, pixel = lane mod width*height, computed
+// here instead of read from a schedule), no russian roulette
+// (rr_start = max_depth), the per-lane radiance in the (3, 1, N) log, and the
+// winner of every bounce in tape[b * N + lane] (-1 for a miss; rows after
+// the path's end are filled with -1 when it retires). A warp's 32 lanes
+// write 128 contiguous bytes per bounce. The TPU kernel's tile drains at its
+// deepest lane of 8K and was split into a depth-capped launch plus an XLA
+// continuation; a warp drains at its deepest of 32, so one launch runs every
+// lane to max_depth. Plain twin (and spec):
+// integrator/wavefront.py:trace_tape_plain. The render instantiation
+// (kTape = false) compiles without any tape code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +77,7 @@ constexpr int DIFFUSE_LIGHT = 3;
 // g = sphere center | quad unit normal; g3 = signed radius | 0;
 // prm = metal fuzz | ior; its = 1/checker scale (0 = solid).
 
+template <bool kTape>
 __global__ void persistent_kernel(
     const float4* __restrict__ sph, int ns, const float4* __restrict__ quad, int nq,
     const float4* __restrict__ res, const float* __restrict__ cam, uint32_t seed,
@@ -69,13 +85,21 @@ __global__ void persistent_kernel(
     const int* __restrict__ py0, int n, float* __restrict__ log,
     int* __restrict__ segs_out, int width, int height, int jump_px, int jump_py,
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
-    int sky_gradient, int max_iters) {
+    int sky_gradient, int max_iters, int* __restrict__ tape) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
-  int rem = rem0[lane];
-  int px = px0[lane];
-  int py = py0[lane];
+  int rem, px, py;
+  if (kTape) {
+    const int pix = lane % (width * height);
+    rem = 1;
+    px = pix % width;
+    py = pix / width;
+  } else {
+    rem = rem0[lane];
+    px = px0[lane];
+    py = py0[lane];
+  }
   int sk = -1;
   int depth = 0;
   bool active = false;
@@ -141,6 +165,7 @@ __global__ void persistent_kernel(
     int prim = -1;
     rt::sphere_candidates(sph, ns, r, t_s, prim);
     rt::quad_candidates(quad, nq, ns, r, t_s, prim);
+    if (kTape) tape[(size_t)depth * (size_t)n + (size_t)lane] = t_s < INFINITY ? prim : -1;
 
     bool survives = false;
     if (!(t_s < INFINITY)) {
@@ -316,6 +341,9 @@ __global__ void persistent_kernel(
       active = false;
     }
   }
+  if (kTape) {  // one bounce per segment: rows segs.. were never reached
+    for (int b = segs; b < max_depth; ++b) tape[(size_t)b * (size_t)n + (size_t)lane] = -1;
+  }
   segs_out[lane] = segs;
 }
 
@@ -329,10 +357,25 @@ extern "C" int rt_render_persistent(
     int max_depth, int rr_start, float rr_lo, float rr_hi, int sky_gradient,
     int max_iters, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
-  persistent_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  persistent_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, (const int*)rem0, (const int*)px0,
       (const int*)py0, n, (float*)log, (int*)segs, width, height, jump_px, jump_py,
-      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters);
+      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 3: radiance (3, n) float32, tape (max_depth, n) int32, segs (n,).
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int rt_render_persistent_tape(
+    const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
+    int seed, int n, void* radiance, void* tape, void* segs, int width, int height,
+    int max_depth, int sky_gradient, int threads, void* stream) {
+  const int blocks = (n + threads - 1) / threads;
+  persistent_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
+      (const float*)cam, (uint32_t)seed, nullptr, nullptr, nullptr, n,
+      (float*)radiance, (int*)segs, width, height, 0, 0, /*num_slots=*/1, max_depth,
+      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,12 @@
 ops/intersect_kernel.py implements (scaled-t compare space, strict t > 1e-3,
 spheres before quads); `intersect_scene` adds the hit epilogue and routes the
 search through that kernel's wrapper, so CUDA tensors run the kernel.
+
+`intersect_scene_kernel_diff` is the differentiable closest hit: the kernel
+finds the winner on detached rays and tables (no gradient ever reaches it),
+and `winner_t_diff` recomputes the winner's t with autograd from the scene
+tensors. The winner itself is held constant, which is correct almost
+everywhere; visibility-boundary terms are the edge estimators' job.
 """
 
 from __future__ import annotations
@@ -75,6 +81,58 @@ def closest_hit_t_prim(scene: Scene, origin, direction):
     int32 with -1 on a miss)."""
     sph, quad = scene_tables(scene)
     return ik.intersect_plain(sph, quad, origin, direction)
+
+
+def winner_t_diff(scene: Scene, qd: QuadDerived, origin, direction, prim, t_nd, t_min=DEFAULT_T_MIN):
+    """Differentiable t of each lane's winning primitive `prim` (N,) (port of
+    the JAX package's `_winner_t_diff`): the expanded-form sphere and quad
+    formulas at the winner's row only. Lanes whose `t_nd` is +inf (misses)
+    keep it; every branch takes finite inputs on the lanes it does not own
+    (double where), so no infinite partial meets a zero cotangent."""
+    ns = scene.num_spheres
+    hit = torch.isfinite(t_nd)
+    primc = torch.where(hit, prim, torch.zeros_like(prim)).long()
+    is_quad = primc >= ns
+    sidx = torch.clamp(primc, max=ns - 1)
+    qidx = torch.clamp(primc - ns, min=0, max=scene.num_quads - 1)
+
+    c = scene.sph_center[sidx]
+    r = scene.sph_radius[sidx]
+    oc = origin - c
+    a = vm.length_sq(direction)
+    half_b = vm.dot(direction, oc)
+    cq = vm.length_sq(oc) - r * r
+    disc = half_b * half_b - a * cq
+    disc_ok = disc > 0.0
+    sq = torch.sqrt(torch.where(disc_ok, disc, torch.ones_like(disc)))
+    sq = torch.where(disc_ok, sq, torch.zeros_like(sq))
+    inv_a = 1.0 / a
+    t0 = (-half_b - sq) * inv_a
+    t1 = (-half_b + sq) * inv_a
+    t_s = torch.where(t0 > t_min, t0, t1)
+
+    n = qd.normal[qidx]
+    d_n = vm.dot(direction, n)
+    denom_ok = d_n.abs() >= ik.QUAD_DENOM_EPS
+    safe_dn = torch.where(denom_ok, d_n, torch.ones_like(d_n))
+    t_q = (qd.d[qidx] - vm.dot(origin, n)) / safe_dn
+
+    t = torch.where(is_quad, t_q, t_s)
+    return torch.where(hit, t, t_nd)
+
+
+def intersect_scene_kernel_diff(scene: Scene, origin, direction, bounce=None, lanes=None):
+    """Differentiable closest hit: (t (N,) with autograd, +inf on a miss;
+    prim (N,) int32, -1 on a miss). The closest-hit kernel (its twin on CPU
+    tensors) searches on detached inputs; `winner_t_diff` recomputes t.
+    `bounce` and `lanes` are unused: the signature is the integrator's
+    intersect hook (integrator/wavefront.py:trace)."""
+    with torch.no_grad():
+        sph, quad = scene_tables(scene)
+        t_nd, prim = ik.intersect(
+            sph, quad, origin.detach().contiguous(), direction.detach().contiguous()
+        )
+    return winner_t_diff(scene, quad_derived(scene), origin, direction, prim, t_nd), prim
 
 
 def intersect_scene(scene: Scene, origin, direction) -> HitRecord:

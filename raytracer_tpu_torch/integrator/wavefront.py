@@ -6,7 +6,11 @@ over a batch of lanes with a throughput product, a radiance sum and an
 alive mask.
 
 * `trace`: every lane traces one path to completion (the non-regenerative
-  loop; used to hold the port against the JAX package).
+  loop), optionally recording the per-bounce winner tape; with a
+  differentiable intersect hook it is the gradient path (diff/).
+* `trace_tape_plain`: the plain twin and spec of the tape kernel (kernel 3,
+  ops/persistent_kernel.py:render_persistent_tape): `trace` of one sample
+  per lane from the packed tables, with counter-RNG uniforms.
 * `regen_plain`: the regenerative wavefront over a strided per-lane sample
   queue, the plain twin and spec of the persistent CUDA kernel
   (csrc/persistent_kernel.cu) — the regen loop body and its epilogue.
@@ -44,6 +48,47 @@ def _background(direction, background, sky_gradient):
     return background.to(direction.device).expand_as(direction)
 
 
+def _trace_loop(
+    res, num_spheres: int, origin, direction, background, uniforms_at, hit_fn, *,
+    max_depth: int, sky_gradient: bool, return_tape: bool,
+):
+    """Trace every lane's path to its end, working at each bounce on the
+    lanes still alive only (compacted, so the work and the autograd graph
+    grow with the real lane-bounces, not N x max_depth).
+
+    `uniforms_at(bounce, lanes)` gives the (L, UNIFORMS_PER_BOUNCE) shading
+    uniforms of the alive lanes `lanes` (indices into the batch);
+    `hit_fn(origin, direction, bounce, lanes)` their winner (t (L,) with
+    +inf on a miss, prim (L,)). Returns (radiance (N, 3), tape
+    (max_depth, N) int32 or None, segments (N,) int32)."""
+    n = origin.shape[0]
+    dev = origin.device
+    rad = torch.zeros_like(origin)
+    tape = torch.full((max_depth, n), -1, dtype=torch.int32, device=dev) if return_tape else None
+    segs = torch.zeros(n, dtype=torch.int32, device=dev)
+    lanes = torch.arange(n, device=dev)
+    o, d = origin, direction
+    tp = torch.ones_like(origin)
+    for bounce in range(max_depth):
+        if lanes.numel() == 0:
+            break
+        segs[lanes] += 1
+        t, prim = hit_fn(o, d, bounce, lanes)
+        scat = resolve_and_shade(res, num_spheres, t, prim, o, d, uniforms_at(bounce, lanes))
+        if tape is not None:
+            tape[bounce, lanes] = torch.where(scat.hit, prim.to(torch.int32), -1)
+        # A miss adds the background, a hit its emission (0 but for lights).
+        bg = _background(d, background, sky_gradient)
+        contrib = torch.where(scat.hit[:, None], tp * scat.emitted, tp * bg)
+        rad = rad.index_put((lanes,), rad[lanes] + contrib)
+        alive = scat.hit & scat.scattered
+        tp = (tp * scat.attenuation)[alive]
+        o = scat.point[alive]
+        d = scat.direction[alive]
+        lanes = lanes[alive]
+    return rad, tape, segs
+
+
 def trace(
     scene,
     origin,
@@ -53,33 +98,66 @@ def trace(
     *,
     max_depth: int = 50,
     sky_gradient: bool = False,
+    return_tape: bool = False,
+    intersect_fn=None,
 ):
-    """Trace one path per lane; returns radiance (N, 3).
+    """Trace one path per lane; returns radiance (N, 3), and with
+    `return_tape` also the (max_depth, N) int32 winner tape: row b holds the
+    primitive lane L hit at bounce b (quads numbered after spheres), -1 for
+    a miss or a lane already dead.
 
-    `uniform_seq` (max_depth, N, UNIFORMS_PER_BOUNCE) holds the shading
-    uniforms (for instance ops.ctr_rng.bounce_uniform_seq). Depth
-    exhaustion contributes black. No russian roulette."""
-    n = origin.shape[0]
+    `uniform_seq(bounce, lanes) -> (L, UNIFORMS_PER_BOUNCE)` gives the
+    shading uniforms of the alive lanes `lanes` (indices into this batch)
+    at `bounce`; for a precomputed (max_depth, N, UNIFORMS_PER_BOUNCE)
+    tensor `seq` (ops.ctr_rng.bounce_uniform_seq) pass
+    `lambda b, l: seq[b][l]`. Depth exhaustion contributes black. No
+    russian roulette.
+
+    `intersect_fn(scene, origin, direction, bounce, lanes) -> (t, prim)`
+    replaces the closest hit; `lanes` are the alive lanes' indices into
+    this batch (a tape replay looks its winners up by them, diff/tape.py).
+    The default is the closest-hit twin on detached tables, which carries
+    no gradient through t: pass geometry.intersect.intersect_scene_kernel_diff
+    for the differentiable hit. Shading is differentiable in the scene."""
     sph, quad, res = pk.pack_persistent_tables(scene)
-    tp = torch.ones_like(origin)
-    rad = torch.zeros_like(origin)
-    alive = torch.ones(n, dtype=torch.bool, device=origin.device)
-    o, d = origin, direction
-    for bounce in range(max_depth):
-        if not bool(alive.any()):
-            break
-        t, prim = intersect_plain(sph, quad, o, d)
-        scat = resolve_and_shade(res, scene.num_spheres, t, prim, o, d, uniform_seq[bounce])
-        miss = alive & ~scat.hit
-        live_hit = alive & scat.hit
-        bg = _background(d, background, sky_gradient)
-        rad = rad + torch.where(miss[:, None], tp * bg, 0.0)
-        rad = rad + torch.where(live_hit[:, None], tp * scat.emitted, 0.0)
-        alive = live_hit & scat.scattered
-        tp = torch.where(alive[:, None], tp * scat.attenuation, tp)
-        o = torch.where(alive[:, None], scat.point, o)
-        d = torch.where(alive[:, None], scat.direction, d)
-    return rad
+    if intersect_fn is None:
+        sph, quad = sph.detach(), quad.detach()
+
+        def hit_fn(o, d, bounce, lanes):
+            return intersect_plain(sph, quad, o.detach(), d.detach())
+    else:
+        def hit_fn(o, d, bounce, lanes):
+            return intersect_fn(scene, o, d, bounce, lanes)
+
+    rad, tape, _ = _trace_loop(
+        res, scene.num_spheres, origin, direction, background, uniform_seq, hit_fn,
+        max_depth=max_depth, sky_gradient=sky_gradient, return_tape=return_tape,
+    )
+    return (rad, tape) if return_tape else rad
+
+
+def trace_tape_plain(
+    sph_table, quad_table, res_table, cam_scalars, seed: int, n: int, *,
+    width: int, height: int, max_depth: int, sky_gradient: bool,
+):
+    """Plain twin of the tape kernel: lane L traces global sample L at pixel
+    L mod (width*height), its camera ray and shading drawn from the counter
+    RNG, with `trace`'s estimator (no russian roulette). Returns (radiance
+    (3, n) float32, tape (max_depth, n) int32, segments (n,) int32)."""
+    dev = sph_table.device
+    sid = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = sid % (width * height)
+    o, d = camera_rays(
+        _frame_from_scalars(cam_scalars), pix % width, pix // width,
+        ctr_rng.camera_uniforms(seed, sid),
+    )
+    rad, tape, segs = _trace_loop(
+        res_table, sph_table.shape[0], o, d, cam_scalars[pk.CAM_BG : pk.CAM_BG + 3],
+        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
+        lambda o, d, bounce, lanes: intersect_plain(sph_table, quad_table, o, d),
+        max_depth=max_depth, sky_gradient=sky_gradient, return_tape=True,
+    )
+    return rad.T.contiguous(), tape, segs
 
 
 def regen_jump(n: int, n_pixels: int) -> int:

@@ -12,9 +12,12 @@ radial float32 error (~5e-4 on rand_spheres' r = 0.2 spheres).
 Random decisions take explicit uniforms (N, UNIFORMS_PER_BOUNCE):
 [unit-sphere u0, u1, dielectric reflect-vs-refract coin].
 
-Not ported: the JAX package's dielectric likelihood-ratio factor
-(`_dielectric_lr`) has a forward value of exactly 1 and only carries a
-gradient; it returns with the `diff/` port (ROADMAP Queue 1 #10).
+Every branch is evaluated for every lane and the lane's own is selected, so
+each branch takes inputs that are safe on the lanes it does not own: the
+metal fuzz shares the ior column (a fuzz-0 mirror would make the dielectric
+branch's 1/ior infinite, and autograd would multiply that branch's zero
+cotangent by an infinite partial, writing NaN into scene gradients). The
+forward values of every selected lane are those of the kernel, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +51,16 @@ class BounceResult(NamedTuple):
 
 def _sel(mask, a, b):
     return torch.where(mask[:, None], a, b)
+
+
+def _dielectric_lr(reflect_prob, use_reflect, cannot_refract):
+    """Likelihood-ratio factor of the reflect/refract coin, (N, 1):
+    P(branch) / detached P(branch), exactly 1 in the forward pass, whose
+    gradient carries d log P / d ior (straight-through alone misses it).
+    Total internal reflection is certain, so its factor is the constant 1."""
+    p = torch.clamp(reflect_prob, 1e-4, 1.0 - 1e-4)
+    p_branch = torch.where(use_reflect, p, 1.0 - p)
+    return torch.where(cannot_refract, 1.0, p_branch / p_branch.detach())[:, None]
 
 
 def resolve_and_shade(
@@ -91,14 +104,19 @@ def resolve_and_shade(
     lamb = normal + ss
     lamb = _sel((lamb.abs() < NEAR_ZERO).all(1), normal, lamb)
 
+    is_lamb = mtype == LAMBERTIAN
+    is_metal = mtype == METAL
+    is_diel = mtype == DIELECTRIC
+
     # Metal.
     ud_n = udx * nx + udy * ny + udz * nz
     refl = ud - (2.0 * ud_n)[:, None] * normal
     metal = refl + prm[:, None] * ss
     metal_ok = (metal[:, 0] * nx + metal[:, 1] * ny + metal[:, 2] * nz) > 0.0
 
-    # Dielectric.
-    eta = torch.where(front, 1.0 / prm, prm)
+    # Dielectric (ior 1 on the lanes of other materials: see the docstring).
+    ior = torch.where(is_diel, prm, torch.ones_like(prm))
+    eta = torch.where(front, 1.0 / ior, ior)
     cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12, max=1.0))
     cannot = sin_t * eta > 1.0
@@ -113,14 +131,10 @@ def resolve_and_shade(
     par = -torch.sqrt(torch.clamp((1.0 - plen).abs(), min=1e-12))
     refr = perp + par[:, None] * normal
     diel = _sel(use_reflect, refl, refr)
+    diel_lr = _dielectric_lr(reflect_p, use_reflect, cannot).expand_as(tex)
 
-    is_lamb = mtype == LAMBERTIAN
-    is_metal = mtype == METAL
-    is_diel = mtype == DIELECTRIC
     direction = _sel(is_lamb, lamb, _sel(is_metal, metal, diel))
-    attenuation = _sel(
-        is_lamb | is_metal, tex, _sel(is_diel, torch.ones_like(tex), torch.zeros_like(tex))
-    )
+    attenuation = _sel(is_lamb | is_metal, tex, _sel(is_diel, diel_lr, torch.zeros_like(tex)))
     scattered = (is_metal & metal_ok) | is_lamb | is_diel
     return BounceResult(
         hit=hit,

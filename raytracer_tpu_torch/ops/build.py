@@ -47,6 +47,11 @@ SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
     ],
+    # sph, ns, quad, nq, res, cam, seed, n, radiance, tape, segs,
+    # width, height, max_depth, sky_gradient, threads, stream
+    "rt_render_persistent_tape": [
+        _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 

@@ -95,11 +95,14 @@ def camera_uniforms(seed, lane_ids):
     return uniform(seed, lane_ids.to(torch.int64)[:, None], j)
 
 
+def bounce_uniforms(seed, lane_ids, bounce: int):
+    """(L, UNIFORMS_PER_BOUNCE) shading uniforms of one bounce: row `bounce`
+    of bounce_uniform_seq, drawn for the given sample ids only."""
+    j = torch.arange(UNIFORMS_PER_BOUNCE, dtype=torch.int64, device=lane_ids.device)[None, :]
+    return uniform(seed, lane_ids.to(torch.int64)[:, None], shading_ctr(bounce, j))
+
+
 def bounce_uniform_seq(seed, lane_ids, max_depth: int):
     """(max_depth, L, UNIFORMS_PER_BOUNCE) shading uniforms, the
     `uniform_seq` layout of integrator.wavefront.trace."""
-    dev = lane_ids.device
-    b = torch.arange(max_depth, dtype=torch.int64, device=dev)[:, None, None]
-    j = torch.arange(UNIFORMS_PER_BOUNCE, dtype=torch.int64, device=dev)[None, None, :]
-    lane = lane_ids.to(torch.int64)[None, :, None]
-    return uniform(seed, lane, shading_ctr(b, j))
+    return torch.stack([bounce_uniforms(seed, lane_ids, b) for b in range(max_depth)])

@@ -1,10 +1,17 @@
-"""Kernel 2: the whole regenerative wavefront render in one launch.
+"""Kernels 2 and 3: the whole regenerative wavefront render in one launch,
+and its gradient-forward (tape) mode.
 
-Port of raytracer_tpu/ops/persistent_kernel.py (`render_persistent_pallas`),
-dense geometry with solid and checker textures. The CUDA kernel is
-`csrc/persistent_kernel.cu` (one thread per wavefront lane, each running its
-lane's strided sample queue to the end); its plain PyTorch twin and spec is
-integrator/wavefront.py:regen_plain, which takes the same packed tables.
+Kernel 2 ports raytracer_tpu/ops/persistent_kernel.py
+(`render_persistent_pallas`), dense geometry with solid and checker
+textures. The CUDA kernel is `csrc/persistent_kernel.cu` (one thread per
+wavefront lane, each running its lane's strided sample queue to the end);
+its plain PyTorch twin and spec is integrator/wavefront.py:regen_plain,
+which takes the same packed tables.
+
+Kernel 3 ports `render_persistent_tape`: the same CUDA kernel, instantiated
+with a tape, traces one sample per lane without russian roulette and
+records each bounce's winner (the forward of the bucketed gradient,
+diff/bucketed.py). Its twin is integrator/wavefront.py:trace_tape_plain.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py), so kernel and twin consume identical uniforms; the TPU
@@ -45,8 +52,9 @@ CLUSTERED_SCENE_PRIMS = 1536
 # Threads per block of the CUDA kernel.
 THREADS = 128
 
-# CUDA launches of the kernel (plain-twin calls do not count).
+# CUDA launches of kernel 2 and of kernel 3 (plain-twin calls do not count).
 LAUNCHES = 0
+LAUNCHES_TAPE = 0
 
 
 def unsupported_reason(scene) -> str | None:
@@ -59,7 +67,7 @@ def unsupported_reason(scene) -> str | None:
     if scene.num_prims > CLUSTERED_SCENE_PRIMS:
         return (
             f"{scene.num_prims} primitives > {CLUSTERED_SCENE_PRIMS} needs cluster "
-            "culling / BVH, not ported yet (ROADMAP Queue 1 #9, Queue 2 #2 slice 3)"
+            "culling / BVH, not ported yet (ROADMAP Queue 1 #12, Queue 2 #2 slice 3)"
         )
     return None
 
@@ -177,3 +185,63 @@ def render_persistent(
     check_launch("rt_render_persistent", err)
     LAUNCHES += 1
     return log, segs
+
+
+def render_persistent_tape(
+    sph_table,
+    quad_table,
+    res_table,
+    cam_scalars,
+    seed: int,
+    n: int,
+    *,
+    width: int,
+    height: int,
+    max_depth: int = 50,
+    sky_gradient: bool = False,
+):
+    """Kernel 3: lane L traces global sample L at pixel L mod (width*height)
+    to its end (no russian roulette; camera draws at counters 0-3, shading at
+    ops.ctr_rng.shading_ctr) and records its winner per bounce.
+
+    Returns (radiance (3, n) float32, tape (max_depth, n) int32 with -1 for
+    a miss or a dead lane, segments (n,) int32). CPU tables take
+    integrator.wavefront.trace_tape_plain; CUDA tables launch the CUDA
+    kernel (or raise)."""
+    global LAUNCHES_TAPE
+    dev = sph_table.device
+    check_tensor("sph_table", sph_table, torch.float32, (None, 4), dev)
+    check_tensor("quad_table", quad_table, torch.float32, (None, 12), dev)
+    p = sph_table.shape[0] + quad_table.shape[0]
+    check_tensor("res_table", res_table, torch.float32, (p, N_COLS), dev)
+    check_tensor("cam_scalars", cam_scalars, torch.float32, (N_CAM,), dev)
+    if max_depth < 1:
+        raise ValueError(f"max_depth must be >= 1, got {max_depth}")
+    cfg = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient)
+    if dev.type == "cpu":
+        from raytracer_tpu_torch.integrator.wavefront import trace_tape_plain
+
+        return trace_tape_plain(sph_table, quad_table, res_table, cam_scalars, seed, n, **cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_float4_rows(sph_table=sph_table, quad_table=quad_table, res_table=res_table)
+    from raytracer_tpu_torch.ops.build import check_launch, load_kernels
+
+    lib = load_kernels()
+    radiance = torch.empty(3, n, dtype=torch.float32, device=dev)
+    tape = torch.empty(max_depth, n, dtype=torch.int32, device=dev)
+    segs = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return radiance, tape, segs
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rt_render_persistent_tape(
+        sph_table.data_ptr(), sph_table.shape[0],
+        quad_table.data_ptr(), quad_table.shape[0],
+        res_table.data_ptr(), cam_scalars.data_ptr(),
+        ctypes.c_int(int(seed) & 0xFFFFFFFF).value, n,
+        radiance.data_ptr(), tape.data_ptr(), segs.data_ptr(),
+        width, height, max_depth, int(sky_gradient), THREADS, stream,
+    )
+    check_launch("rt_render_persistent_tape", err)
+    LAUNCHES_TAPE += 1
+    return radiance, tape, segs

@@ -123,8 +123,9 @@ def test_plain_twin_slots_are_the_strided_samples():
     frame = pcam.camera_frame(pcamera, width, height)
     o, d = pcam.camera_rays(frame, pix % width, pix // width,
                             prng.camera_uniforms(SEED, torch.from_numpy(sid)))
-    own = pwf.trace(pscene_, o, d, pcamera.background, max_depth=max_depth,
-                    uniform_seq=prng.bounce_uniform_seq(SEED, torch.from_numpy(sid), max_depth))
+    useq = prng.bounce_uniform_seq(SEED, torch.from_numpy(sid), max_depth)
+    own = pwf.trace(pscene_, o, d, pcamera.background, lambda b, lanes: useq[b][lanes],
+                    max_depth=max_depth)
     np.testing.assert_array_equal(got, own.numpy())
     want = jax_trace_samples(mixed_scene(jscene.SceneBuilder), jcamera, width, height,
                              sid, max_depth)
@@ -150,8 +151,9 @@ def test_port_trace_matches_jax_trace_sky_gradient():
     useq = jrng.bounce_uniform_seq(SEED, jnp.asarray(sid), depth)
     want = np.asarray(jwf.trace(jsc, o, d, jax.random.PRNGKey(0), jc.background,
                                 max_depth=depth, uniform_seq=useq, sky_gradient=True))
+    pseq = torch.tensor(np.asarray(useq))
     got = pwf.trace(psc, torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d)), pc.background,
-                    max_depth=depth, sky_gradient=True, uniform_seq=torch.tensor(np.asarray(useq)))
+                    lambda b, lanes: pseq[b][lanes], max_depth=depth, sky_gradient=True)
     assert_radiance_close(got.numpy(), want)
 
 

@@ -94,6 +94,33 @@ def test_persistent_kernel_matches_plain(cuda, name):
     assert abs(sk - sp) <= 1e-3 * sp
 
 
+def tape_inputs(name, width, device, **scene_kw):
+    scene, cam, st = get_scene(name, width=width, **scene_kw)
+    sph, quad, res = pk.pack_persistent_tables(scene.to(device))
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, st.width, st.height),
+                                      cam.background).to(device)
+    return (sph, quad, res, cam_s), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,width,spp,depth", [("rand_spheres", 96, 2, 50),
+                                                  ("cornell", 48, 2, 12)])
+def test_tape_kernel_matches_plain(cuda, name, width, spp, depth):
+    """Kernel 3 against its twin on the same CUDA tables and seed: tape
+    equal on every entry, radiance and segments equal on every lane."""
+    tables, st = tape_inputs(name, width, cuda)
+    n = st.width * st.height * spp
+    cfg = dict(width=st.width, height=st.height, max_depth=depth, sky_gradient=st.sky_gradient)
+    before = pk.LAUNCHES_TAPE
+    rad_k, tape_k, segs_k = pk.render_persistent_tape(*tables, 9, n, **cfg)
+    assert pk.LAUNCHES_TAPE == before + 1
+    rad_p, tape_p, segs_p = wf.trace_tape_plain(*tables, 9, n, **cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(tape_k, tape_p)
+    torch.testing.assert_close(rad_k, rad_p, rtol=0, atol=0)
+    assert torch.equal(segs_k, segs_p)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_bad_inputs(cuda):
     sph, quad = scene_tables(get_scene("cornell")[0].to(cuda))
@@ -118,6 +145,19 @@ def test_cpu_calls_take_the_plain_twin_and_count_nothing():
     log, segs = pk.render_persistent(*args, **cfg)
     assert log.shape == (3, cfg["num_slots"], 300) and int(segs.sum()) >= 16 * 16 * 2
     assert (ik.LAUNCHES, pk.LAUNCHES) == before
+
+
+def test_cpu_tape_call_takes_the_twin_and_counts_nothing():
+    tables, st = tape_inputs("cornell", 16, "cpu")
+    n = st.width * st.height
+    before = pk.LAUNCHES_TAPE
+    rad, tape, segs = pk.render_persistent_tape(*tables, 4, n, width=st.width,
+                                                height=st.height, max_depth=5)
+    assert pk.LAUNCHES_TAPE == before
+    assert rad.shape == (3, n) and tape.shape == (5, n) and tape.dtype == torch.int32
+    assert int(tape.max()) < tables[2].shape[0] and int(segs.min()) >= 1
+    with pytest.raises(ValueError, match="max_depth"):
+        pk.render_persistent_tape(*tables, 4, n, width=st.width, height=st.height, max_depth=0)
 
 
 def test_wrappers_reject_unsupported_devices():
