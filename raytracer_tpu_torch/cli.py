@@ -18,7 +18,7 @@ import time
 import torch
 
 from raytracer_tpu_torch.imgio.image import write_png, write_ppm
-from raytracer_tpu_torch.render.driver import render_scene, resolve_device
+from raytracer_tpu_torch.render.driver import render_path, render_scene, resolve_device
 from raytracer_tpu_torch.scenes.registry import SCENES, get_scene
 from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
@@ -64,13 +64,15 @@ def main(argv=None) -> dict:
         "size": [settings.width, settings.height],
         "spp": settings.samples_per_pixel,
         "max_depth": settings.max_depth,
+        "path": render_path(scene),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "wall_s": dt,
         "camera_mrays_per_s": camera_rays / dt / 1e6,
         "out": args.out,
     }
     snap = metrics.snapshot()
-    for k in ("traced_segments", "warp_occupancy", "wavefront_lanes", "retirement_log_mb"):
+    for k in ("traced_segments", "warp_occupancy", "iterations", "lane_occupancy", "passes",
+              "wavefront_lanes", "retirement_log_mb"):
         if k in snap:
             report[k] = snap[k]
     # Both rates over the render's wall time (image encoding excluded).

@@ -1,8 +1,8 @@
 // The ONE device copy of the per-primitive closest-hit candidate math.
 //
 // Port of raytracer_tpu/ops/closest_hit_body.py (make_sphere_body,
-// make_quad_body). Both kernels (intersect_kernel.cu, persistent_kernel.cu)
-// include it, so a numerical fix cannot drift between them. Its plain twin is
+// make_quad_body). Every kernel (intersect, persistent, wavefront-step and
+// culled) includes it, so a numerical fix cannot drift between them. Its plain twin is
 // raytracer_tpu_torch/ops/intersect_kernel.py:closest_hit_scaled.
 //
 // Conventions:
@@ -48,11 +48,12 @@ static __device__ __forceinline__ RayTerms ray_terms(float ox, float oy, float o
   return r;
 }
 
-// Sphere candidates; the recorded prim id is the table row.
-static __device__ __forceinline__ void sphere_candidates(
-    const float4* __restrict__ sph, int ns, const RayTerms& r,
+// Sphere candidates of table rows [begin, end); the recorded prim id is the
+// table row.
+static __device__ __forceinline__ void sphere_candidates_range(
+    const float4* __restrict__ sph, int begin, int end, const RayTerms& r,
     float& t_best, int& p_best) {
-  for (int i = 0; i < ns; ++i) {
+  for (int i = begin; i < end; ++i) {
     const float4 s = __ldg(sph + i);
     const float d_dot_c = r.dx * s.x + r.dy * s.y + r.dz * s.z;
     const float o_dot_c = r.ox * s.x + r.oy * s.y + r.oz * s.z;
@@ -69,6 +70,13 @@ static __device__ __forceinline__ void sphere_candidates(
       p_best = i;
     }
   }
+}
+
+// Sphere candidates of the whole table.
+static __device__ __forceinline__ void sphere_candidates(
+    const float4* __restrict__ sph, int ns, const RayTerms& r,
+    float& t_best, int& p_best) {
+  sphere_candidates_range(sph, 0, ns, r, t_best, p_best);
 }
 
 // Quad candidates; the recorded prim id is prim_offset + row (callers pass

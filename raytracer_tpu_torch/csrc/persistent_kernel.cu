@@ -48,23 +48,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "camera.cuh"
 #include "closest_hit.cuh"
 #include "ctr_rng.cuh"
 
 namespace {
 
-constexpr float TWO_PI = 6.283185307179586f;
+using rt::CAM_BG;
+using rt::CAM_DEFOCUS;
+using rt::TWO_PI;
 constexpr float NEAR_ZERO = 1e-8f;
-
-// Camera/config scalars (ops/persistent_kernel.py pack_camera_scalars_bg).
-constexpr int CAM_PIXEL00 = 0;
-constexpr int CAM_DU = 3;
-constexpr int CAM_DV = 6;
-constexpr int CAM_CENTER = 9;
-constexpr int CAM_DISK_U = 12;
-constexpr int CAM_DISK_V = 15;
-constexpr int CAM_DEFOCUS = 18;
-constexpr int CAM_BG = 19;
 
 // Material types (geometry/scene.py).
 constexpr int LAMBERTIAN = 0;
@@ -127,31 +120,7 @@ __global__ void persistent_kernel(
       sk += 1;
       rem -= 1;
       key = rt::sample_key(seed, (uint32_t)lane + (uint32_t)sk * (uint32_t)n);
-      const float jx = rt::key_uniform(key, 0) - 0.5f;
-      const float jy = rt::key_uniform(key, 1) - 0.5f;
-      const float r_disk = sqrtf(rt::key_uniform(key, 2));
-      const float phi = TWO_PI * rt::key_uniform(key, 3);
-      const float disk_x = r_disk * cosf(phi);
-      const float disk_y = r_disk * sinf(phi);
-      const float fx = (float)px + jx;
-      const float fy = (float)py + jy;
-      const float pcx = __ldg(cam + CAM_PIXEL00 + 0) + fx * __ldg(cam + CAM_DU + 0) +
-                        fy * __ldg(cam + CAM_DV + 0);
-      const float pcy = __ldg(cam + CAM_PIXEL00 + 1) + fx * __ldg(cam + CAM_DU + 1) +
-                        fy * __ldg(cam + CAM_DV + 1);
-      const float pcz = __ldg(cam + CAM_PIXEL00 + 2) + fx * __ldg(cam + CAM_DU + 2) +
-                        fy * __ldg(cam + CAM_DV + 2);
-      ox = __ldg(cam + CAM_CENTER + 0);
-      oy = __ldg(cam + CAM_CENTER + 1);
-      oz = __ldg(cam + CAM_CENTER + 2);
-      if (use_disk) {
-        ox = ox + disk_x * __ldg(cam + CAM_DISK_U + 0) + disk_y * __ldg(cam + CAM_DISK_V + 0);
-        oy = oy + disk_x * __ldg(cam + CAM_DISK_U + 1) + disk_y * __ldg(cam + CAM_DISK_V + 1);
-        oz = oz + disk_x * __ldg(cam + CAM_DISK_U + 2) + disk_y * __ldg(cam + CAM_DISK_V + 2);
-      }
-      dx = pcx - ox;
-      dy = pcy - oy;
-      dz = pcz - oz;
+      rt::camera_ray(cam, px, py, key, use_disk, ox, oy, oz, dx, dy, dz);
       tpx = tpy = tpz = 1.0f;
       rdx = rdy = rdz = 0.0f;
       depth = 0;

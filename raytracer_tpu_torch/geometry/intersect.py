@@ -10,19 +10,30 @@ finds the winner on detached rays and tables (no gradient ever reaches it),
 and `winner_t_diff` recomputes the winner's t with autograd from the scene
 tensors. The winner itself is held constant, which is correct almost
 everywhere; visibility-boundary terms are the edge estimators' job.
+
+`sphere_uv` and `quad_uv` are the surface coordinates image textures read.
+Large scenes (render/driver.py:_render_large_scene) search through prebuilt
+`LargeSceneTables`: the cluster-culled kernel for coherent camera rays
+(`intersect_scene_culled`) and the dense closest-hit kernel for bounces
+(`intersect_scene_dense_tables`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.geometry.scene import Scene
+from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
 
 DEFAULT_T_MIN = ik.T_MIN
+# The reference adds 5*pi/12 to the sphere's phi "to make the earth texture
+# line up" (hittables.go:124-125); kept for parity.
+SPHERE_UV_PHI_OFFSET = 5.0 * math.pi / 12.0
 
 
 class HitRecord(NamedTuple):
@@ -81,6 +92,23 @@ def closest_hit_t_prim(scene: Scene, origin, direction):
     int32 with -1 on a miss)."""
     sph, quad = scene_tables(scene)
     return ik.intersect_plain(sph, quad, origin, direction)
+
+
+def sphere_uv(unit_normal):
+    """Spherical (u, v) of an outward unit normal (N, 3), with the
+    reference's phi offset (hittables.go:122-126)."""
+    ny = torch.clamp(unit_normal[:, 1], -1.0, 1.0)
+    theta = torch.acos(-ny)
+    phi = torch.atan2(-unit_normal[:, 2], unit_normal[:, 0]) + math.pi
+    return (phi + SPHERE_UV_PHI_OFFSET) / (2.0 * math.pi), theta / math.pi
+
+
+def quad_uv(point, av, q_av, bv, q_bv):
+    """Quad (u, v) = (p.av - Q.av, p.bv - Q.bv) of hit points (N, 3), from
+    the winners' basis rows (hittables.go:183-186)."""
+    u = (point[:, 0] * av[:, 0] + point[:, 1] * av[:, 1] + point[:, 2] * av[:, 2]) - q_av
+    v = (point[:, 0] * bv[:, 0] + point[:, 1] * bv[:, 1] + point[:, 2] * bv[:, 2]) - q_bv
+    return u, v
 
 
 def winner_t_diff(scene: Scene, qd: QuadDerived, origin, direction, prim, t_nd, t_min=DEFAULT_T_MIN):
@@ -161,3 +189,42 @@ def intersect_scene(scene: Scene, origin, direction) -> HitRecord:
         mat_id=torch.where(is_quad, scene.quad_mat[qidx], scene.sph_mat[sidx]),
         prim_id=prim,
     )
+
+
+class LargeSceneTables(NamedTuple):
+    """Device tables of the large-scene searches, built once per scene:
+    the dense closest-hit tables and ops/culled_kernel.py's cluster tables."""
+
+    sph_table: torch.Tensor  # (S, 4) dense
+    quad_table: torch.Tensor  # (Q, 12)
+    clusters: torch.Tensor  # (G, 8)
+    cluster_order: torch.Tensor  # (8, G) int32
+    sph_clustered: torch.Tensor  # (S', 4) cluster-ordered
+    orig_ids: torch.Tensor  # (S',) int32
+    num_spheres: int
+
+
+def build_large_scene_tables(scene: Scene, max_leaf: int = 128) -> LargeSceneTables:
+    """Host BVH clustering (NumPy) plus the dense tables, on the scene's
+    device."""
+    dev = scene.sph_center.device
+    sph, quad = scene_tables(scene)
+    cl, order, sph_cl, orig = ck.build_clusters(scene, max_leaf=max_leaf)
+    return LargeSceneTables(sph, quad, cl.to(dev), order.to(dev), sph_cl.to(dev),
+                            orig.to(dev), scene.num_spheres)
+
+
+def intersect_scene_culled(tables: LargeSceneTables, origin, direction):
+    """Closest hit (t, prim) of a coherent ray batch (camera rays in pixel
+    order) through the cluster-culled kernel (its twin on CPU tensors)."""
+    return ck.intersect_culled(
+        tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
+        tables.quad_table, tables.num_spheres, origin.contiguous(), direction.contiguous(),
+    )
+
+
+def intersect_scene_dense_tables(tables: LargeSceneTables, origin, direction):
+    """Closest hit (t, prim) of an incoherent batch (bounce rays) through the
+    dense closest-hit kernel (its twin on CPU tensors)."""
+    return ik.intersect(tables.sph_table, tables.quad_table, origin.contiguous(),
+                        direction.contiguous())

@@ -13,8 +13,13 @@ alive mask.
   per lane from the packed tables, with counter-RNG uniforms.
 * `regen_plain`: the regenerative wavefront over a strided per-lane sample
   queue, the plain twin and spec of the persistent CUDA kernel
-  (csrc/persistent_kernel.cu) — the regen loop body and its epilogue.
+  (csrc/persistent_kernel.cu) — the regen loop body and its epilogue
+  (`_bounce_and_retire`).
 * `render_wavefront_regen`: schedule, kernel wrapper, `_fold_log`.
+* `wavefront_step_loop`, `render_wavefront_step`: the same regenerative
+  loop for scenes the persistent kernel does not serve, each iteration's
+  front half in kernel 5 (ops/wavefront_kernel.py) and the epilogue
+  `_bounce_and_retire` in PyTorch, with noise and image textures.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py for the layout).
@@ -24,11 +29,24 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.core.camera import CameraFrame, camera_rays
+from raytracer_tpu_torch.core.camera import camera_rays
+from raytracer_tpu_torch.geometry.intersect import quad_derived
 from raytracer_tpu_torch.materials.materials import resolve_and_shade
+from raytracer_tpu_torch.materials.packed import primitive_table, texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops import persistent_kernel as pk
-from raytracer_tpu_torch.ops.intersect_kernel import intersect_plain
+from raytracer_tpu_torch.ops.intersect_kernel import (
+    intersect,
+    intersect_plain,
+    pack_quad_table,
+    pack_sphere_table,
+)
+from raytracer_tpu_torch.ops.wavefront_kernel import advance_pixels, wavefront_step
+
+# Russian-roulette survival cap of the wavefront-step path: the JAX
+# driver's value for its non-persistent paths (driver.py:602); the
+# persistent path caps at 0.75.
+STEP_RR_HI = 0.95
 
 
 def sky_color(direction):
@@ -50,7 +68,7 @@ def _background(direction, background, sky_gradient):
 
 def _trace_loop(
     res, num_spheres: int, origin, direction, background, uniforms_at, hit_fn, *,
-    max_depth: int, sky_gradient: bool, return_tape: bool,
+    max_depth: int, sky_gradient: bool, return_tape: bool, textures=None,
 ):
     """Trace every lane's path to its end, working at each bounce on the
     lanes still alive only (compacted, so the work and the autograd graph
@@ -74,7 +92,8 @@ def _trace_loop(
             break
         segs[lanes] += 1
         t, prim = hit_fn(o, d, bounce, lanes)
-        scat = resolve_and_shade(res, num_spheres, t, prim, o, d, uniforms_at(bounce, lanes))
+        scat = resolve_and_shade(res, num_spheres, t, prim, o, d, uniforms_at(bounce, lanes),
+                                 textures)
         if tape is not None:
             tape[bounce, lanes] = torch.where(scat.hit, prim.to(torch.int32), -1)
         # A miss adds the background, a hit its emission (0 but for lights).
@@ -99,12 +118,14 @@ def trace(
     max_depth: int = 50,
     sky_gradient: bool = False,
     return_tape: bool = False,
+    return_segments: bool = False,
     intersect_fn=None,
 ):
     """Trace one path per lane; returns radiance (N, 3), and with
     `return_tape` also the (max_depth, N) int32 winner tape: row b holds the
     primitive lane L hit at bounce b (quads numbered after spheres), -1 for
-    a miss or a lane already dead.
+    a miss or a lane already dead; with `return_segments` also the (N,)
+    int32 path segments per lane (last).
 
     `uniform_seq(bounce, lanes) -> (L, UNIFORMS_PER_BOUNCE)` gives the
     shading uniforms of the alive lanes `lanes` (indices into this batch)
@@ -116,24 +137,30 @@ def trace(
     `intersect_fn(scene, origin, direction, bounce, lanes) -> (t, prim)`
     replaces the closest hit; `lanes` are the alive lanes' indices into
     this batch (a tape replay looks its winners up by them, diff/tape.py).
-    The default is the closest-hit twin on detached tables, which carries
-    no gradient through t: pass geometry.intersect.intersect_scene_kernel_diff
-    for the differentiable hit. Shading is differentiable in the scene."""
-    sph, quad, res = pk.pack_persistent_tables(scene)
+    The default is the closest-hit kernel's wrapper on detached tables (its
+    twin on CPU tensors), which carries no gradient through t: pass
+    geometry.intersect.intersect_scene_kernel_diff for the differentiable
+    hit. Shading is differentiable in the scene; noise and image textures
+    are shaded from materials.packed.texture_tables."""
+    qd = quad_derived(scene)
+    sph, quad = pack_sphere_table(scene.sph_center, scene.sph_radius), pack_quad_table(qd)
+    res = primitive_table(scene, qd)
     if intersect_fn is None:
         sph, quad = sph.detach(), quad.detach()
 
         def hit_fn(o, d, bounce, lanes):
-            return intersect_plain(sph, quad, o.detach(), d.detach())
+            return intersect(sph, quad, o.detach().contiguous(), d.detach().contiguous())
     else:
         def hit_fn(o, d, bounce, lanes):
             return intersect_fn(scene, o, d, bounce, lanes)
 
-    rad, tape, _ = _trace_loop(
+    rad, tape, segs = _trace_loop(
         res, scene.num_spheres, origin, direction, background, uniform_seq, hit_fn,
         max_depth=max_depth, sky_gradient=sky_gradient, return_tape=return_tape,
+        textures=texture_tables(scene, qd),
     )
-    return (rad, tape) if return_tape else rad
+    out = (rad,) + ((tape,) if return_tape else ()) + ((segs,) if return_segments else ())
+    return out if len(out) > 1 else rad
 
 
 def trace_tape_plain(
@@ -148,7 +175,7 @@ def trace_tape_plain(
     sid = torch.arange(n, dtype=torch.int64, device=dev)
     pix = sid % (width * height)
     o, d = camera_rays(
-        _frame_from_scalars(cam_scalars), pix % width, pix // width,
+        pk.frame_from_scalars(cam_scalars), pix % width, pix // width,
         ctr_rng.camera_uniforms(seed, sid),
     )
     rad, tape, segs = _trace_loop(
@@ -191,18 +218,6 @@ def schedule_arrays(n: int, n_pixels: int, spp: int, width: int, device="cpu"):
     return as32(remaining), as32(pix % width), as32(pix // width)
 
 
-def _frame_from_scalars(cam) -> CameraFrame:
-    return CameraFrame(
-        center=cam[pk.CAM_CENTER : pk.CAM_CENTER + 3],
-        pixel00=cam[pk.CAM_PIXEL00 : pk.CAM_PIXEL00 + 3],
-        pixel_du=cam[pk.CAM_DU : pk.CAM_DU + 3],
-        pixel_dv=cam[pk.CAM_DV : pk.CAM_DV + 3],
-        defocus_disk_u=cam[pk.CAM_DISK_U : pk.CAM_DISK_U + 3],
-        defocus_disk_v=cam[pk.CAM_DISK_V : pk.CAM_DISK_V + 3],
-        defocus_angle_radians=cam[pk.CAM_DEFOCUS],
-    )
-
-
 def regen_plain(
     sph_table,
     quad_table,
@@ -232,7 +247,7 @@ def regen_plain(
     dev = rem0.device
     n = rem0.shape[0]
     ns = sph_table.shape[0]
-    frame = _frame_from_scalars(cam_scalars)
+    frame = pk.frame_from_scalars(cam_scalars)
     bg = cam_scalars[pk.CAM_BG : pk.CAM_BG + 3]
     lane_ids = torch.arange(n, dtype=torch.int64, device=dev)
     j3 = torch.arange(ctr_rng.UNIFORMS_PER_BOUNCE, dtype=torch.int64, device=dev)
@@ -254,15 +269,8 @@ def regen_plain(
         # ---- regeneration: idle lanes owing samples start their next one ----
         g = torch.nonzero(~active & (rem > 0)).squeeze(1)
         if g.numel():
-            first = sk[g] < 0
-            pxa = px[g] + jump_px
-            pya = py[g] + jump_py
-            carry = pxa >= width
-            pxa = torch.where(carry, pxa - width, pxa)
-            pya = torch.where(carry, pya + 1, pya)
-            pya = torch.where(pya >= height, pya - height, pya)
-            px[g] = torch.where(first, px[g], pxa)
-            py[g] = torch.where(first, py[g], pya)
+            px[g], py[g] = advance_pixels(px[g], py[g], sk[g] < 0, width=width, height=height,
+                                          jump_px=jump_px, jump_py=jump_py)
             sk[g] += 1
             rem[g] -= 1
             sid = lane_ids[g] + sk[g] * n
@@ -279,35 +287,57 @@ def regen_plain(
         segs[a] += 1
 
         # ---- one bounce ----
-        o, d, tp_a, rad_a, sk_a = origin[a], direction[a], tp[a], rad[a], sk[a]
+        o, d, sk_a = origin[a], direction[a], sk[a]
         sid = lane_ids[a] + sk_a * n
         bounce = depth[a]
         t, prim = intersect_plain(sph_table, quad_table, o, d)
         uni = ctr_rng.uniform(seed, sid[:, None], ctr_rng.shading_ctr(bounce[:, None], j3))
-        scat = resolve_and_shade(res_table, ns, t, prim, o, d, uni)
-        miss = ~scat.hit
-        rad_a = rad_a + torch.where(miss[:, None], tp_a * _background(d, bg, sky_gradient), 0.0)
-        rad_a = rad_a + torch.where(scat.hit[:, None], tp_a * scat.emitted, 0.0)
-        depth_a = bounce + 1
-        survives = scat.hit & scat.scattered & (depth_a < max_depth)
-        tp_a = torch.where(survives[:, None], tp_a * scat.attenuation, tp_a)
-        rr_on = survives & (depth_a >= rr_start)
-        q = torch.clamp(tp_a.max(dim=1).values, min=rr_lo, max=rr_hi)
         rru = ctr_rng.uniform(seed, sid, ctr_rng.rr_ctr(bounce, max_depth))
-        survives = survives & (~rr_on | (rru < q))
-        tp_a = torch.where((rr_on & survives)[:, None], tp_a * (1.0 / q)[:, None], tp_a)
-
-        origin[a] = torch.where(survives[:, None], scat.point, o)
-        direction[a] = torch.where(survives[:, None], scat.direction, d)
-        tp[a] = tp_a
-        rad[a] = rad_a
-        depth[a] = depth_a
-        active[a] = survives
-
-        # ---- retire finished paths into their (slot, lane) cells ----
-        fin = ~survives
-        log[:, sk_a[fin], a[fin]] = rad_a[fin].T
+        _bounce_and_retire(
+            res_table, ns, None, bg, a, sk_a, t, prim, uni, rru,
+            (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
+            rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient,
+        )
     return log, segs
+
+
+def _bounce_and_retire(
+    res_table, ns, textures, bg, a, sk_a, t, prim, uni, rru, state, *,
+    max_depth, rr_start, rr_lo, rr_hi, sky_gradient,
+):
+    """One bounce of the lanes `a` in flight from their winners (t, prim),
+    shading uniforms `uni` (L, 3) and russian-roulette coins `rru` (L,):
+    shade, background or emission, depth budget, russian roulette; then
+    the state tensors (origin, direction, throughput, radiance, depth,
+    active, log) are updated in place and finished paths retire into
+    log[:, slot, lane]. The bounce epilogue of regen_plain and of the
+    wavefront-step path (raytracer_tpu/integrator/wavefront.py:
+    _regen_bounce_epilogue), so both realise one estimator."""
+    origin, direction, tp, rad, depth, active, log = state
+    o, d, tp_a, rad_a = origin[a], direction[a], tp[a], rad[a]
+    bounce = depth[a]
+    scat = resolve_and_shade(res_table, ns, t, prim, o, d, uni, textures)
+    miss = ~scat.hit
+    rad_a = rad_a + torch.where(miss[:, None], tp_a * _background(d, bg, sky_gradient), 0.0)
+    rad_a = rad_a + torch.where(scat.hit[:, None], tp_a * scat.emitted, 0.0)
+    depth_a = bounce + 1
+    survives = scat.hit & scat.scattered & (depth_a < max_depth)
+    tp_a = torch.where(survives[:, None], tp_a * scat.attenuation, tp_a)
+    rr_on = survives & (depth_a >= rr_start)
+    q = torch.clamp(tp_a.max(dim=1).values, min=rr_lo, max=rr_hi)
+    survives = survives & (~rr_on | (rru < q))
+    tp_a = torch.where((rr_on & survives)[:, None], tp_a * (1.0 / q)[:, None], tp_a)
+
+    origin[a] = torch.where(survives[:, None], scat.point, o)
+    direction[a] = torch.where(survives[:, None], scat.direction, d)
+    tp[a] = tp_a
+    rad[a] = rad_a
+    depth[a] = depth_a.to(depth.dtype)
+    active[a] = survives
+
+    # ---- retire finished paths into their (slot, lane) cells ----
+    fin = ~survives
+    log[:, sk_a[fin].long(), a[fin]] = rad_a[fin].T
 
 
 def _fold_log(log, num_slots: int, n: int, n_pixels: int, jump: int):
@@ -352,3 +382,109 @@ def render_wavefront_regen(
         num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient,
     )
     return _fold_log(log, num_slots, n, n_pixels, jump), segs
+
+
+def wavefront_step_loop(
+    sph_table,
+    quad_table,
+    res_table,
+    textures,
+    cam_scalars,
+    seed: int,
+    rem0,
+    px0,
+    py0,
+    *,
+    width: int,
+    height: int,
+    jump_px: int,
+    jump_py: int,
+    num_slots: int,
+    max_depth: int,
+    rr_start: int,
+    rr_lo: float,
+    rr_hi: float,
+    sky_gradient: bool,
+    max_iters: int,
+):
+    """The wavefront-step path's loop (port of regen_core's `body_mk` with
+    `_regen_bounce_epilogue`, raytracer_tpu/integrator/wavefront.py:708-866):
+    per iteration, kernel 5 (ops/wavefront_kernel.py:wavefront_step)
+    regenerates idle lanes, traces the camera ray and finds every lane's
+    closest hit with its draws; the lanes in flight are then shaded and
+    retired in PyTorch (`_bounce_and_retire`, regen_plain's epilogue, with
+    the texture table for noise and image textures). The loop ends when no
+    lane has a path in flight after regeneration: one host sync per
+    iteration. Arguments as regen_plain's, plus `textures`
+    (materials.packed.texture_tables, or None). Returns (log (3, K, N),
+    segments per lane (N,) int32, iterations)."""
+    dev = rem0.device
+    n = rem0.shape[0]
+    ns = sph_table.shape[0]
+    bg = cam_scalars[pk.CAM_BG : pk.CAM_BG + 3]
+    rem, px, py = rem0, px0, py0
+    sk = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    depth = torch.zeros(n, dtype=torch.int32, device=dev)
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    origin = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    direction = torch.ones(n, 3, dtype=torch.float32, device=dev)
+    tp = torch.ones(n, 3, dtype=torch.float32, device=dev)
+    rad = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    log = torch.zeros(3, num_slots, n, dtype=torch.float32, device=dev)
+    segs = torch.zeros(n, dtype=torch.int32, device=dev)
+    iters = 0
+    for _ in range(max_iters):
+        out = wavefront_step(
+            sph_table, quad_table, cam_scalars, seed, origin, direction, active, rem, px, py,
+            sk, depth, width=width, height=height, jump_px=jump_px, jump_py=jump_py,
+            max_depth=max_depth,
+        )
+        origin, direction = out.origin, out.direction
+        rem, px, py, sk = out.remaining, out.px, out.py, out.sample_k
+        tp.masked_fill_(out.grant[:, None], 1.0)
+        rad.masked_fill_(out.grant[:, None], 0.0)
+        depth.masked_fill_(out.grant, 0)
+        active = active | out.grant
+        a = torch.nonzero(active).squeeze(1)
+        if a.numel() == 0:
+            break
+        iters += 1
+        segs[a] += 1
+        uni = out.uniforms[a]
+        _bounce_and_retire(
+            res_table, ns, textures, bg, a, sk[a], out.t[a], out.prim[a], uni[:, :3], uni[:, 3],
+            (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
+            rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient,
+        )
+    return log, segs, iters
+
+
+def render_wavefront_step(
+    sph_table,
+    quad_table,
+    res_table,
+    textures,
+    cam_scalars,
+    seed: int,
+    *,
+    width: int,
+    height: int,
+    spp: int,
+    wavefront_size: int,
+    max_depth: int = 50,
+    sky_gradient: bool = False,
+):
+    """Render spp samples per pixel through the wavefront-step path, for
+    scenes the persistent kernel does not serve. Russian roulette starts at
+    depth 5 with survival capped at STEP_RR_HI. Returns (framebuffer
+    (n_pixels, 3) radiance sums, segments (N,) int32, iterations)."""
+    n_pixels = width * height
+    n, num_slots, jump = strided_schedule(n_pixels, spp, wavefront_size)
+    rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
+    log, segs, iters = wavefront_step_loop(
+        sph_table, quad_table, res_table, textures, cam_scalars, seed, rem0, px0, py0,
+        width=width, height=height, jump_px=jump % width, jump_py=jump // width,
+        num_slots=num_slots, max_depth=max_depth, rr_start=5, rr_lo=0.05, rr_hi=STEP_RR_HI,
+        sky_gradient=sky_gradient, max_iters=pk.max_iters_for(num_slots, max_depth),
+    )
+    return _fold_log(log, num_slots, n, n_pixels, jump), segs, iters

@@ -3,8 +3,9 @@
 Port of raytracer_tpu/materials/materials.py:resolve_and_shade with the
 persistent kernel's arithmetic (ops/persistent_kernel.py:640-962, and
 csrc/persistent_kernel.cu, which equals this function): the unit ray
-direction is d / sqrt(|d|^2), and only solid and checker textures are
-shaded. The sphere normal is normalize((p - c) * r), the hollow-glass sign
+direction is d / sqrt(|d|^2). Solid and checker textures come from the row
+table; noise and image textures from the texture table when one is given
+(the wavefront-step and large-scene paths). The sphere normal is normalize((p - c) * r), the hollow-glass sign
 riding on r, as in the JAX package's resolve_and_shade; the TPU kernel skips
 that normalization, and its normal's length is then off by the hit point's
 radial float32 error (~5e-4 on rand_spheres' r = 0.2 spheres).
@@ -29,7 +30,7 @@ import torch
 from raytracer_tpu_torch.core.sampling import unit_sphere_from_uniform
 from raytracer_tpu_torch.geometry.scene import DIELECTRIC, DIFFUSE_LIGHT, LAMBERTIAN, METAL
 from raytracer_tpu_torch.materials import packed as pk
-from raytracer_tpu_torch.materials.textures import eval_texture_rows
+from raytracer_tpu_torch.materials.textures import eval_texture_extra, eval_texture_rows
 
 # U[0,1) uniforms consumed per lane per bounce: 2 for the unit-sphere sample
 # (Lambertian direction / metal fuzz), 1 for the dielectric coin.
@@ -64,12 +65,14 @@ def _dielectric_lr(reflect_prob, use_reflect, cannot_refract):
 
 
 def resolve_and_shade(
-    table, num_spheres: int, t, prim, origin, ray_dir, uniforms
+    table, num_spheres: int, t, prim, origin, ray_dir, uniforms, textures=None
 ) -> BounceResult:
     """Hit epilogue + shading from the winner (t (N,), +inf on a miss; prim
     (N,) int). `table` is materials.packed.primitive_table(scene, qd) and
-    `num_spheres` its sphere row count (quad rows follow). Miss lanes return
-    finite garbage that callers mask with `hit`."""
+    `num_spheres` its sphere row count (quad rows follow); `textures` is
+    materials.packed.texture_tables(scene, qd), None for scenes without
+    noise or image textures. Miss lanes return finite garbage that callers
+    mask with `hit`."""
     hit = torch.isfinite(t)
     t = torch.where(hit, t, torch.zeros_like(t))
     prim = torch.where(hit, prim, torch.zeros_like(prim)).long()
@@ -83,7 +86,8 @@ def resolve_and_shade(
     is_quad = prim >= num_spheres
     s = (point - g) * g3[:, None]
     s_len = torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1] + s[:, 2] * s[:, 2] + 1e-20)
-    outward = _sel(is_quad, g, s / s_len[:, None])
+    s_unit = s / s_len[:, None]
+    outward = _sel(is_quad, g, s_unit)
     d = ray_dir
     d_dot_n = d[:, 0] * outward[:, 0] + d[:, 1] * outward[:, 1] + d[:, 2] * outward[:, 2]
     front = d_dot_n < 0.0
@@ -91,6 +95,8 @@ def resolve_and_shade(
     nx, ny, nz = normal.unbind(1)
 
     tex = eval_texture_rows(row[:, pk.COL_ITS], row[:, pk.COL_C0], row[:, pk.COL_C1], point)
+    if textures is not None:
+        tex = eval_texture_extra(textures, textures.rows[prim], is_quad, s_unit, point, tex)
     is_light = mtype == DIFFUSE_LIGHT
     emitted = _sel(is_light, tex, torch.zeros_like(tex))
 

@@ -8,16 +8,21 @@ The kernel reads the winner's row directly by index as four float4; this
 plain (P, cols) layout replaces the TPU's lane-replicated resolve table,
 which existed only to feed a lane-gather scan.
 
-Only solid and checker textures are packed (the slice the persistent CUDA
-kernel shades); noise and image textures are refused by
-ops/persistent_kernel.py:scene_supports_persistent before packing.
+The (P, 16) table carries solid and checker textures (what the persistent
+CUDA kernel shades). Noise and image textures need fields that do not fit
+its spare columns (the quad UV basis alone is eight floats), so they go in
+a second (P, TEX_COLS) table beside it (`texture_tables`), built only for
+scenes that have such textures; the (P, 16) layout that kernels 2 and 3
+read does not change.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from raytracer_tpu_torch.geometry.scene import METAL, TEX_CHECKER
+from raytracer_tpu_torch.geometry.scene import METAL, TEX_CHECKER, TEX_SOLID
 
 # Column layout (four float4 per row).
 COL_G = slice(0, 3)  # sphere center | quad unit normal
@@ -61,3 +66,50 @@ def primitive_table(scene, qd) -> torch.Tensor:
     table[:, COL_C1] = torch.cat([c1_s, c1_q])
     table[:, COL_ITS] = torch.cat([its_s, its_q])
     return table
+
+
+# Texture table layout (three float4 per row).
+TCOL_TYPE = 0  # texture type enum, as float (solid for metals)
+TCOL_SCALE = 1  # noise scale
+TCOL_IMAGE = 2  # image index, as float
+TCOL_AV = slice(4, 7)  # quad alpha basis (v x w); 0 for spheres
+TCOL_QAV = 7  # Q.av
+TCOL_BV = slice(8, 11)  # quad beta basis (w x u)
+TCOL_QBV = 11  # Q.bv
+TEX_COLS = 12
+
+
+class TextureTables(NamedTuple):
+    """What noise and image shading reads beside the (P, 16) table."""
+
+    rows: torch.Tensor  # (P, TEX_COLS) float32
+    images: torch.Tensor  # (I, H, W, 3) float32
+    image_dims: torch.Tensor  # (I, 2) int32, true (H, W)
+    perlin: tuple | None  # (vec, px, py, pz) gathered tables; None = procedural
+    has_image: bool
+    has_noise: bool
+
+
+def texture_tables(scene, qd) -> TextureTables | None:
+    """The texture table of a scene with noise or image textures (None
+    otherwise), on the scene's device. Metals read as solid, as in the JAX
+    package's primitive_shading_table."""
+    if not (scene.has_noise or scene.has_image):
+        return None
+    mat_id = torch.cat([scene.sph_mat, scene.quad_mat]).long()
+    tex = scene.mat_tex[mat_id].long()
+    ttype = torch.where(scene.mat_type[mat_id] == METAL, TEX_SOLID, scene.tex_type[tex])
+    ns = scene.num_spheres
+    rows = torch.zeros(scene.num_prims, TEX_COLS, dtype=torch.float32, device=mat_id.device)
+    rows[:, TCOL_TYPE] = ttype.to(torch.float32)
+    rows[:, TCOL_SCALE] = scene.tex_scale[tex]
+    rows[:, TCOL_IMAGE] = scene.tex_image[tex].to(torch.float32)
+    rows[ns:, TCOL_AV] = qd.av
+    rows[ns:, TCOL_QAV] = qd.q_av
+    rows[ns:, TCOL_BV] = qd.bv
+    rows[ns:, TCOL_QBV] = qd.q_bv
+    perlin = None
+    if not scene.perlin_procedural:
+        perlin = (scene.perlin_vec, scene.perlin_px, scene.perlin_py, scene.perlin_pz)
+    return TextureTables(rows, scene.images, scene.image_dims, perlin,
+                         bool(scene.has_image), bool(scene.has_noise))

@@ -1,11 +1,28 @@
-"""Texture evaluation for the slice: solid and 3D checker (port of
-raytracer_tpu/materials/textures.py, checker parity rule of
-eval_texture_packed). Noise and image textures are not ported yet
-(ROADMAP Queue 2 #2, slice 2)."""
+"""Texture evaluation: solid, 3D checker, Perlin marble and nearest-neighbour
+image textures (port of raytracer_tpu/materials/textures.py).
+
+Solid and checker colors come from the (P, 16) row table
+(`eval_texture_rows`, the persistent kernel's rule). Noise and image
+textures read a second per-primitive table (materials/packed.py:
+texture_tables) and are evaluated only for scenes that have them
+(`eval_texture_extra`), so solid/checker lanes keep their bits.
+
+The procedural Perlin hash is uint32 arithmetic; torch has no uint32
+multiply, so the words live in int64 tensors masked to 32 bits, as in
+ops/ctr_rng.py. `perm_u8` and `grad_component` are the torch twins of
+materials/perlin_hash.py (whose NumPy copy builds the tables).
+"""
 
 from __future__ import annotations
 
 import torch
+
+from raytracer_tpu_torch.geometry.intersect import quad_uv, sphere_uv
+from raytracer_tpu_torch.geometry.scene import TEX_IMAGE, TEX_NOISE
+from raytracer_tpu_torch.materials import packed as pk
+from raytracer_tpu_torch.materials import perlin_hash as ph
+
+TURBULENCE_OCTAVES = 7
 
 
 def eval_texture_rows(its, c0, c1, point):
@@ -16,3 +33,131 @@ def eval_texture_rows(its, c0, c1, point):
     odd = ((ipt[:, 0] + ipt[:, 1] + ipt[:, 2]) & 1) != 0
     use_c1 = (its > 0.0) & odd
     return torch.where(use_c1[:, None], c1, c0)
+
+
+def perm_u8(axis: int, x):
+    """Torch twin of perlin_hash.perm_u8: x int64 in [0, 256) -> [0, 256)."""
+    h = (x * ph._AXIS_MUL1[axis] + ph._AXIS_ADD[axis]) & 255
+    h = h ^ (h >> 4)
+    h = (h * ph._AXIS_MUL2[axis]) & 255
+    return h ^ (h >> 4)
+
+
+def _mix32(u):
+    from raytracer_tpu_torch.ops.ctr_rng import MASK32, _mul32  # ctr_rng imports materials
+
+    u = (u ^ 61) ^ (u >> 16)
+    u = (u * 9) & MASK32
+    u = u ^ (u >> 4)
+    u = _mul32(u, 0x27D4EB2D)
+    return u ^ (u >> 15)
+
+
+def grad_component(k: int, h):
+    """Torch twin of perlin_hash.grad_component: component k of gradient
+    vector h (int64 in [0, 256)) as float32 in [-1, 1)."""
+    mask = 0xFFFFFFFF
+    u = _mix32(((h + (((k + 1) * 0x9E3779B9) & mask)) & mask) ^ ph._GRAD_SEED[k])
+    return (u & 0xFFFFFF).to(torch.float32) * (2.0**-23) - 1.0
+
+
+def _smoothstep(t):
+    return t * t * (3.0 - 2.0 * t)
+
+
+def c_lerp(t, a, b):
+    return a * (1.0 - t) + b * t
+
+
+def perlin_noise(p, perlin=None):
+    """Gradient noise at points p (N, 3) (materials.go:222-249). `perlin`
+    is None for the procedural hash tables (scene.perlin_procedural), else
+    the scene's (vec (256, 3), px, py, pz) tables, gathered."""
+    pf = torch.floor(p)
+    t = p - pf
+    i0 = pf.to(torch.int32).to(torch.int64) & 255
+    i1 = (i0 + 1) & 255
+    if perlin is None:
+        pxs = (perm_u8(0, i0[:, 0]), perm_u8(0, i1[:, 0]))
+        pys = (perm_u8(1, i0[:, 1]), perm_u8(1, i1[:, 1]))
+        pzs = (perm_u8(2, i0[:, 2]), perm_u8(2, i1[:, 2]))
+
+        def gradient(h):
+            return tuple(grad_component(k, h) for k in range(3))
+
+    else:
+        vec, tpx, tpy, tpz = perlin
+        pxs = (tpx[i0[:, 0]], tpx[i1[:, 0]])
+        pys = (tpy[i0[:, 1]], tpy[i1[:, 1]])
+        pzs = (tpz[i0[:, 2]], tpz[i1[:, 2]])
+
+        def gradient(h):
+            g = vec[h.long()]
+            return g[:, 0], g[:, 1], g[:, 2]
+
+    tx, ty, tz = t[:, 0], t[:, 1], t[:, 2]
+    fx, fy, fz = _smoothstep(tx), _smoothstep(ty), _smoothstep(tz)
+
+    def corner(ix, iy, iz):
+        gx, gy, gz = gradient(pxs[ix] ^ pys[iy] ^ pzs[iz])
+        return gx * (tx - ix) + gy * (ty - iy) + gz * (tz - iz)
+
+    c00 = c_lerp(fx, corner(0, 0, 0), corner(1, 0, 0))
+    c10 = c_lerp(fx, corner(0, 1, 0), corner(1, 1, 0))
+    c01 = c_lerp(fx, corner(0, 0, 1), corner(1, 0, 1))
+    c11 = c_lerp(fx, corner(0, 1, 1), corner(1, 1, 1))
+    return c_lerp(fz, c_lerp(fy, c00, c10), c_lerp(fy, c01, c11))
+
+
+def perlin_turbulence(p, perlin=None, depth: int = TURBULENCE_OCTAVES):
+    """|sum of `depth` halving octaves| (materials.go:251-262)."""
+    total = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    weight = 1.0
+    for _ in range(depth):
+        total = total + weight * perlin_noise(p, perlin)
+        weight *= 0.5
+        p = p * 2.0
+    return torch.abs(total)
+
+
+def marble(point, scale, perlin=None):
+    """Marble value 0.5 * (1 + sin(sp_z + 10 * turb(sp))) with sp = point *
+    scale (materials.go:285-288); (N,)."""
+    sp = point * scale[:, None]
+    return 0.5 * (1.0 + torch.sin(sp[:, 2] + 10.0 * perlin_turbulence(sp, perlin)))
+
+
+def image_lookup(images, image_dims, img_id, u, v):
+    """Nearest-neighbour texel (materials.go:176-193): clamp u, flip v,
+    truncate to texel indices, clamp the indices into the image's true
+    (H, W). img_id (N,) int64; returns (N, 3)."""
+    dims = image_dims[img_id]
+    h = dims[:, 0].to(torch.float32)
+    w = dims[:, 1].to(torch.float32)
+    uu = torch.clamp(u, 0.0, 1.0)
+    vv = 1.0 - torch.clamp(v, 0.0, 1.0)
+    zero = torch.zeros_like(dims[:, 0])
+    i = torch.minimum(torch.maximum((uu * w).to(torch.int32), zero), dims[:, 1] - 1)
+    j = torch.minimum(torch.maximum((vv * h).to(torch.int32), zero), dims[:, 0] - 1)
+    return images[img_id, j.long(), i.long()]
+
+
+def eval_texture_extra(textures, trow, is_quad, s_unit, point, color):
+    """Noise and image colors over `color` (the solid/checker result) for
+    lanes whose texture is of those kinds. `textures` is a
+    materials.packed.TextureTables, `trow` the winners' (N, TEX_COLS) rows,
+    `s_unit` the sphere lanes' outward unit normal (N, 3)."""
+    ttype = trow[:, pk.TCOL_TYPE].to(torch.int32)
+    if textures.has_image:
+        su, sv = sphere_uv(s_unit)
+        qu, qv = quad_uv(point, trow[:, pk.TCOL_AV], trow[:, pk.TCOL_QAV],
+                         trow[:, pk.TCOL_BV], trow[:, pk.TCOL_QBV])
+        u = torch.where(is_quad, qu, su)
+        v = torch.where(is_quad, qv, sv)
+        img_id = trow[:, pk.TCOL_IMAGE].to(torch.int64)
+        img = image_lookup(textures.images, textures.image_dims, img_id, u, v)
+        color = torch.where((ttype == TEX_IMAGE)[:, None], img, color)
+    if textures.has_noise:
+        val = marble(point, trow[:, pk.TCOL_SCALE], textures.perlin)
+        color = torch.where((ttype == TEX_NOISE)[:, None], val[:, None].expand_as(color), color)
+    return color

@@ -52,6 +52,18 @@ SIGNATURES = {
     "rt_render_persistent_tape": [
         _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ],
+    # sph, ns, quad, nq, cam, seed, origin, direction, active, remaining, px,
+    # py, sample_k, depth, n, width, height, jump_px, jump_py, max_depth,
+    # t, prim, origin_out, direction_out, grant, remaining_out, px_out,
+    # py_out, sample_k_out, uniforms, threads, stream
+    "rt_wavefront_step": [
+        _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+    ],
+    # clusters, g, order, sph_cl, orig_ids, ns_total, quad, nq, origin,
+    # direction, n, t_out, prim_out, threads, stream
+    "rt_intersect_culled": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
 }
 
 

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from raytracer_tpu_torch.core.camera import CameraFrame
 from raytracer_tpu_torch.geometry.intersect import quad_derived
 from raytracer_tpu_torch.materials.packed import N_COLS, primitive_table
 from raytracer_tpu_torch.ops.intersect_kernel import (
@@ -45,8 +46,9 @@ CAM_BG = 19  # 3 — flat background color
 N_CAM = 22
 
 # Above this primitive count the TPU kernel switches to in-kernel cluster
-# culling (raytracer_tpu/render/driver.py CLUSTERED_SCENE_PRIMS); the port has
-# no culling yet, so such scenes are refused rather than rendered densely.
+# culling (raytracer_tpu/render/driver.py CLUSTERED_SCENE_PRIMS); the port's
+# kernel has no culling yet, so it refuses such scenes rather than render
+# them densely.
 CLUSTERED_SCENE_PRIMS = 1536
 
 # Threads per block of the CUDA kernel.
@@ -59,15 +61,17 @@ LAUNCHES_TAPE = 0
 
 def unsupported_reason(scene) -> str | None:
     """Why the persistent kernel (CUDA or its plain twin) cannot render
-    `scene`, naming the ROADMAP item that adds it; None if it can."""
+    `scene`, naming the ROADMAP item that adds it; None if it can. The
+    render driver sends such scenes down its other paths
+    (render/driver.py:render_path); the tape-forward gradient refuses them."""
     if scene.has_noise:
-        return "noise textures are not ported yet (ROADMAP Queue 2 #2, slice 2)"
+        return "the persistent kernel does not shade noise textures yet (ROADMAP Queue 1 #9)"
     if scene.has_image:
-        return "image textures are not ported yet (ROADMAP Queue 2 #2, slice 2)"
+        return "the persistent kernel does not shade image textures yet (ROADMAP Queue 1 #9)"
     if scene.num_prims > CLUSTERED_SCENE_PRIMS:
         return (
-            f"{scene.num_prims} primitives > {CLUSTERED_SCENE_PRIMS} needs cluster "
-            "culling / BVH, not ported yet (ROADMAP Queue 1 #12, Queue 2 #2 slice 3)"
+            f"{scene.num_prims} primitives > {CLUSTERED_SCENE_PRIMS} need the persistent "
+            "kernel's cluster culling, not ported yet (ROADMAP Queue 1 #12)"
         )
     return None
 
@@ -101,6 +105,19 @@ def pack_camera_scalars_bg(frame, background) -> torch.Tensor:
             torch.as_tensor(background, dtype=torch.float32).reshape(3),
         ]
     ).to(torch.float32)
+
+
+def frame_from_scalars(cam) -> CameraFrame:
+    """The camera frame held in a (N_CAM,) scalar vector."""
+    return CameraFrame(
+        center=cam[CAM_CENTER : CAM_CENTER + 3],
+        pixel00=cam[CAM_PIXEL00 : CAM_PIXEL00 + 3],
+        pixel_du=cam[CAM_DU : CAM_DU + 3],
+        pixel_dv=cam[CAM_DV : CAM_DV + 3],
+        defocus_disk_u=cam[CAM_DISK_U : CAM_DISK_U + 3],
+        defocus_disk_v=cam[CAM_DISK_V : CAM_DISK_V + 3],
+        defocus_angle_radians=cam[CAM_DEFOCUS],
+    )
 
 
 def max_iters_for(num_slots: int, max_depth: int) -> int:

@@ -1,13 +1,27 @@
-"""Render driver (port of raytracer_tpu/render/driver.py:render_image and
-render_scene, regenerative path).
+"""Render driver (port of raytracer_tpu/render/driver.py:render_image,
+render_scene and the large-scene pass loop).
 
-One persistent-kernel launch per spp chunk renders every sample of the chunk
-(ops/persistent_kernel.py); the retirement log then folds into the
-framebuffer (integrator/wavefront.py:_fold_log). The TPU's VMEM slot model
-(regen_max_slots), its gather-band wavefront heuristic (pick_wavefront) and
-its tile rounding do not apply: the wavefront size is chosen to fill the
-GPU, and the spp budget is chunked only when the (3, K, N) float32 log would
-pass `log_budget_bytes` of device memory.
+`render_path` routes each scene as the JAX driver does
+(raytracer_tpu/render/driver.py:477-506, 536-634):
+
+* "persistent": scenes the persistent kernel serves. One kernel-2 launch
+  per spp chunk renders every sample of the chunk
+  (ops/persistent_kernel.py); the retirement log then folds into the
+  framebuffer (integrator/wavefront.py:_fold_log).
+* "large_scene": scenes it does not serve with more than LARGE_SCENE_PRIMS
+  primitives: passes of k samples per pixel, camera rays through the
+  cluster-culled kernel 4 and bounces through the dense kernel 1
+  (`_render_large_scene`).
+* "wavefront_step": every other scene (noise and image textures): the
+  regenerative loop with kernel 5 as each iteration's front half and the
+  shading epilogue in PyTorch (integrator/wavefront.py:
+  render_wavefront_step).
+
+The TPU's VMEM slot model (regen_max_slots), its gather-band wavefront
+heuristic (pick_wavefront) and its tile rounding do not apply: the
+wavefront size is chosen to fill the GPU, and the spp budget is chunked
+only when the (3, K, N) float32 log would pass `log_budget_bytes` of
+device memory.
 """
 
 from __future__ import annotations
@@ -15,9 +29,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame
+from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame, camera_rays
+from raytracer_tpu_torch.geometry.intersect import (
+    build_large_scene_tables,
+    intersect_scene_culled,
+    intersect_scene_dense_tables,
+    quad_derived,
+)
 from raytracer_tpu_torch.geometry.scene import Scene
-from raytracer_tpu_torch.integrator.wavefront import render_wavefront_regen, strided_schedule
+from raytracer_tpu_torch.integrator.wavefront import (
+    render_wavefront_regen,
+    render_wavefront_step,
+    strided_schedule,
+    trace,
+)
+from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops.persistent_kernel import (
     pack_camera_scalars_bg,
@@ -35,6 +61,16 @@ DEFAULT_WAVEFRONT = 1 << 18
 # Device-memory budget of one chunk's retirement log. rand_spheres at
 # 400x225@500spp needs 3 * 172 slots * 2^18 lanes * 4 B = 541 MB: one chunk.
 LOG_BUDGET_BYTES = 2 << 30
+# Scenes the persistent kernel does not serve take the large-scene path
+# above this many primitives (raytracer_tpu/render/driver.py:41).
+LARGE_SCENE_PRIMS = 4096
+# Wavefront of the wavefront-step path: at least one image, within
+# [2^19, 2^21] lanes (the JAX driver's non-persistent sizing, driver.py:550).
+STEP_WAVEFRONT_MIN = 1 << 19
+STEP_WAVEFRONT_MAX = 1 << 21
+# Rays per pass of the large-scene path (the JAX driver's
+# DEFAULT_TARGET_RAYS_PER_PASS).
+TARGET_RAYS_PER_PASS = 1 << 19
 
 
 def log_bytes(n_pixels: int, spp: int, wavefront: int) -> int:
@@ -48,6 +84,34 @@ def spp_chunk_for(n_pixels: int, spp: int, wavefront: int, budget: int) -> int:
     while chunk > 1 and log_bytes(n_pixels, chunk, wavefront) > budget:
         chunk -= 1
     return chunk
+
+
+def samples_per_pass_for(spp: int, num_pixels: int,
+                         target_rays: int = TARGET_RAYS_PER_PASS) -> int:
+    """Largest k <= target_rays / num_pixels that divides spp, so passes * k
+    == spp exactly."""
+    ideal = max(1, min(spp, target_rays // max(1, num_pixels)))
+    return next(k for k in range(ideal, 0, -1) if spp % k == 0)
+
+
+def render_path(scene: Scene) -> str:
+    """The path `render_image` takes for `scene`: "persistent",
+    "large_scene" or "wavefront_step" (see the module docstring)."""
+    if scene.bilinear_textures:
+        raise NotImplementedError(
+            "bilinear image filtering is not ported yet (ROADMAP Queue 1 #11)"
+        )
+    if unsupported_reason(scene) is None:
+        return "persistent"
+    if scene.num_prims > LARGE_SCENE_PRIMS:
+        return "large_scene"
+    return "wavefront_step"
+
+
+def chunk_seed(seed: int, idx: int) -> int:
+    """Seed of spp chunk or pass `idx`: each restarts sample ids at 0, so
+    each gets its own counter-RNG stream."""
+    return seed if idx == 0 else int(ctr_rng.hash_i32(seed, idx, 0))
 
 
 def resolve_device(device) -> torch.device:
@@ -74,23 +138,31 @@ def render_image(
     metrics=None,
 ) -> torch.Tensor:
     """Render the full image; returns linear mean radiance (H, W, 3) float32
-    on `device`. CUDA runs the persistent kernel; CPU runs its plain twin.
+    on `device`. CUDA runs the kernels; CPU runs their plain twins. The
+    scene takes `render_path(scene)`; `wavefront` sizes the persistent
+    path's lanes only.
 
     Russian roulette starts at depth 5 and caps the survival probability at
-    0.75 (the JAX persistent path's setting); it is unbiased. Scenes the
-    persistent kernel does not support yet raise NotImplementedError.
+    0.75 on the persistent path and 0.95 on the wavefront-step path (the
+    JAX driver's settings, driver.py:602); the large-scene path has none.
+    It is unbiased.
 
-    metrics: optional utils.metrics.RenderMetrics, updated per chunk and
-    with traced-segment totals after the last chunk (one device sync)."""
-    reason = unsupported_reason(scene)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    metrics: optional utils.metrics.RenderMetrics, updated per chunk (or
+    pass) and with traced-segment totals after the last (one device sync)."""
+    path = render_path(scene)
     dev = resolve_device(device)
+    if path == "large_scene":
+        return _render_large_scene(scene.to(dev), cam, settings, seed=seed, progress=progress,
+                                   metrics=metrics)
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n_pix = w * h
     frame = camera_frame(cam, w, h)
     cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
-    sph, quad, res = pack_persistent_tables(scene.to(dev))
+    scene = scene.to(dev)
+    sph, quad, res = pack_persistent_tables(scene)
+    if path == "wavefront_step":
+        wavefront = max(STEP_WAVEFRONT_MIN, min(n_pix, STEP_WAVEFRONT_MAX))
+        textures = texture_tables(scene, quad_derived(scene))
 
     chunk = spp_chunk_for(n_pix, spp, wavefront, log_budget_bytes)
     if metrics is not None:
@@ -99,17 +171,22 @@ def render_image(
         metrics.retirement_log_mb = 3 * num_slots * n * 4 / 2**20
     acc = torch.zeros(n_pix, 3, dtype=torch.float32, device=dev)
     seg_parts = []
+    iters = 0
     done = 0
     chunk_idx = 0
     while done < spp:
         step = min(chunk, spp - done)
-        # Each chunk restarts sample ids at 0, so it gets its own stream.
-        chunk_seed = seed if chunk_idx == 0 else int(ctr_rng.hash_i32(seed, chunk_idx, 0))
-        fb, segs = render_wavefront_regen(
-            sph, quad, res, cam_scalars, chunk_seed,
-            width=w, height=h, spp=step, wavefront_size=wavefront,
-            max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
-        )
+        kw = dict(width=w, height=h, spp=step, wavefront_size=wavefront,
+                  max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
+        if path == "persistent":
+            fb, segs = render_wavefront_regen(
+                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), **kw
+            )
+        else:
+            fb, segs, it = render_wavefront_step(
+                sph, quad, res, textures, cam_scalars, chunk_seed(seed, chunk_idx), **kw
+            )
+            iters += it
         acc += fb
         seg_parts.append(segs)
         done += step
@@ -119,11 +196,75 @@ def render_image(
         if progress:
             print(f"spp {done}/{spp}", flush=True)
     if metrics is not None:
-        metrics.update(
-            done,
-            segments=sum(int(s.sum()) for s in seg_parts),
-            warp_slots=sum(warp_slots(s) for s in seg_parts),
+        if path == "persistent":
+            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
+                           warp_slots=sum(warp_slots(s) for s in seg_parts))
+        else:
+            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts), iterations=iters)
+    return (acc / float(spp)).reshape(h, w, 3)
+
+
+def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, width: int,
+                      height: int, k: int, max_depth: int, sky_gradient: bool):
+    """One pass of the large-scene path: k samples per pixel in one batch,
+    lane L sample id L at pixel L mod (width*height), its camera and bounce
+    uniforms the counter RNG's under this pass's seed. Camera rays
+    (coherent, in pixel order) go through the cluster-culled kernel 4,
+    bounces through the dense kernel 1 (the JAX driver's
+    first_bounce_intersect_fn); no russian roulette (the JAX package's
+    `trace`). Returns ((n_pixels, 3) radiance sum, segments (k * n_pixels,)
+    int32)."""
+    dev = tables.sph_table.device
+    n = width * height
+    sid = torch.arange(k * n, device=dev)
+    pix = sid % n
+    o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, sid))
+
+    def hit_fn(scene, o, d, bounce, lanes):
+        if bounce == 0:
+            return intersect_scene_culled(tables, o, d)
+        return intersect_scene_dense_tables(tables, o, d)
+
+    rad, segs = trace(
+        scene, o, d, cam.background.to(dev),
+        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
+        max_depth=max_depth, sky_gradient=sky_gradient, return_segments=True,
+        intersect_fn=hit_fn,
+    )
+    return rad.reshape(k, n, 3).sum(0), segs
+
+
+def _render_large_scene(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
+                        progress: bool = False, metrics=None):
+    """The large-scene path (port of raytracer_tpu/render/driver.py:290-344):
+    host BVH clustering once, then spp / k passes of k samples per pixel.
+    Returns the linear mean radiance (H, W, 3) on the scene's device."""
+    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+    n = w * h
+    dev = scene.sph_center.device
+    tables = build_large_scene_tables(scene)
+    frame = camera_frame(cam, w, h).to(dev)
+    k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)
+    passes = spp // k
+    acc = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    seg_parts = []
+    if metrics is not None:
+        metrics.wavefront_lanes = k * n
+    for p in range(passes):
+        fb, segs = _large_scene_pass(
+            scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=k,
+            max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
         )
+        acc += fb
+        seg_parts.append(segs)
+        if metrics is not None:
+            metrics.update((p + 1) * k)
+        if progress:
+            print(f"pass {p + 1}/{passes} ({(p + 1) * k}/{spp} spp)", flush=True)
+    if metrics is not None:
+        # A pass runs one bounce iteration per segment of its deepest lane.
+        metrics.update(passes * k, segments=sum(int(s.sum()) for s in seg_parts),
+                       iterations=sum(int(s.max()) for s in seg_parts), passes=passes)
     return (acc / float(spp)).reshape(h, w, 3)
 
 

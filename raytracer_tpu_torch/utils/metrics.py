@@ -5,7 +5,10 @@ The driver updates `done_spp` per chunk and adds traced-segment counts once
 at the end of the render (one device sync). `warp_slots` is the SIMT
 occupancy basis of the persistent CUDA kernel: a warp of 32 lanes runs until
 its busiest lane drains, so occupancy = segments / (sum over warps of the
-busiest lane's segments * 32).
+busiest lane's segments * 32). The wavefront-step and large-scene paths
+count loop `iterations` instead (kernel-5 steps; bounces of every pass),
+and the large-scene path its `passes`; their lane occupancy is segments /
+(iterations * wavefront_lanes).
 """
 
 from __future__ import annotations
@@ -28,11 +31,16 @@ class RenderMetrics:
     done_spp: int = 0
     traced_segments: int = 0
     warp_slots: int = 0
+    iterations: int = 0
+    passes: int = 0
 
-    def update(self, spp_done: int, segments: int = 0, warp_slots: int = 0):
+    def update(self, spp_done: int, segments: int = 0, warp_slots: int = 0,
+               iterations: int = 0, passes: int = 0):
         self.done_spp = spp_done
         self.traced_segments += int(segments)
         self.warp_slots += int(warp_slots)
+        self.iterations += int(iterations)
+        self.passes += int(passes)
 
     @property
     def elapsed(self) -> float:
@@ -50,6 +58,14 @@ class RenderMetrics:
             out["traced_mrays_per_s"] = self.traced_segments / dt / 1e6
         if self.warp_slots:
             out["warp_occupancy"] = self.traced_segments / self.warp_slots
+        if self.iterations:
+            out["iterations"] = self.iterations
+            if self.wavefront_lanes:
+                out["lane_occupancy"] = self.traced_segments / (
+                    self.iterations * self.wavefront_lanes
+                )
+        if self.passes:
+            out["passes"] = self.passes
         if self.wavefront_lanes:
             out["wavefront_lanes"] = self.wavefront_lanes
         if self.retirement_log_mb:

@@ -239,16 +239,27 @@ def test_russian_roulette_unbiased():
 
 
 def test_scene_support_gates():
-    """Noise, image textures and scenes past the clustering threshold raise
-    NotImplementedError naming the ROADMAP item, on the CPU too."""
-    from raytracer_tpu_torch.render.driver import render_image
+    """The persistent kernel still refuses noise, image textures and scenes
+    past its clustering threshold, naming the ROADMAP item (the tape-forward
+    gradient refuses them with that reason); the render driver's
+    `render_path` sends them down the wavefront-step or the large-scene
+    path, and bilinear filtering still raises, on the CPU too."""
+    from raytracer_tpu_torch.render.driver import render_image, render_path
     from raytracer_tpu_torch.scenes.registry import get_scene
 
-    for name, what in (("perlin", "noise"), ("earth", "image"), ("rand_spheres_large", "BVH")):
+    for name, what, path in (("perlin", "noise", "wavefront_step"),
+                             ("simple_light", "noise", "wavefront_step"),
+                             ("earth", "image", "wavefront_step"),
+                             ("rand_spheres_large", "cluster culling", "large_scene"),
+                             ("quad_field", "cluster culling", "large_scene")):
         scene, cam, st = get_scene(name, width=8, spp=1)
         assert not ppk.scene_supports_persistent(scene)
-        with pytest.raises(NotImplementedError, match=what) as exc:
-            render_image(scene, cam, st, device="cpu")
-        assert "ROADMAP" in str(exc.value)
+        reason = ppk.unsupported_reason(scene)
+        assert what in reason and "ROADMAP" in reason, reason
+        assert render_path(scene) == path
     for name in ("rand_spheres", "one_weekend_final", "quads", "cornell"):
-        assert ppk.scene_supports_persistent(get_scene(name, width=8)[0])
+        scene = get_scene(name, width=8)[0]
+        assert ppk.scene_supports_persistent(scene) and render_path(scene) == "persistent"
+    scene, cam, st = get_scene("earth", width=8, spp=1, bilinear=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+        render_image(scene, cam, st, device="cpu")

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.core.camera import camera_frame
-from raytracer_tpu_torch.geometry.intersect import scene_tables
+from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
+from raytracer_tpu_torch.geometry.intersect import build_large_scene_tables, scene_tables
 from raytracer_tpu_torch.integrator import wavefront as wf
-from raytracer_tpu_torch.ops import build
+from raytracer_tpu_torch.ops import build, ctr_rng
+from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
 from raytracer_tpu_torch.ops import persistent_kernel as pk
+from raytracer_tpu_torch.ops import wavefront_kernel as wk
 from raytracer_tpu_torch.scenes.registry import get_scene
 
 torch.set_num_threads(1)
@@ -169,6 +171,105 @@ def test_wrappers_reject_unsupported_devices():
     args, cfg = persistent_inputs("cornell", 8, 1, 64, "cpu")
     with pytest.raises(TypeError):
         pk.render_persistent(*args[:5], args[5].to(torch.int64), *args[6:], **cfg)
+
+
+def step_inputs(name, width, device, seed=5):
+    """Kernel 5's inputs for a first step (every lane idle) on `name`."""
+    scene, cam, st = get_scene(name, width=width, spp=4)
+    n_pix = st.width * st.height
+    n, _, jump = wf.strided_schedule(n_pix, 4, 1 << 14)
+    rem, px, py = wf.schedule_arrays(n, n_pix, 4, st.width, device=device)
+    sph, quad, _ = pk.pack_persistent_tables(scene.to(device))
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, st.width, st.height),
+                                      cam.background).to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    state = [torch.zeros(n, 3, device=device), torch.ones(n, 3, device=device),
+             torch.zeros(n, dtype=torch.bool, device=device), rem, px, py,
+             torch.full((n,), -1, **i32), torch.zeros(n, **i32)]
+    cfg = dict(width=st.width, height=st.height, jump_px=jump % st.width,
+               jump_py=jump // st.width, max_depth=st.max_depth)
+    return (sph, quad, cam_s, seed, *state), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["perlin", "rand_spheres", "cornell"])
+def test_wavefront_step_kernel_matches_plain(cuda, name):
+    """Kernel 5 against its twin on the same inputs, a first step and the
+    step after it: every output equal."""
+    args, cfg = step_inputs(name, 96, cuda)
+    for _ in range(2):
+        before = wk.LAUNCHES
+        out_k = wk.wavefront_step(*args, **cfg)
+        assert wk.LAUNCHES == before + 1
+        out_p = wk.wavefront_step_plain(*args, **cfg)
+        torch.cuda.synchronize()
+        for f, a, b in zip(out_k._fields, out_k, out_p):
+            assert torch.equal(a, b), f
+        # Half the lanes finish, the other half carry on from their hits.
+        active = (torch.arange(out_k.t.shape[0], device=cuda) % 2 == 0) & torch.isfinite(out_k.t)
+        args = (*args[:4], out_k.origin, out_k.direction, active, out_k.remaining, out_k.px,
+                out_k.py, out_k.sample_k, torch.ones_like(out_k.px))
+
+
+@pytest.mark.cuda
+def test_culled_kernel_matches_plain_and_dense(cuda):
+    """Kernel 4 against its twin and against kernel 1 on rand_spheres_large's
+    camera rays at 96 wide: t and prim equal on every ray."""
+    scene, cam, st = get_scene("rand_spheres_large", width=96, spp=2)
+    tables = build_large_scene_tables(scene.to(cuda))
+    n = st.width * st.height
+    sid = torch.arange(2 * n, device=cuda)
+    pix = sid % n
+    o, d = camera_rays(camera_frame(cam, st.width, st.height).to(cuda), pix % st.width,
+                       pix // st.width, ctr_rng.camera_uniforms(2, sid))
+    args = (tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
+            tables.quad_table, tables.num_spheres, o.contiguous(), d.contiguous())
+    before = ck.LAUNCHES
+    t_k, p_k = ck.intersect_culled(*args)
+    assert ck.LAUNCHES == before + 1
+    t_p, p_p = ck.intersect_culled_plain(*args)
+    t_1, p_1 = ik.intersect(tables.sph_table, tables.quad_table, *args[-2:])
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
+    assert torch.equal(t_k, t_1) and torch.equal(p_k, p_1)
+
+
+def test_new_wrappers_on_cpu_take_the_twin_and_count_nothing():
+    args, cfg = step_inputs("perlin", 16, "cpu")
+    before = (wk.LAUNCHES, ck.LAUNCHES)
+    out = wk.wavefront_step(*args, **cfg)
+    ref = wk.wavefront_step_plain(*args, **cfg)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref)) and bool(out.grant.all())
+    scene = get_scene("rand_spheres_large", width=8, n_spheres=200)[0]
+    tables = build_large_scene_tables(scene)
+    o, d = random_rays(256, (-12, 0.05, -12), (12, 6, 12), seed=2)
+    targs = (tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
+             tables.quad_table, tables.num_spheres, o, d)
+    t, p = ck.intersect_culled(*targs)
+    t_p, p_p = ck.intersect_culled_plain(*targs)
+    assert torch.equal(t, t_p) and torch.equal(p, p_p)
+    assert (wk.LAUNCHES, ck.LAUNCHES) == before
+
+
+def test_new_wrappers_reject_bad_inputs():
+    args, cfg = step_inputs("perlin", 16, "cpu")
+    with pytest.raises(TypeError, match="active"):
+        wk.wavefront_step(*args[:6], args[6].to(torch.int32), *args[7:], **cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wavefront_step(*args[:4], args[4].T.contiguous().T, *args[5:], **cfg)
+    scene = get_scene("rand_spheres_large", width=8, n_spheres=50)[0]
+    tables = build_large_scene_tables(scene)
+    o, d = random_rays(64, (-12, 0.05, -12), (12, 6, 12), seed=2)
+    with pytest.raises(TypeError, match="order"):
+        ck.intersect_culled(tables.clusters, tables.cluster_order.long(),
+                            tables.sph_clustered, tables.orig_ids, tables.quad_table,
+                            tables.num_spheres, o, d)
+    meta = torch.zeros(4, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.intersect_culled(*(x.to("meta") for x in (tables.clusters, tables.cluster_order,
+                                                     tables.sph_clustered, tables.orig_ids,
+                                                     tables.quad_table)),
+                            tables.num_spheres, meta, meta)
 
 
 def test_library_key_follows_sources(tmp_path, monkeypatch):

@@ -1,0 +1,129 @@
+"""Every registered scene end to end on the CPU through the path
+render/driver.py:render_path gives it: the wavefront-step path's scenes
+(noise and image textures) against the golden statistics, every scene at
+8 px, the CLI's path report, and `trace`'s default closest hit."""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu_torch import cli
+from raytracer_tpu_torch.integrator.wavefront import trace
+from raytracer_tpu_torch.ops import ctr_rng
+from raytracer_tpu_torch.ops import intersect_kernel as ik
+from raytracer_tpu_torch.render.driver import render_image, render_path
+from raytracer_tpu_torch.scenes.registry import SCENES, get_scene
+from raytracer_tpu_torch.utils.metrics import RenderMetrics
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+GOLDEN = json.loads((REPO / "tests" / "golden_stats.json").read_text())
+CFG = dict(width=96, spp=24, max_depth=10)  # tests/test_golden.py
+SEED = 12345
+
+
+def stats(img):
+    """tests/test_golden.py's statistics."""
+    h, w, _ = img.shape
+    probes = [(h // 4, w // 4), (h // 2, w // 2), (3 * h // 4, 3 * w // 4), (h // 2, w // 8)]
+    return {
+        "mean": [float(m) for m in img.mean((0, 1))],
+        "std": float(img.std()),
+        "probes": [[float(c) for c in img[y, x]] for y, x in probes],
+    }
+
+
+def box5(img):
+    """Each pixel replaced by the mean of the 5x5 pixels around it."""
+    pad = np.pad(img, ((2, 2), (2, 2), (0, 0)), mode="edge")
+    return sum(pad[dy : dy + img.shape[0], dx : dx + img.shape[1]]
+               for dy in range(5) for dx in range(5)) / 25.0
+
+
+@pytest.mark.parametrize("name", ["perlin", "earth", "simple_light"])
+def test_wavefront_step_scenes_match_golden(name):
+    """The noise and image scenes through the wavefront-step path (kernel
+    5's twin, russian roulette capped at 0.95 as the JAX driver sets it)
+    meet their golden statistics at tests/test_golden.py's CFG, seed and
+    tolerances. simple_light's probe (3h/4, 3w/4) is firefly noise from
+    its emitter: the JAX package's own renders read 0.003, 0, 0.621 and
+    0.16 there at seeds 0-3 against the pinned 0.023, so that scene's
+    probes are held against the JAX package's own renders instead (the
+    mean of four seeds, each probe the 5x5 mean around it, as
+    tests/test_torch_slice.py holds cornell); its means and std against
+    the golden."""
+    scene, cam, settings = get_scene(name, **CFG)
+    assert render_path(scene) == "wavefront_step"
+    metrics = RenderMetrics(total_spp=settings.samples_per_pixel,
+                            pixels=settings.width * settings.height)
+    img = render_image(scene, cam, settings, device="cpu", seed=SEED, metrics=metrics).numpy()
+    assert np.isfinite(img).all()
+    got, want = stats(img), GOLDEN[name]
+    np.testing.assert_allclose(got["mean"], want["mean"], rtol=0.02, atol=0.004)
+    np.testing.assert_allclose(got["std"], want["std"], rtol=0.05, atol=0.01)
+    if name == "simple_light":
+        from raytracer_tpu.render.driver import render_image as jax_render_image
+        from raytracer_tpu.scenes.registry import get_scene as jax_get_scene
+
+        jsc, jcam, jst = jax_get_scene(name, **CFG)
+        jax_imgs = [np.asarray(jax_render_image(jsc, jcam, jst, seed=s)) for s in range(4)]
+        port_imgs = [img] + [render_image(scene, cam, settings, device="cpu", seed=s).numpy()
+                             for s in range(1, 4)]
+        got["probes"] = stats(box5(np.mean(port_imgs, axis=0)))["probes"]
+        want = {"probes": stats(box5(np.mean(jax_imgs, axis=0)))["probes"]}
+    np.testing.assert_allclose(got["probes"], want["probes"], rtol=0.5, atol=0.12)
+    snap = metrics.snapshot()
+    assert snap["traced_segments"] >= settings.width * settings.height * 24
+    assert 0 < snap["iterations"] and 0 < snap["lane_occupancy"] <= 1
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_every_registered_scene_renders(name):
+    """Every registered scene renders at 8 px wide, 1 spp, depth 3 on the
+    CPU: finite, the right shape, through the path render_path names."""
+    scene, cam, st = get_scene(name, width=8, spp=1, max_depth=3)
+    metrics = RenderMetrics(total_spp=1, pixels=st.width * st.height)
+    img = render_image(scene, cam, st, device="cpu", seed=2, metrics=metrics)
+    assert img.shape == (st.height, 8, 3) and bool(torch.isfinite(img).all())
+    assert metrics.traced_segments >= st.width * st.height
+    path = render_path(scene)
+    assert path in ("persistent", "wavefront_step", "large_scene")
+    assert ("iterations" in metrics.snapshot()) == (path != "persistent")
+
+
+def test_cli_reports_the_path(tmp_path):
+    report = cli.main(["--device", "cpu", "--scene", "perlin", "--width", "16", "--spp", "2",
+                       "--max-depth", "4", "--out", str(tmp_path / "p.ppm")])
+    assert report["path"] == "wavefront_step" and report["iterations"] >= 1
+    assert report["size"] == [16, 9] and (tmp_path / "p.ppm").exists()
+
+
+def test_trace_default_hit_goes_through_the_kernel_wrapper(monkeypatch):
+    """trace's default closest hit calls ops/intersect_kernel.py:intersect
+    (kernel 1 on CUDA tensors, its twin on CPU ones) and gives the same
+    radiance as an explicit twin hit."""
+    scene, cam, st = get_scene("cornell", width=16, spp=1, max_depth=4)
+    from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
+
+    n = st.width * st.height
+    sid = torch.arange(n)
+    o, d = camera_rays(camera_frame(cam, st.width, st.height), sid % st.width, sid // st.width,
+                       ctr_rng.camera_uniforms(3, sid))
+    useq = lambda b, lanes: ctr_rng.bounce_uniforms(3, lanes, b)  # noqa: E731
+    calls = []
+    real = ik.intersect
+    monkeypatch.setattr(ik, "intersect", lambda *a: calls.append(1) or real(*a))
+    import raytracer_tpu_torch.integrator.wavefront as wf
+
+    monkeypatch.setattr(wf, "intersect", ik.intersect)
+    rad = trace(scene, o, d, cam.background, useq, max_depth=4)
+    assert len(calls) >= 1
+
+    sph, quad = (x.detach() for x in wf.pk.pack_persistent_tables(scene)[:2])
+    twin = trace(scene, o, d, cam.background, useq, max_depth=4,
+                 intersect_fn=lambda sc, o, d, b, l: ik.intersect_plain(sph, quad, o, d))
+    assert torch.equal(rad, twin)

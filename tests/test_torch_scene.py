@@ -96,3 +96,22 @@ def test_scene_from_arrays_and_to_roundtrip():
     port = pscene.scene_from_arrays(fields, flags).to("cpu")
     assert_scene_equal(port, jsc)
     assert port.num_prims == jsc.num_spheres + jsc.num_quads
+
+
+@pytest.mark.parametrize("which", ["earth", "perlin", "textured_rng_tables"])
+def test_scene_from_arrays_carries_textures(which):
+    """The texture fields cross over exactly: images and their true dims,
+    the Perlin tables with procedural_perlin True and False, texture
+    scales and image ids."""
+    if which == "textured_rng_tables":
+        ref = _build_both(_textured, procedural_perlin=False)[1]
+    else:
+        ref = jax_get_scene(which, width=16)[0]
+    fields = {k: np.asarray(getattr(ref, k)) for k in pscene.TENSOR_FIELDS}
+    port = pscene.scene_from_arrays(fields, {k: getattr(ref, k) for k in pscene.FLAG_FIELDS})
+    assert_scene_equal(port, ref)
+    for k in ("images", "image_dims", "perlin_vec", "perlin_px", "perlin_py", "perlin_pz",
+              "tex_scale", "tex_image"):
+        np.testing.assert_array_equal(getattr(port, k).numpy(), fields[k], err_msg=k)
+    assert port.perlin_procedural == (which != "textured_rng_tables")
+    assert port.has_image == (which != "perlin") and port.has_noise == (which != "earth")
