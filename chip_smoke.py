@@ -13,21 +13,31 @@ counters reset just before and read just after:
 * the training path (phase 7): five Adam steps of the inverse renderer's
   tape-forward ("bucketed") backend at 400x225, 8 spp, depth 50, through
   the tape kernel (kernel 3), then one step of its "scan" backend, whose
-  closest hit is kernel 1;
-* the wavefront-step path (phase 10): the CLI render of perlin at
-  400x225, 100 spp, depth 50, through the wavefront-step kernel (kernel 5)
-  and the PyTorch shading epilogue;
+  closest hit is kernel 1; phase 7t: five such steps on earth (4-tap
+  bilinear) and one on perlin, through kernel 3's textured instantiation;
+* the wavefront-step path (phase 10): perlin with rng-filled Perlin
+  tables at 400x225, 100 spp, depth 50 through render_image, kernel 5 and
+  the PyTorch shading epilogue;
 * the large-scene path (phase 10): the CLI render of rand_spheres_large
   (10,001 spheres) at 400x225, 64 spp, depth 8, camera rays through the
-  cluster-culled kernel (kernel 4), bounces through kernel 1.
+  cluster-culled kernel (kernel 4), bounces through kernel 1;
+* the textured render path (phase 10): the CLI renders of perlin, earth,
+  earth --bilinear, earth --bilinear --bilinear-exact and simple_light at
+  400x225, 100 spp, depth 50, each one launch of kernel 2's textured
+  instantiation, timed by CUDA events.
 
-Phase 4 checks renders of every golden scene the card can reproduce (and
-earth with a 512x1024 texture), phase 6 holds the tape kernel against its
-twin at the training path's shape, phase 7a the whole gradient step on the
-card against the step on the CPU, phase 7 kernel 1 against its twin on the
-scan step's own rays, phase 8 kernel 5 against its twin at perlin's path
-shape (and the wavefront-step path against kernel 2 on rand_spheres), and
-phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
+Phase 3 also holds kernel 2's textured instantiation against its twin bit
+for bit (perlin, earth nearest, stochastic and 4-tap, simple_light) at
+96x54, 8 spp, depth 10 and at phase 10's own kernel calls (400x225, 100
+spp, depth 50, the CLI's seed and lanes), phase 4 checks renders of every golden scene the
+card can reproduce (and earth with a 512x1024 texture), all through kernel
+2, phase 6 holds the tape kernel against its twin at the training path's
+shape (rand_spheres, and textured: earth with the 4-tap and perlin),
+phase 7a the whole gradient step on the card against the step on the CPU,
+phase 7 kernel 1 against its twin on the scan step's own rays, phase 8
+kernel 5 against its twin at perlin's path shape (and the wavefront-step
+path against kernel 2 on rand_spheres and on perlin with its textures),
+and phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
 camera rays. Every phase prints one line; any failure raises and exits
 non-zero.
 The second-to-last line is the per-kernel JSON record, the last line
@@ -59,6 +69,19 @@ GOLDEN_SEED = 12345
 # renders read 0-0.62 there at seeds 0-3 against the pinned 0.023): its
 # means and std are held here, its probes on the CPU against JAX renders.
 GOLDEN_SCENES = ("rand_spheres", "quads", "one_weekend_final", "perlin", "earth")
+# The slice's textured renders through kernel 2 (held against its twin in
+# phase 3t, driven through the CLI in phase 10): (label, scene, the
+# builder overrides and stochastic bilinear tap that the CLI arguments
+# give render_image, the CLI arguments).
+TEXTURED_CASES = (
+    ("perlin", "perlin", {}, False, ["--scene", "perlin"]),
+    ("earth", "earth", {}, False, ["--scene", "earth"]),
+    ("earth_bilinear", "earth", {"bilinear": True}, True, ["--scene", "earth", "--bilinear"]),
+    ("earth_bilinear_exact", "earth", {"bilinear": True}, False,
+     ["--scene", "earth", "--bilinear", "--bilinear-exact"]),
+    ("simple_light", "simple_light", {"spp": 100}, False,
+     ["--scene", "simple_light", "--spp", "100"]),
+)
 GOLDEN_NO_PROBES = ("simple_light",)
 OUT_DIR = REPO / "chiprun_out"
 # The training path's shape: the JAX package's gradient reference point
@@ -156,10 +179,21 @@ def random_rays(n, lo, hi, seed):
     return torch.from_numpy(o), torch.from_numpy(tgt - o)
 
 
-def persistent_pair(scene, cam, settings, wavefront, seed):
-    """Kernel 2 and its plain twin on the same CUDA tables, schedule and
-    seed: (kernel, plain, fold) — zero-argument calls each returning
-    (log, segments), and the fold of a log into per-pixel mean radiance."""
+def cuda_textures(scene, stochastic=False):
+    """The scene's texture tables on the card (None without noise or image
+    textures), its image filter picked as render_image picks it."""
+    from raytracer_tpu_torch.geometry.intersect import quad_derived
+    from raytracer_tpu_torch.materials.packed import texture_tables
+
+    sc = scene.to("cuda")
+    return texture_tables(sc, quad_derived(sc), stochastic=stochastic)
+
+
+def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False):
+    """Kernel 2 and its plain twin on the same CUDA tables (with the
+    scene's texture tables), schedule and seed: (kernel, plain, fold) —
+    zero-argument calls each returning (log, segments), and the fold of a
+    log into per-pixel mean radiance."""
     from raytracer_tpu_torch.core.camera import camera_frame
     from raytracer_tpu_torch.integrator import wavefront as wf
     from raytracer_tpu_torch.ops import persistent_kernel as pk
@@ -173,7 +207,8 @@ def persistent_pair(scene, cam, settings, wavefront, seed):
     rem0, px0, py0 = wf.schedule_arrays(n, n_pix, spp, w, device="cuda")
     cfg = dict(width=w, height=h, jump_px=jump % w, jump_py=jump // w,
                num_slots=num_slots, max_depth=settings.max_depth, rr_start=5,
-               rr_lo=0.05, rr_hi=0.75, sky_gradient=settings.sky_gradient)
+               rr_lo=0.05, rr_hi=0.75, sky_gradient=settings.sky_gradient,
+               textures=cuda_textures(scene, stochastic))
     args = (sph, quad, res, cam_s, seed, rem0, px0, py0)
 
     def kernel():
@@ -216,7 +251,8 @@ def bound(ops, nbytes):
 
 
 def tape_pair(name, seed, **scene_kw):
-    """Kernel 3 and its plain twin on the same CUDA tables: (kernel, plain,
+    """Kernel 3 and its plain twin on the same CUDA tables (with the
+    scene's texture tables, 4-tap for bilinear scenes): (kernel, plain,
     n lanes, settings, scene)."""
     from raytracer_tpu_torch.core.camera import camera_frame
     from raytracer_tpu_torch.integrator import wavefront as wf
@@ -229,7 +265,7 @@ def tape_pair(name, seed, **scene_kw):
                                       cam.background).cuda()
     n = st.width * st.height * st.samples_per_pixel
     cfg = dict(width=st.width, height=st.height, max_depth=st.max_depth,
-               sky_gradient=st.sky_gradient)
+               sky_gradient=st.sky_gradient, textures=cuda_textures(scene))
 
     def kernel():
         return pk.render_persistent_tape(*tables, cam_s, seed, n, **cfg)
@@ -439,12 +475,18 @@ class HitRecorder:
         return self.real(sph, quad, o, d)
 
 
-def check_pair(label, kernel_out, plain_out, fold):
+def check_pair(label, kernel_out, plain_out, fold, exact=False):
     """Kernel 2's render against its twin's: >= 99% of pixels within rtol
-    1e-3, image mean within 1e-3 relative, segments within 0.1%."""
+    1e-3, image mean within 1e-3 relative, segments within 0.1%; with
+    `exact`, every (slot, lane) cell and every lane's segments bit-equal.
+    The share of bit-equal cells is reported either way."""
     import torch
 
     (log_k, segs_k), (log_p, segs_p) = kernel_out, plain_out
+    cells_equal = float((log_k == log_p).float().mean())
+    if exact and not (cells_equal == 1.0 and torch.equal(segs_k, segs_p)):
+        fail(f"kernel 2 {label}: {cells_equal:.6f} of log cells bit-equal, segments equal "
+             f"{torch.equal(segs_k, segs_p)}")
     fb_k, fb_p = fold(log_k), fold(log_p)
     close = torch.isclose(fb_k, fb_p, rtol=1e-3, atol=1e-6).all(dim=1)
     frac = float(close.float().mean())
@@ -459,7 +501,7 @@ def check_pair(label, kernel_out, plain_out, fold):
     if seg_rel > 1e-3:
         fail(f"kernel 2 {label}: segments {sk} vs {sp}")
     return dict(pixels_close=frac, mean_rel=mean_rel, max_abs=float((fb_k - fb_p).abs().max()),
-                segments=sk, plain_segments=sp)
+                segments=sk, plain_segments=sp, cells_bit_equal=cells_equal)
 
 
 # FP32 operations of one cluster slab test in csrc/culled_kernel.cu (six
@@ -562,11 +604,11 @@ def step_kernel_check(seed=5, check_at=(0, 5)):
                 size=[st.width, st.height], spp=st.samples_per_pixel)
 
 
-def step_vs_persistent(seed=11):
+def step_vs_persistent(name, seed=11):
     """Phase 8b: the wavefront-step path (kernel 5 + the PyTorch epilogue)
-    against kernel 2 on rand_spheres at phase 3's shape (96x54, 8 spp,
-    depth 10, 8192 lanes), both with russian roulette capped at 0.75, the
-    same seed and schedule: one estimator. Held at phase 3's limits
+    against kernel 2 on `name` at phase 3's shape (96x54, 8 spp, depth 10,
+    8192 lanes), both with russian roulette capped at 0.75, the same seed,
+    schedule and texture tables: one estimator. Held at phase 3's limits
     (check_pair): torch's elementwise sin/cos and the kernel's may round
     differently, and a flipped scatter changes a path; the share of
     pixels that are bit-equal is reported."""
@@ -575,15 +617,15 @@ def step_vs_persistent(seed=11):
     from raytracer_tpu_torch.integrator import wavefront as wf
     from raytracer_tpu_torch.ops import persistent_kernel as pk
 
-    (sph, quad, res, _), cam_s, sched, cfg, (n, num_slots, jump), st, _ = step_state(
-        "rand_spheres", seed, width=96, spp=8, max_depth=10, wavefront=8192)
+    (sph, quad, res, tex), cam_s, sched, cfg, (n, num_slots, jump), st, _ = step_state(
+        name, seed, width=96, spp=8, max_depth=10, wavefront=8192)
     cfg["rr_hi"] = 0.75
     n_pix = st.width * st.height
     (log_s, segs_s, iters), step_ms = timed(
-        lambda: wf.wavefront_step_loop(sph, quad, res, None, cam_s, seed, *sched, **cfg))
+        lambda: wf.wavefront_step_loop(sph, quad, res, tex, cam_s, seed, *sched, **cfg))
     pcfg = {k: v for k, v in cfg.items() if k != "max_iters"}
     (log_k, segs_k), k2_ms = timed(
-        lambda: pk.render_persistent(sph, quad, res, cam_s, seed, *sched, **pcfg))
+        lambda: pk.render_persistent(sph, quad, res, cam_s, seed, *sched, **pcfg, textures=tex))
 
     def fold(log):
         return wf._fold_log(log, num_slots, n, n_pix, jump) / st.samples_per_pixel
@@ -672,6 +714,53 @@ def png_linear_mean(path):
     return png.shape, ((png.astype(np.float64) / 255.0) ** 2).mean((0, 1))
 
 
+# Operations of one marble in csrc/textures.cuh, counted from the source
+# as the closest hit's are: 552 per Perlin octave (3 floors, 3 fractions, 3
+# conversions and masks, 6 lattice hashes of 9 and their 3 wraps, 3
+# smoothsteps of 4, 8 corners of 55 (2 hash XORs, 3 gradient components of
+# 15, a 3-term dot product of 8), 7 lerps of 4), 6 a turbulence step, 7
+# octaves, and 32 for the scaling and sin (libdevice sinf as 24). About
+# half are integer operations, which an H100 SM issues at half its FP32
+# rate, so the bound at the FP32 peak is a floor. An image lookup: sphere
+# UV (acosf and atan2f as ~25 each, clamps, offsets) and the clamped
+# texel index, ~80; the 4-tap filter ~150.
+MARBLE_OPS = 3938
+IMAGE_OPS = {"nearest": 80, "stochastic": 90, "bilinear": 150}
+
+
+class PersistentTimer:
+    """Stands in for ops.persistent_kernel.render_persistent while a path
+    runs and passes every call on to it, timing each call on the device by
+    CUDA events around it (the kernel and its log's zero fill)."""
+
+    def __init__(self, pk):
+        self.pk, self.real, self.events = pk, pk.render_persistent, []
+
+    def __enter__(self):
+        self.pk.render_persistent = self
+        return self
+
+    def __exit__(self, *exc):
+        self.pk.render_persistent = self.real
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
 def main() -> int:
     import torch
 
@@ -687,7 +776,7 @@ def main() -> int:
     from raytracer_tpu_torch.ops import build
     from raytracer_tpu_torch.ops import intersect_kernel as ik
     from raytracer_tpu_torch.ops import persistent_kernel as pk
-    from raytracer_tpu_torch.render.driver import DEFAULT_WAVEFRONT, render_image
+    from raytracer_tpu_torch.render.driver import DEFAULT_WAVEFRONT, render_image, render_path
     from raytracer_tpu_torch.scenes.registry import get_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -730,6 +819,27 @@ def main() -> int:
         kernel, plain, fold = persistent_pair(scene, cam, settings, 8192, seed=11)
         k2[name] = check_pair(name, kernel(), plain(), fold)
         k2[name]["size"] = [settings.width, settings.height]
+    # The textured instantiation, every texture kind and image filter, at
+    # the same shape and then at phase 10's CLI render shape, seed and
+    # lanes (400x225, 100 spp, depth 50, seed 0): the very kernel call that
+    # phase 10 makes. Log and segments bit-equal to the twin's.
+    k2_tex, k2_tex_cli = {}, {}
+    for label, name, kw, stochastic, _ in TEXTURED_CASES:
+        for out, shape, lanes, seed in ((k2_tex, dict(width=96, spp=8, max_depth=10), 8192, 11),
+                                        (k2_tex_cli, {}, DEFAULT_WAVEFRONT, 0)):
+            scene, cam, settings = get_scene(name, **{**kw, **shape})
+            kernel, plain, fold = persistent_pair(scene, cam, settings, lanes, seed=seed,
+                                                  stochastic=stochastic)
+            kernel_out, ms = timed(kernel)
+            plain_out, plain_ms = timed(plain)
+            out[label] = dict(check_pair(label, kernel_out, plain_out, fold, exact=True), ms=ms,
+                              plain_ms=plain_ms, size=[settings.width, settings.height],
+                              spp=settings.samples_per_pixel, max_depth=settings.max_depth,
+                              lanes=lanes)
+            del kernel_out, plain_out
+    print(f"phase 3t kernel 2 (textured) vs plain, 96x54@8spp depth 10 with 8192 lanes: "
+          f"{json.dumps(k2_tex)}; at the CLI renders' 400x225@100spp depth 50 with "
+          f"{DEFAULT_WAVEFRONT} lanes: {json.dumps(k2_tex_cli)}", flush=True)
     scene, cam, settings = get_scene("rand_spheres")
     kernel, plain, fold = persistent_pair(scene, cam, settings, DEFAULT_WAVEFRONT, seed=0)
     kernel_out = kernel()
@@ -742,21 +852,26 @@ def main() -> int:
                             size=[settings.width, settings.height], lanes=DEFAULT_WAVEFRONT,
                             ns=scene.num_spheres, nq=scene.num_quads,
                             log_bytes=3 * kernel_out_shape[0] * kernel_out_shape[1] * 4)
-    record["persistent"] = k2
+    record["persistent"] = dict(k2, textured=k2_tex, textured_cli_shape=k2_tex_cli)
     print("phase 3 kernel 2 vs plain, 8 spp depth 10 with 8192 lanes, and 400x225@500spp "
           f"depth 50 with {DEFAULT_WAVEFRONT} lanes: {json.dumps(k2)}", flush=True)
 
     # ---- phase 4: render_image on CUDA against the golden statistics ----
     golden = json.loads((REPO / "tests" / "golden_stats.json").read_text())
-    g4 = {}
+    g4, clamped_means = {}, {}
     for name in GOLDEN_SCENES + GOLDEN_NO_PROBES:
         scene, cam, settings = get_scene(name, **GOLDEN_CFG)
+        before = pk.LAUNCHES
         img = render_image(scene, cam, settings, device="cuda", seed=GOLDEN_SEED)
+        if pk.LAUNCHES == before:
+            fail(f"golden {name}: rendered without kernel 2")
         img = img.cpu().numpy()
         if not np.isfinite(img).all():
             fail(f"golden {name}: non-finite pixels")
         got = check_golden(name, img, golden, probes=name not in GOLDEN_NO_PROBES)
         g4[name] = [round(m, 5) for m in got["mean"]]
+        # The reference of phase 10's PNG means: PNGs clamp to [0, 1].
+        clamped_means[name] = img.clip(0.0, 1.0).mean((0, 1))
     # earth with the real earthmap's 512x1024 texels, at its CLI shape
     # (bench.py's earth_hires_tex): finite, its mean near the golden's.
     scene, cam, settings = get_scene("earth", spp=100, tex_height=512, tex_width=1024)
@@ -813,9 +928,24 @@ def main() -> int:
     k3_ms = time_cuda(kernel, reps=5)
     k3["train_shape"].update(ms=k3_ms, plain_ms=k3_plain_ms, size=[st3.width, st3.height],
                              spp=st3.samples_per_pixel, max_depth=st3.max_depth)
-    record["tape"] = k3
+    # The textured instantiation at the training shape: earth with the
+    # 4-tap filter, perlin's marble. Every hit is textured in both scenes,
+    # so the tape's hit entries count the lookups and marbles.
+    k3_tex = {}
+    for label, name, kw in (("earth_bilinear", "earth", {"bilinear": True}),
+                            ("perlin", "perlin", {})):
+        kernel, plain, n_t, st_t, scene_t = tape_pair(name, 1234, **TRAIN_CFG, **kw)
+        kernel_out = kernel()
+        plain_out, plain_ms = timed(plain)
+        k3_tex[label] = check_tape(label, kernel_out, plain_out)
+        k3_tex[label].update(ms=time_cuda(kernel, reps=5), plain_ms=plain_ms,
+                          textured_hits=int((kernel_out[1] >= 0).sum()),
+                          ns=scene_t.num_spheres, nq=scene_t.num_quads)
+        del kernel_out, plain_out
+    record["tape"] = dict(k3, textured=k3_tex)
     print(f"phase 6 kernel 3 vs plain, cornell 64x64@2spp depth 12 and rand_spheres "
-          f"400x225@8spp depth 50 ({n3} lanes): {json.dumps(k3)}", flush=True)
+          f"400x225@8spp depth 50 ({n3} lanes): {json.dumps(k3)}; textured, earth (4-tap) "
+          f"and perlin at 400x225@8spp depth 50: {json.dumps(k3_tex)}", flush=True)
 
     # ---- phase 7: the training path, counted ----
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
@@ -897,16 +1027,59 @@ def main() -> int:
           f"{launches_scan}; kernel 1 vs plain on the step's own rays {json.dumps(k1_path)}",
           flush=True)
 
+    # ---- phase 7t: the training path on textured scenes, counted ----
+    # Five bucketed steps on earth (4-tap bilinear) from a sphere 5% too
+    # large, then one on perlin; the tape kernel's textured instantiation
+    # is each step's forward.
+    train_t = {}
+    for label, name, kw, n_steps in (("earth_bilinear", "earth", {"bilinear": True}, 5),
+                                     ("perlin", "perlin", {}, 1)):
+        scene, cam, st = get_scene(name, **TRAIN_CFG, **kw)
+        with torch.no_grad():
+            target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width,
+                                        height=st.height, samples_per_pass=st.samples_per_pixel,
+                                        max_depth=st.max_depth)
+        start = dataclasses.replace(scene, sph_radius=scene.sph_radius * 1.05)
+        params, _, step = make_inverse_renderer(start, cam, target, backend="bucketed",
+                                                **train_kw)
+        pk.LAUNCHES_TAPE = 0
+        torch.cuda.synchronize()
+        steps_t = []
+        for seed in TRAIN_SEEDS[:n_steps]:
+            timings = {}
+            t0 = time.perf_counter()
+            loss = float(step(seed, timings))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not (math.isfinite(loss)
+                    and all(bool(torch.isfinite(p.grad).all()) for p in params.values())):
+                fail(f"{label} training step {seed}: loss {loss} or its gradients not finite")
+            steps_t.append(dict(loss=loss, wall_s=wall, **timings))
+        if pk.LAUNCHES_TAPE != n_steps:
+            fail(f"{label}: the tape kernel launched {pk.LAUNCHES_TAPE} times in {n_steps} steps")
+        if float(params["sph_radius"].grad.abs().max()) <= 0:
+            fail(f"{label}: no radius gradient")
+        train_t[label] = dict(steps=steps_t, tape_launches=pk.LAUNCHES_TAPE)
+    record["train_textured"] = train_t
+    for label, rec_t in train_t.items():
+        for i, s_ in enumerate(rec_t["steps"]):
+            print(f"phase 7t {label} step {i}: loss {s_['loss']:.6g}, wall {s_['wall_s']:.4f} s = "
+                  f"tape forward {s_['tape_forward']:.4f} + loss/cotangent "
+                  f"{s_['loss_cotangent']:.4f} + replay forward {s_['replay_forward']:.4f} + "
+                  f"backward {s_['backward']:.4f} + optimizer {s_['optimizer']:.4f} s; "
+                  f"tape launches {rec_t['tape_launches']}", flush=True)
+
     # ---- phase 8: kernel 5 vs its twin; the wavefront-step path vs kernel 2 ----
     from raytracer_tpu_torch.ops import culled_kernel as ck
     from raytracer_tpu_torch.ops import wavefront_kernel as wk
 
     k5 = step_kernel_check()
-    k5["vs_kernel_2"] = step_vs_persistent()
+    k5["vs_kernel_2"] = step_vs_persistent("rand_spheres")
+    k5["vs_kernel_2_perlin"] = step_vs_persistent("perlin")
     record["wavefront_step"] = k5
     print(f"phase 8 kernel 5 vs plain at perlin's path shape (first and sixth iteration), "
-          f"and the wavefront-step path vs kernel 2 on rand_spheres 96x54@8spp depth 10 "
-          f"(rr_hi 0.75): {json.dumps(k5)}", flush=True)
+          f"and the wavefront-step path vs kernel 2 on rand_spheres and on perlin (textured) "
+          f"96x54@8spp depth 10 (rr_hi 0.75): {json.dumps(k5)}", flush=True)
 
     # ---- phase 9: kernel 4 vs its twin and kernel 1 ----
     k4 = culled_check()
@@ -914,36 +1087,93 @@ def main() -> int:
     print(f"phase 9 kernel 4 vs plain and kernel 1 on rand_spheres_large's first-pass camera "
           f"rays: {json.dumps(k4)}", flush=True)
 
-    # ---- phase 10: the wavefront-step and large-scene paths, counted ----
+    # ---- phase 10: the wavefront-step, large-scene and textured paths, counted ----
+    from raytracer_tpu_torch.utils.metrics import RenderMetrics
+
     counters = (("closest_hit", ik, "LAUNCHES"), ("persistent_render", pk, "LAUNCHES"),
                 ("persistent_tape", pk, "LAUNCHES_TAPE"), ("culled", ck, "LAUNCHES"),
                 ("wavefront_step", wk, "LAUNCHES"))
-    paths = {}
-    large_ref = large_scene_reference()
-    for label, argv, want, ref in (
-        ("wavefront_step", ["--scene", "perlin"], ("wavefront_step",),
-         np.asarray(golden["perlin"]["mean"])),
-        ("large_scene", ["--scene", "rand_spheres_large", "--spp", "64"],
-         ("culled", "closest_hit"), large_ref),
-    ):
-        out_png = OUT_DIR / f"{argv[1]}.png"
+
+    def counted(fn):
+        """(fn(), launches of every kernel during it), the counts zeroed
+        just before and read just after."""
         for _, mod, attr in counters:
             setattr(mod, attr, 0)
         torch.cuda.synchronize()
-        rep = cli.main(argv + ["--out", str(out_png)])
+        out = fn()
         torch.cuda.synchronize()
-        counts = {name: getattr(mod, attr) for name, mod, attr in counters}
-        if rep["path"] != label or any(counts[k] <= 0 for k in want) or counts[
-                "persistent_render"] or counts["persistent_tape"]:
-            fail(f"{argv[1]} took path {rep['path']} with launches {counts}")
+        return out, {name: getattr(mod, attr) for name, mod, attr in counters}
+
+    def check_launches(label, counts, want):
+        if any(counts[k] <= 0 for k in want) or any(
+                v for k, v in counts.items() if k not in want):
+            fail(f"{label}: launches {counts}, expected only {want}")
+
+    paths = {}
+    # The wavefront-step path: perlin with rng-filled Perlin tables, which
+    # kernel 2 does not serve (the JAX driver too renders it off its
+    # persistent kernel), through render_image at its CLI shape.
+    scene, cam, st = get_scene("perlin", procedural_perlin=False)
+    metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=st.width * st.height)
+    t0 = time.perf_counter()
+    img, counts = counted(lambda: render_image(scene, cam, st, device="cuda", seed=0,
+                                               metrics=metrics))
+    wall = time.perf_counter() - t0
+    check_launches("rng-table perlin", counts, ("wavefront_step",))
+    lin_mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
+    if render_path(scene) != "wavefront_step" or not np.allclose(
+            lin_mean, clamped_means["perlin"], rtol=0.05):
+        fail(f"rng-table perlin: path {render_path(scene)}, mean {lin_mean} vs "
+             f"{clamped_means['perlin']}")
+    paths["wavefront_step"] = dict(report=dict(metrics.snapshot(), wall_s=wall,
+                                               path=render_path(scene)),
+                                   launches=counts, linear_mean=lin_mean.round(4).tolist())
+    print(f"phase 10 wavefront_step path, rng-table perlin 400x225@100spp depth 50 via "
+          f"render_image: {json.dumps(paths['wavefront_step'])}", flush=True)
+
+    large_ref = large_scene_reference()
+    out_png = OUT_DIR / "rand_spheres_large.png"
+    rep, counts = counted(lambda: cli.main(["--scene", "rand_spheres_large", "--spp", "64",
+                                            "--out", str(out_png)]))
+    check_launches("rand_spheres_large", counts, ("culled", "closest_hit"))
+    shape, lin_mean = png_linear_mean(out_png)
+    if rep["path"] != "large_scene" or shape != (225, 400, 3) or not np.allclose(
+            lin_mean, large_ref, rtol=0.05):
+        fail(f"rand_spheres_large: path {rep['path']}, image {shape}, linear mean {lin_mean} "
+             f"vs reference {large_ref}")
+    paths["large_scene"] = dict(report=rep, launches=counts,
+                                linear_mean=lin_mean.round(4).tolist(),
+                                reference_mean=np.asarray(large_ref).round(4).tolist())
+    print(f"phase 10 large_scene path, --scene rand_spheres_large --spp 64: {json.dumps(rep)}; "
+          f"launches {json.dumps(counts)}; linear mean {lin_mean.round(4).tolist()} vs "
+          f"reference {np.asarray(large_ref).round(4).tolist()}", flush=True)
+
+    # The slice's CLI renders at 400x225, 100 spp, depth 50, each through
+    # kernel 2's textured instantiation in one launch: the kernel call that
+    # phase 3t held bit-equal to its twin (the same segments), the PNG's
+    # mean against phase 4's clamped mean of the same scene.
+    textured = {}
+    for label, ref, _, _, argv in TEXTURED_CASES:
+        out_png = OUT_DIR / f"{label}.png"
+        with PersistentTimer(pk) as timer:
+            rep, counts = counted(lambda: cli.main(argv + ["--out", str(out_png)]))
+        check_launches(label, counts, ("persistent_render",))
         shape, lin_mean = png_linear_mean(out_png)
-        if shape != (225, 400, 3) or not np.allclose(lin_mean, ref, rtol=0.05):
-            fail(f"{argv[1]}: image {shape}, linear mean {lin_mean} vs reference {ref}")
-        paths[label] = dict(report=rep, launches=counts, linear_mean=lin_mean.round(4).tolist(),
-                            reference_mean=np.asarray(ref).round(4).tolist())
-        print(f"phase 10 {label} path, {' '.join(argv)}: {json.dumps(rep)}; launches "
-              f"{json.dumps(counts)}; linear mean {lin_mean.round(4).tolist()} vs reference "
-              f"{np.asarray(ref).round(4).tolist()}", flush=True)
+        if (rep["path"] != "persistent" or [rep["size"], rep["spp"], rep["max_depth"]] != [
+                [400, 225], 100, 50] or shape != (225, 400, 3)
+                or rep["traced_segments"] != k2_tex_cli[label]["segments"]
+                or not np.allclose(lin_mean, clamped_means[ref], rtol=0.05)):
+            fail(f"{label}: {rep}; image {shape}, linear mean {lin_mean} vs "
+                 f"{clamped_means[ref]}; phase 3t's kernel call traced "
+                 f"{k2_tex_cli[label]['segments']} segments")
+        textured[label] = dict(report=rep, launches=counts, kernel_ms=timer.ms(),
+                               linear_mean=lin_mean.round(4).tolist(),
+                               reference_mean=clamped_means[ref].round(4).tolist())
+        print(f"phase 10 persistent path (textured), {' '.join(argv)}: {json.dumps(rep)}; "
+              f"launches {json.dumps(counts)}; kernel 2 {textured[label]['kernel_ms']:.3f} ms by "
+              f"CUDA events; linear mean {lin_mean.round(4).tolist()} vs "
+              f"{clamped_means[ref].round(4).tolist()}", flush=True)
+    paths["textured"] = textured
     record["paths"] = paths
 
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
@@ -958,6 +1188,43 @@ def main() -> int:
                + k4["sphere_tests"] * SPHERE_OPS, k4["rays"] * (24 + 8))
     k5s = k5["iteration_0"]
     b5 = bound(hit_ops(k5s["live"], k5["ns"], k5["nq"]), k5s["lanes"] * STEP_LANE_BYTES)
+    # Kernel 2 textured, at each CLI render: the closest hit of every
+    # segment, and a marble or an image lookup at every hit. A miss ends a
+    # path, so hits >= segments - samples; every primitive of perlin and
+    # earth is textured. simple_light's hits split between marble, a solid
+    # sphere and the light in proportions no count of this run gives, so
+    # its bound counts the closest hit alone.
+    k2_textured = {}
+    for label, t in textured.items():
+        rep_t = t["report"]
+        sc = get_scene(label.split("_bilinear")[0])[0]
+        hits = max(rep_t["traced_segments"] - 400 * 225 * rep_t["spp"], 0)
+        per_hit = {"perlin": MARBLE_OPS, "earth": IMAGE_OPS["nearest"],
+                   "earth_bilinear": IMAGE_OPS["stochastic"],
+                   "earth_bilinear_exact": IMAGE_OPS["bilinear"]}.get(label, 0)
+        b = bound(hit_ops(rep_t["traced_segments"], sc.num_spheres, sc.num_quads)
+                  + hits * per_hit,
+                  rep_t["retirement_log_mb"] * 2**20 + 16 * rep_t["wavefront_lanes"]
+                  + sc.images.numel() * 4)
+        k2_textured[label] = dict(launches=t["launches"]["persistent_render"],
+                                  ms=t["kernel_ms"], plain_ms=k2_tex_cli[label]["plain_ms"],
+                                  wall_s=rep_t["wall_s"],
+                                  segments=rep_t["traced_segments"],
+                                  warp_occupancy=rep_t["warp_occupancy"], bound_ms=b[0],
+                                  bound_by=b[1], bound_counts=(
+                                      "closest hit only" if not per_hit else
+                                      f"closest hit + {per_hit} ops x {hits} hits"))
+    # Kernel 3 textured: the tape's hit entries count the textured hits.
+    k3_textured = {}
+    for label, t in k3_tex.items():
+        per_hit = MARBLE_OPS if label == "perlin" else IMAGE_OPS["bilinear"]
+        b = bound(hit_ops(t["segments"], t["ns"], t["nq"]) + t["textured_hits"] * per_hit,
+                  t["lanes"] * (12 + 4 * TRAIN_CFG["max_depth"] + 4))
+        k3_textured[label] = dict(
+            {k: t[k] for k in ("ms", "plain_ms", "tape_equal", "lanes_equal", "segments",
+                               "warp_occupancy", "textured_hits")},
+            bound_ms=b[0], bound_by=b[1],
+            launches_in_training=train_t.get(label, {}).get("tape_launches"))
     kernels = [
         {
             "name": "closest_hit",
@@ -984,14 +1251,17 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/persistent_kernel.py:1214",
             "launches": launches["persistent_render"],
             "on_main_path": True,
-            "path": "render, the CLI (phase 5)",
-            "max_abs_err": max(v["max_abs"] for v in k2.values()),
+            "path": "render, the CLI (phase 5); textured: the CLI on perlin, earth (nearest, "
+                    "stochastic, 4-tap) and simple_light (phase 10)",
+            "max_abs_err": max(v["max_abs"] for v in (*k2.values(), *k2_tex.values(),
+                                                      *k2_tex_cli.values())),
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
             "bound_ms": b2[0],
             "bound_by": b2[1],
             "library_ms": None,
             "shape": f"rand_spheres 400x225@500spp depth 50, {DEFAULT_WAVEFRONT} lanes",
+            "textured": k2_textured,
         },
         {
             "name": "persistent_tape",
@@ -1000,14 +1270,16 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/persistent_kernel.py:1403",
             "launches": launches_train["persistent_tape"],
             "on_main_path": True,
-            "path": "training, bucketed backend (five steps, phase 7)",
-            "max_abs_err": max(v["max_abs"] for v in k3.values()),
+            "path": "training, bucketed backend (five steps, phase 7); textured: five steps on "
+                    "earth (4-tap), one on perlin (phase 7t)",
+            "max_abs_err": max(v["max_abs"] for v in (*k3.values(), *k3_tex.values())),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
             "bound_ms": b3[0],
             "bound_by": b3[1],
             "library_ms": None,
             "shape": f"rand_spheres 400x225@8spp depth 50, {n3} lanes",
+            "textured": k3_textured,
         },
         {
             "name": "culled_closest_hit",
@@ -1033,7 +1305,8 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/wavefront_kernel.py:197",
             "launches": paths["wavefront_step"]["launches"]["wavefront_step"],
             "on_main_path": True,
-            "path": "render, wavefront-step path: the CLI on perlin (phase 10)",
+            "path": "render, wavefront-step path: perlin with rng-filled Perlin tables through "
+                    "render_image (phase 10)",
             "max_abs_err": max(v["max_abs"] for k_, v in k5.items() if k_.startswith("iteration")),
             "ms": k5s["ms"],
             "plain_ms": k5s["plain_ms"],

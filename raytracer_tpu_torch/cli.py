@@ -12,6 +12,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import time
 
@@ -32,10 +33,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--spp", type=int, default=None)
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument(
+        "--bilinear", action="store_true",
+        help="bilinear image filtering (scenes with image textures; the reference is "
+        "nearest-neighbour, materials.go:184-192). The persistent path filters "
+        "stochastically: one tap drawn with its bilinear weight, unbiased",
+    )
+    ap.add_argument(
+        "--bilinear-exact", action="store_true",
+        help="with --bilinear: the deterministic 4-tap filter instead of the stochastic tap",
+    )
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     overrides = {}
+    if args.bilinear:
+        if "bilinear" not in inspect.signature(SCENES[args.scene]).parameters:
+            ap.error(f"--bilinear is not supported by scene {args.scene!r}")
+        overrides["bilinear"] = True
     if args.width is not None:
         overrides["width"] = args.width
     if args.spp is not None:
@@ -49,7 +64,8 @@ def main(argv=None) -> dict:
     )
     t0 = time.perf_counter()
     img = render_scene(
-        scene, cam, settings, device=dev, seed=args.seed, progress=True, metrics=metrics
+        scene, cam, settings, device=dev, seed=args.seed, progress=True, metrics=metrics,
+        bilinear_stochastic=False if args.bilinear_exact else None,
     )
     dt = time.perf_counter() - t0
 

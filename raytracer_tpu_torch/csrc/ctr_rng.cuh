@@ -47,4 +47,10 @@ static __device__ __forceinline__ uint32_t rr_ctr(int bounce, int max_depth) {
   return (uint32_t)(CAM_DRAWS + UNIFORMS_PER_BOUNCE * max_depth + bounce);
 }
 
+// Counter of the stochastic bilinear tap's uniform j (0: column, 1: row) at
+// bounce `bounce` (after the russian-roulette coins).
+static __device__ __forceinline__ uint32_t tap_ctr(int bounce, int max_depth, int j) {
+  return (uint32_t)(CAM_DRAWS + (UNIFORMS_PER_BOUNCE + 1) * max_depth + 2 * bounce + j);
+}
+
 }  // namespace rt

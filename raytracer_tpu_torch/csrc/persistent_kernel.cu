@@ -1,16 +1,27 @@
 // Kernel 2: the whole regenerative wavefront render in one launch.
 //
 // Replaces raytracer_tpu/ops/persistent_kernel.py:render_persistent_pallas
-// (_persistent_kernel), dense geometry with solid and checker textures: per
-// lane, strided regeneration and the thin-lens camera ray, closest hit,
-// winner resolve, hit epilogue, texture, miss/sky, emission, Lambertian /
-// metal / dielectric scatter, depth budget, russian roulette, and retirement
-// into the (3, K, N) per-(slot, lane) log.
+// (_persistent_kernel), dense geometry: per lane, strided regeneration and
+// the thin-lens camera ray, closest hit, winner resolve, hit epilogue,
+// texture, miss/sky, emission, Lambertian / metal / dielectric scatter,
+// depth budget, russian roulette, and retirement into the (3, K, N)
+// per-(slot, lane) log.
+//
+// Textures are a compile-time parameter (kTex). Without it the kernel
+// shades solid and checker textures from the (P, 16) row table only; with
+// it, a winner whose texture-table row (materials/packed.py:texture_tables)
+// is noise or image is shaded by csrc/textures.cuh: the 7-octave procedural
+// Perlin marble, or the image at the sphere's or quad's UV through the
+// nearest, 4-tap or stochastic single-tap filter (`filter`, uniform over a
+// launch). Scenes without noise or image textures launch the kTex = false
+// instantiation, which compiles to the code it had before textures.
 //
 // What bounds it on an H100: the closest-hit loop, ~20 FP32 operations per
 // primitive per path segment (489 spheres on rand_spheres), and SIMT
 // divergence: a warp runs until its longest lane queue drains, and lanes of
-// one warp are at different bounces of different paths.
+// one warp are at different bounces of different paths. On noise scenes the
+// marble adds ~3,800 integer and FP32 operations per noise hit (perlin's two
+// spheres make the closest hit cheap), so there the marble bounds it.
 //
 // Design (right before fast): one thread per wavefront lane, each running its
 // lane's whole strided sample queue in a loop until it owes no sample and has
@@ -51,6 +62,7 @@
 #include "camera.cuh"
 #include "closest_hit.cuh"
 #include "ctr_rng.cuh"
+#include "textures.cuh"
 
 namespace {
 
@@ -70,7 +82,17 @@ constexpr int DIFFUSE_LIGHT = 3;
 // g = sphere center | quad unit normal; g3 = signed radius | 0;
 // prm = metal fuzz | ior; its = 1/checker scale (0 = solid).
 
-template <bool kTape>
+// Texture inputs of the kTex instantiations: the (P, 12) texture table as
+// three float4 a row, the (I, img_h, img_w, 3) float32 texels, their (I, 2)
+// int32 true dims, and the image filter.
+struct TexArgs {
+  const float4* rows;
+  const float* images;
+  const int* dims;
+  int img_h, img_w, filter;
+};
+
+template <bool kTape, bool kTex>
 __global__ void persistent_kernel(
     const float4* __restrict__ sph, int ns, const float4* __restrict__ quad, int nq,
     const float4* __restrict__ res, const float* __restrict__ cam, uint32_t seed,
@@ -78,7 +100,7 @@ __global__ void persistent_kernel(
     const int* __restrict__ py0, int n, float* __restrict__ log,
     int* __restrict__ segs_out, int width, int height, int jump_px, int jump_py,
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
-    int sky_gradient, int max_iters, int* __restrict__ tape) {
+    int sky_gradient, int max_iters, int* __restrict__ tape, TexArgs tex) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
@@ -195,6 +217,29 @@ __global__ void persistent_kernel(
           texr = m2.y;
           texg = m2.z;
           texb = m2.w;
+        }
+      }
+      if (kTex) {  // ---- noise or image texture (csrc/textures.cuh) ----
+        const float4 t0 = __ldg(tex.rows + 3 * prim);  // [type scale image 0]
+        const int ttype = (int)t0.x;
+        if (ttype == rt::TEX_NOISE) {
+          texr = texg = texb = rt::marble(ptx, pty, ptz, t0.y);
+        } else if (ttype == rt::TEX_IMAGE) {
+          float u, v;
+          if (is_quad) {  // quad_uv from the row's alpha and beta basis
+            const float4 t1 = __ldg(tex.rows + 3 * prim + 1);
+            const float4 t2 = __ldg(tex.rows + 3 * prim + 2);
+            u = (ptx * t1.x + pty * t1.y + ptz * t1.z) - t1.w;
+            v = (ptx * t2.x + pty * t2.y + ptz * t2.z) - t2.w;
+          } else {
+            rt::sphere_uv(onx, ony, onz, u, v);
+          }
+          const rt::Texel c = rt::image_texel(tex.images, tex.dims, tex.img_h, tex.img_w,
+                                              (int)t0.z, u, v, tex.filter, key, depth,
+                                              max_depth);
+          texr = c.r;
+          texg = c.g;
+          texb = c.b;
         }
       }
 
@@ -318,33 +363,48 @@ __global__ void persistent_kernel(
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Texture arguments of an entry point; a null table selects the kTex = false
+// instantiation.
+static TexArgs tex_args(const void* tex_rows, const void* images, const void* dims,
+                        int img_h, int img_w, int filter) {
+  return TexArgs{(const float4*)tex_rows, (const float*)images, (const int*)dims, img_h,
+                 img_w, filter};
+}
+
+// Kernel 2. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int rt_render_persistent(
     const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
     int seed, const void* rem0, const void* px0, const void* py0, int n, void* log,
     void* segs, int width, int height, int jump_px, int jump_py, int num_slots,
     int max_depth, int rr_start, float rr_lo, float rr_hi, int sky_gradient,
-    int max_iters, int threads, void* stream) {
+    int max_iters, const void* tex_rows, const void* images, const void* dims, int img_h,
+    int img_w, int filter, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
-  persistent_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
+  auto kernel = tex_rows ? persistent_kernel<false, true> : persistent_kernel<false, false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, (const int*)rem0, (const int*)px0,
       (const int*)py0, n, (float*)log, (int*)segs, width, height, jump_px, jump_py,
-      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr);
+      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr, tex);
   return (int)cudaGetLastError();
 }
 
 // Kernel 3: radiance (3, n) float32, tape (max_depth, n) int32, segs (n,).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// The wrapper passes only deterministic image filters. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int rt_render_persistent_tape(
     const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
     int seed, int n, void* radiance, void* tape, void* segs, int width, int height,
-    int max_depth, int sky_gradient, int threads, void* stream) {
+    int max_depth, int sky_gradient, const void* tex_rows, const void* images,
+    const void* dims, int img_h, int img_w, int filter, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
-  persistent_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
+  auto kernel = tex_rows ? persistent_kernel<true, true> : persistent_kernel<true, false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, nullptr, nullptr, nullptr, n,
       (float*)radiance, (int*)segs, width, height, 0, 0, /*num_slots=*/1, max_depth,
-      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape);
+      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape, tex);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,10 @@ One step:
 1. **Tape forward**, no autograd: one launch of the tape kernel (kernel 3,
    ops/persistent_kernel.py:render_persistent_tape) traces every
    (sample, pixel) lane to its end and records its per-bounce winners.
-   Lane L is sample id L, pixel L mod (width*height).
+   Lane L is sample id L, pixel L mod (width*height). Noise and image
+   textures are shaded in the kernel; bilinear scenes take the
+   deterministic 4-tap filter there and in the replay, as in JAX
+   (raytracer_tpu/diff/bucketed.py:601-612).
 2. **Finish**: the image, the MSE loss, the per-lane cotangent of the loss
    from the forward image, and each lane's depth min(last hit + 2,
    max_depth) from the tape.
@@ -35,7 +38,9 @@ import torch
 
 from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
 from raytracer_tpu_torch.diff.tape import make_tape_intersect_fn
+from raytracer_tpu_torch.geometry.intersect import quad_derived
 from raytracer_tpu_torch.integrator.wavefront import trace
+from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops.persistent_kernel import (
     pack_camera_scalars_bg,
@@ -142,6 +147,7 @@ def make_bucketed_grad_fn(
             rad3, tape, _ = render_persistent_tape(
                 sph, quad, res, cam_s, seed, total, width=width, height=height,
                 max_depth=max_depth, sky_gradient=sky_gradient,
+                textures=texture_tables(scene, quad_derived(scene)),
             )
             clock.lap("tape_forward")
             loss, ct_lane, lane_depth, _ = finish(rad3.T, tape, target, samples_per_pass=k)

@@ -14,12 +14,13 @@ alive mask.
 * `regen_plain`: the regenerative wavefront over a strided per-lane sample
   queue, the plain twin and spec of the persistent CUDA kernel
   (csrc/persistent_kernel.cu) — the regen loop body and its epilogue
-  (`_bounce_and_retire`).
+  (`_bounce_and_retire`), with every texture kind and image filter.
 * `render_wavefront_regen`: schedule, kernel wrapper, `_fold_log`.
 * `wavefront_step_loop`, `render_wavefront_step`: the same regenerative
-  loop for scenes the persistent kernel does not serve, each iteration's
-  front half in kernel 5 (ops/wavefront_kernel.py) and the epilogue
-  `_bounce_and_retire` in PyTorch, with noise and image textures.
+  loop for scenes the persistent kernel does not serve (noise from
+  rng-filled Perlin tables), each iteration's front half in kernel 5
+  (ops/wavefront_kernel.py) and the epilogue `_bounce_and_retire` in
+  PyTorch.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py for the layout).
@@ -32,7 +33,11 @@ import torch
 from raytracer_tpu_torch.core.camera import camera_rays
 from raytracer_tpu_torch.geometry.intersect import quad_derived
 from raytracer_tpu_torch.materials.materials import resolve_and_shade
-from raytracer_tpu_torch.materials.packed import primitive_table, texture_tables
+from raytracer_tpu_torch.materials.packed import (
+    FILTER_STOCHASTIC,
+    primitive_table,
+    texture_tables,
+)
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops import persistent_kernel as pk
 from raytracer_tpu_torch.ops.intersect_kernel import (
@@ -141,7 +146,8 @@ def trace(
     twin on CPU tensors), which carries no gradient through t: pass
     geometry.intersect.intersect_scene_kernel_diff for the differentiable
     hit. Shading is differentiable in the scene; noise and image textures
-    are shaded from materials.packed.texture_tables."""
+    are shaded from materials.packed.texture_tables (bilinear scenes with
+    the deterministic 4-tap filter, the tape kernel's)."""
     qd = quad_derived(scene)
     sph, quad = pack_sphere_table(scene.sph_center, scene.sph_radius), pack_quad_table(qd)
     res = primitive_table(scene, qd)
@@ -165,12 +171,14 @@ def trace(
 
 def trace_tape_plain(
     sph_table, quad_table, res_table, cam_scalars, seed: int, n: int, *,
-    width: int, height: int, max_depth: int, sky_gradient: bool,
+    width: int, height: int, max_depth: int, sky_gradient: bool, textures=None,
 ):
     """Plain twin of the tape kernel: lane L traces global sample L at pixel
     L mod (width*height), its camera ray and shading drawn from the counter
-    RNG, with `trace`'s estimator (no russian roulette). Returns (radiance
-    (3, n) float32, tape (max_depth, n) int32, segments (n,) int32)."""
+    RNG, with `trace`'s estimator (no russian roulette; `textures` as
+    materials.packed.texture_tables, whose image filter is deterministic).
+    Returns (radiance (3, n) float32, tape (max_depth, n) int32, segments
+    (n,) int32)."""
     dev = sph_table.device
     sid = torch.arange(n, dtype=torch.int64, device=dev)
     pix = sid % (width * height)
@@ -182,7 +190,7 @@ def trace_tape_plain(
         res_table, sph_table.shape[0], o, d, cam_scalars[pk.CAM_BG : pk.CAM_BG + 3],
         lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
         lambda o, d, bounce, lanes: intersect_plain(sph_table, quad_table, o, d),
-        max_depth=max_depth, sky_gradient=sky_gradient, return_tape=True,
+        max_depth=max_depth, sky_gradient=sky_gradient, return_tape=True, textures=textures,
     )
     return rad.T.contiguous(), tape, segs
 
@@ -239,11 +247,15 @@ def regen_plain(
     rr_hi: float,
     sky_gradient: bool,
     max_iters: int,
+    textures=None,
 ):
     """Plain twin of the persistent kernel: the same per-lane semantics
     (strided regeneration, camera ray, closest hit, shade, depth budget,
     russian roulette, retirement into (3, K, N)), run lock-step over the
-    lanes that have a path in flight. Returns (log, segments per lane)."""
+    lanes that have a path in flight. `textures` is
+    materials.packed.texture_tables (None without noise or image textures);
+    the stochastic bilinear tap draws its uniforms at ops.ctr_rng.tap_ctr.
+    Returns (log, segments per lane)."""
     dev = rem0.device
     n = rem0.shape[0]
     ns = sph_table.shape[0]
@@ -251,6 +263,7 @@ def regen_plain(
     bg = cam_scalars[pk.CAM_BG : pk.CAM_BG + 3]
     lane_ids = torch.arange(n, dtype=torch.int64, device=dev)
     j3 = torch.arange(ctr_rng.UNIFORMS_PER_BOUNCE, dtype=torch.int64, device=dev)
+    stochastic = textures is not None and textures.image_filter == FILTER_STOCHASTIC
 
     rem = rem0.to(torch.int64)
     px = px0.to(torch.int64)
@@ -293,20 +306,25 @@ def regen_plain(
         t, prim = intersect_plain(sph_table, quad_table, o, d)
         uni = ctr_rng.uniform(seed, sid[:, None], ctr_rng.shading_ctr(bounce[:, None], j3))
         rru = ctr_rng.uniform(seed, sid, ctr_rng.rr_ctr(bounce, max_depth))
+        tap = None
+        if stochastic:
+            tap = ctr_rng.uniform(seed, sid[:, None],
+                                  ctr_rng.tap_ctr(bounce[:, None], max_depth, j3[:2]))
         _bounce_and_retire(
-            res_table, ns, None, bg, a, sk_a, t, prim, uni, rru,
+            res_table, ns, textures, bg, a, sk_a, t, prim, uni, rru,
             (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
-            rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient,
+            rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient, tap=tap,
         )
     return log, segs
 
 
 def _bounce_and_retire(
     res_table, ns, textures, bg, a, sk_a, t, prim, uni, rru, state, *,
-    max_depth, rr_start, rr_lo, rr_hi, sky_gradient,
+    max_depth, rr_start, rr_lo, rr_hi, sky_gradient, tap=None,
 ):
     """One bounce of the lanes `a` in flight from their winners (t, prim),
-    shading uniforms `uni` (L, 3) and russian-roulette coins `rru` (L,):
+    shading uniforms `uni` (L, 3), russian-roulette coins `rru` (L,) and,
+    for the stochastic bilinear filter, tap uniforms `tap` (L, 2):
     shade, background or emission, depth budget, russian roulette; then
     the state tensors (origin, direction, throughput, radiance, depth,
     active, log) are updated in place and finished paths retire into
@@ -316,7 +334,7 @@ def _bounce_and_retire(
     origin, direction, tp, rad, depth, active, log = state
     o, d, tp_a, rad_a = origin[a], direction[a], tp[a], rad[a]
     bounce = depth[a]
-    scat = resolve_and_shade(res_table, ns, t, prim, o, d, uni, textures)
+    scat = resolve_and_shade(res_table, ns, t, prim, o, d, uni, textures, tap)
     miss = ~scat.hit
     rad_a = rad_a + torch.where(miss[:, None], tp_a * _background(d, bg, sky_gradient), 0.0)
     rad_a = rad_a + torch.where(scat.hit[:, None], tp_a * scat.emitted, 0.0)
@@ -367,11 +385,13 @@ def render_wavefront_regen(
     wavefront_size: int,
     max_depth: int = 50,
     sky_gradient: bool = False,
+    textures=None,
 ):
     """Render spp samples per pixel with path regeneration: a fixed set of
     lanes, each starting its next strided sample as soon as its path ends.
-    Tables are on the render device (CUDA runs the kernel, CPU its twin).
-    Russian roulette takes render_persistent's defaults.
+    Tables are on the render device (CUDA runs the kernel, CPU its twin);
+    `textures` is materials.packed.texture_tables (None without noise or
+    image textures). Russian roulette takes render_persistent's defaults.
     Returns (framebuffer (n_pixels, 3) radiance sums, segments (N,) int32)."""
     n_pixels = width * height
     n, num_slots, jump = strided_schedule(n_pixels, spp, wavefront_size)
@@ -379,7 +399,7 @@ def render_wavefront_regen(
     log, segs = pk.render_persistent(
         sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0,
         width=width, height=height, jump_px=jump % width, jump_py=jump // width,
-        num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient,
+        num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient, textures=textures,
     )
     return _fold_log(log, num_slots, n, n_pixels, jump), segs
 
@@ -413,8 +433,9 @@ def wavefront_step_loop(
     regenerates idle lanes, traces the camera ray and finds every lane's
     closest hit with its draws; the lanes in flight are then shaded and
     retired in PyTorch (`_bounce_and_retire`, regen_plain's epilogue, with
-    the texture table for noise and image textures). The loop ends when no
-    lane has a path in flight after regeneration: one host sync per
+    the texture table for noise and image textures; its image filter must
+    be deterministic: kernel 5 draws no tap uniforms). The loop ends when
+    no lane has a path in flight after regeneration: one host sync per
     iteration. Arguments as regen_plain's, plus `textures`
     (materials.packed.texture_tables, or None). Returns (log (3, K, N),
     segments per lane (N,) int32, iterations)."""

@@ -4,8 +4,8 @@ Port of raytracer_tpu/materials/materials.py:resolve_and_shade with the
 persistent kernel's arithmetic (ops/persistent_kernel.py:640-962, and
 csrc/persistent_kernel.cu, which equals this function): the unit ray
 direction is d / sqrt(|d|^2). Solid and checker textures come from the row
-table; noise and image textures from the texture table when one is given
-(the wavefront-step and large-scene paths). The sphere normal is normalize((p - c) * r), the hollow-glass sign
+table; noise and image textures from the texture table when one is given.
+The sphere normal is normalize((p - c) * r), the hollow-glass sign
 riding on r, as in the JAX package's resolve_and_shade; the TPU kernel skips
 that normalization, and its normal's length is then off by the hit point's
 radial float32 error (~5e-4 on rand_spheres' r = 0.2 spheres).
@@ -65,14 +65,16 @@ def _dielectric_lr(reflect_prob, use_reflect, cannot_refract):
 
 
 def resolve_and_shade(
-    table, num_spheres: int, t, prim, origin, ray_dir, uniforms, textures=None
+    table, num_spheres: int, t, prim, origin, ray_dir, uniforms, textures=None,
+    tap_uniforms=None,
 ) -> BounceResult:
     """Hit epilogue + shading from the winner (t (N,), +inf on a miss; prim
     (N,) int). `table` is materials.packed.primitive_table(scene, qd) and
     `num_spheres` its sphere row count (quad rows follow); `textures` is
     materials.packed.texture_tables(scene, qd), None for scenes without
-    noise or image textures. Miss lanes return finite garbage that callers
-    mask with `hit`."""
+    noise or image textures; `tap_uniforms` (N, 2) the stochastic bilinear
+    tap's draws when its filter is FILTER_STOCHASTIC. Miss lanes return
+    finite garbage that callers mask with `hit`."""
     hit = torch.isfinite(t)
     t = torch.where(hit, t, torch.zeros_like(t))
     prim = torch.where(hit, prim, torch.zeros_like(prim)).long()
@@ -96,7 +98,8 @@ def resolve_and_shade(
 
     tex = eval_texture_rows(row[:, pk.COL_ITS], row[:, pk.COL_C0], row[:, pk.COL_C1], point)
     if textures is not None:
-        tex = eval_texture_extra(textures, textures.rows[prim], is_quad, s_unit, point, tex)
+        tex = eval_texture_extra(textures, textures.rows[prim], is_quad, s_unit, point, tex,
+                                 tap_uniforms)
     is_light = mtype == DIFFUSE_LIGHT
     emitted = _sel(is_light, tex, torch.zeros_like(tex))
 

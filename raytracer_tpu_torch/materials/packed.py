@@ -8,12 +8,15 @@ The kernel reads the winner's row directly by index as four float4; this
 plain (P, cols) layout replaces the TPU's lane-replicated resolve table,
 which existed only to feed a lane-gather scan.
 
-The (P, 16) table carries solid and checker textures (what the persistent
-CUDA kernel shades). Noise and image textures need fields that do not fit
-its spare columns (the quad UV basis alone is eight floats), so they go in
-a second (P, TEX_COLS) table beside it (`texture_tables`), built only for
-scenes that have such textures; the (P, 16) layout that kernels 2 and 3
-read does not change.
+The (P, 16) table carries solid and checker textures. Noise and image
+textures need fields that do not fit its spare columns (the quad UV basis
+alone is eight floats), so they go in a second (P, TEX_COLS) table beside
+it (`texture_tables`), built only for scenes that have such textures, with
+the scene's float32 (I, H, W, 3) texels and (I, 2) true dims: the (P, 16)
+layout does not change, and the textured instantiations of kernels 2 and 3
+read those same tensors, so kernel and twin fetch identical texels. The TPU
+kernel's f32-mantissa texel packing (pack_image_table) and its texel
+chunk-band scan were Mosaic workarounds and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -78,6 +81,11 @@ TCOL_BV = slice(8, 11)  # quad beta basis (w x u)
 TCOL_QBV = 11  # Q.bv
 TEX_COLS = 12
 
+# Image filter modes (csrc/textures.cuh keeps the same values).
+FILTER_NEAREST = 0
+FILTER_BILINEAR = 1  # the deterministic 4-tap filter
+FILTER_STOCHASTIC = 2  # one tap drawn with its bilinear weight
+
 
 class TextureTables(NamedTuple):
     """What noise and image shading reads beside the (P, 16) table."""
@@ -88,12 +96,15 @@ class TextureTables(NamedTuple):
     perlin: tuple | None  # (vec, px, py, pz) gathered tables; None = procedural
     has_image: bool
     has_noise: bool
+    image_filter: int  # FILTER_*
 
 
-def texture_tables(scene, qd) -> TextureTables | None:
+def texture_tables(scene, qd, stochastic: bool = False) -> TextureTables | None:
     """The texture table of a scene with noise or image textures (None
     otherwise), on the scene's device. Metals read as solid, as in the JAX
-    package's primitive_shading_table."""
+    package's primitive_shading_table. Images filter nearest-neighbour, or
+    bilinear when `scene.bilinear_textures`: the stochastic single tap with
+    `stochastic` (the persistent render's default), else the 4-tap."""
     if not (scene.has_noise or scene.has_image):
         return None
     mat_id = torch.cat([scene.sph_mat, scene.quad_mat]).long()
@@ -111,5 +122,9 @@ def texture_tables(scene, qd) -> TextureTables | None:
     perlin = None
     if not scene.perlin_procedural:
         perlin = (scene.perlin_vec, scene.perlin_px, scene.perlin_py, scene.perlin_pz)
-    return TextureTables(rows, scene.images, scene.image_dims, perlin,
-                         bool(scene.has_image), bool(scene.has_noise))
+    if not scene.bilinear_textures:
+        filt = FILTER_NEAREST
+    else:
+        filt = FILTER_STOCHASTIC if stochastic else FILTER_BILINEAR
+    return TextureTables(rows, scene.images.contiguous(), scene.image_dims.contiguous(), perlin,
+                         bool(scene.has_image), bool(scene.has_noise), filt)

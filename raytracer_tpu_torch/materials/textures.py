@@ -1,5 +1,7 @@
-"""Texture evaluation: solid, 3D checker, Perlin marble and nearest-neighbour
-image textures (port of raytracer_tpu/materials/textures.py).
+"""Texture evaluation: solid, 3D checker, Perlin marble and image textures
+with nearest-neighbour, 4-tap bilinear or stochastic single-tap bilinear
+filtering (port of raytracer_tpu/materials/textures.py, and of the
+stochastic tap of raytracer_tpu/ops/persistent_kernel.py:732-765).
 
 Solid and checker colors come from the (P, 16) row table
 (`eval_texture_rows`, the persistent kernel's rule). Noise and image
@@ -136,17 +138,67 @@ def image_lookup(images, image_dims, img_id, u, v):
     w = dims[:, 1].to(torch.float32)
     uu = torch.clamp(u, 0.0, 1.0)
     vv = 1.0 - torch.clamp(v, 0.0, 1.0)
+    return _texel(images, dims, img_id, (uu * w).to(torch.int32), (vv * h).to(torch.int32))
+
+
+def _bilinear_coords(image_dims, img_id, u, v):
+    """(x, y, dims): continuous texel coordinates (u*w - 0.5, v*h - 0.5)
+    after clamping u and flipping v, and the images' true (H, W)."""
+    dims = image_dims[img_id]
+    h = dims[:, 0].to(torch.float32)
+    w = dims[:, 1].to(torch.float32)
+    uu = torch.clamp(u, 0.0, 1.0)
+    vv = 1.0 - torch.clamp(v, 0.0, 1.0)
+    return uu * w - 0.5, vv * h - 0.5, dims
+
+
+def _texel(images, dims, img_id, xi, yi):
+    """Texels at integer coordinates clamped into each image's true dims."""
     zero = torch.zeros_like(dims[:, 0])
-    i = torch.minimum(torch.maximum((uu * w).to(torch.int32), zero), dims[:, 1] - 1)
-    j = torch.minimum(torch.maximum((vv * h).to(torch.int32), zero), dims[:, 0] - 1)
+    i = torch.minimum(torch.maximum(xi, zero), dims[:, 1] - 1)
+    j = torch.minimum(torch.maximum(yi, zero), dims[:, 0] - 1)
     return images[img_id, j.long(), i.long()]
 
 
-def eval_texture_extra(textures, trow, is_quad, s_unit, point, color):
+def image_lookup_bilinear(images, image_dims, img_id, u, v):
+    """4-tap bilinear lookup (raytracer_tpu/materials/textures.py:
+    _image_lookup_bilinear): taps around (u*w - 0.5, v*h - 0.5), each
+    clamped into the true dims, blended along x, then y; (N, 3)."""
+    x, y, dims = _bilinear_coords(image_dims, img_id, u, v)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+
+    def at(xf, yf):
+        return _texel(images, dims, img_id, xf.to(torch.int32), yf.to(torch.int32))
+
+    top = at(x0, y0) * (1.0 - fx) + at(x0 + 1.0, y0) * fx
+    bot = at(x0, y0 + 1.0) * (1.0 - fx) + at(x0 + 1.0, y0 + 1.0) * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def image_tap_stochastic(images, image_dims, img_id, u, v, tap_uniforms):
+    """One of the 4 bilinear taps, drawn with its bilinear weight: the +1
+    column when tap_uniforms[:, 0] < fx, the +1 row when tap_uniforms[:, 1]
+    < fy (raytracer_tpu/ops/persistent_kernel.py:748-765, whose uniforms
+    came from the TPU's hardware PRNG; here they are the counter RNG's
+    ops/ctr_rng.py:tap_ctr draws). Its mean is image_lookup_bilinear."""
+    x, y, dims = _bilinear_coords(image_dims, img_id, u, v)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    xi = x0.to(torch.int32) + (tap_uniforms[:, 0] < x - x0).to(torch.int32)
+    yi = y0.to(torch.int32) + (tap_uniforms[:, 1] < y - y0).to(torch.int32)
+    return _texel(images, dims, img_id, xi, yi)
+
+
+def eval_texture_extra(textures, trow, is_quad, s_unit, point, color, tap_uniforms=None):
     """Noise and image colors over `color` (the solid/checker result) for
     lanes whose texture is of those kinds. `textures` is a
-    materials.packed.TextureTables, `trow` the winners' (N, TEX_COLS) rows,
-    `s_unit` the sphere lanes' outward unit normal (N, 3)."""
+    materials.packed.TextureTables (its `image_filter` picks the filter),
+    `trow` the winners' (N, TEX_COLS) rows, `s_unit` the sphere lanes'
+    outward unit normal (N, 3), `tap_uniforms` (N, 2) the stochastic tap's
+    draws (needed by FILTER_STOCHASTIC only)."""
     ttype = trow[:, pk.TCOL_TYPE].to(torch.int32)
     if textures.has_image:
         su, sv = sphere_uv(s_unit)
@@ -155,7 +207,15 @@ def eval_texture_extra(textures, trow, is_quad, s_unit, point, color):
         u = torch.where(is_quad, qu, su)
         v = torch.where(is_quad, qv, sv)
         img_id = trow[:, pk.TCOL_IMAGE].to(torch.int64)
-        img = image_lookup(textures.images, textures.image_dims, img_id, u, v)
+        args = (textures.images, textures.image_dims, img_id, u, v)
+        if textures.image_filter == pk.FILTER_NEAREST:
+            img = image_lookup(*args)
+        elif textures.image_filter == pk.FILTER_BILINEAR:
+            img = image_lookup_bilinear(*args)
+        elif tap_uniforms is None:
+            raise ValueError("the stochastic bilinear filter needs its tap uniforms")
+        else:
+            img = image_tap_stochastic(*args, tap_uniforms)
         color = torch.where((ttype == TEX_IMAGE)[:, None], img, color)
     if textures.has_noise:
         val = marble(point, trow[:, pk.TCOL_SCALE], textures.perlin)

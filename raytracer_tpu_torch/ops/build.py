@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-nvcc compiles every `.cu` file into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
-The build runs at first use, never at import, into `build/` next to this
-package's sources; the library's file name carries a hash of the sources and
-flags, so an edit rebuilds.
+nvcc compiles each `.cu` file to an object, all of them at once in
+parallel processes, and links them into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds). The build runs at first use, never at import, into `build/` next
+to this package's sources; the library's file name carries a hash of the
+sources and flags, so an edit rebuilds.
 
 Fast math stays off (the closest-hit NaN rejection needs IEEE sqrt of a
 negative number), and so does multiply-add contraction (`--fmad=false`):
@@ -27,9 +28,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false",
     "-Xptxas", "-v",  # per-kernel registers / spills, kept in build_log()
 ]
@@ -42,15 +44,19 @@ SIGNATURES = {
     "rt_intersect": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
     # sph, ns, quad, nq, res, cam, seed, rem0, px0, py0, n, log, segs,
     # width, height, jump_px, jump_py, num_slots, max_depth, rr_start,
-    # rr_lo, rr_hi, sky_gradient, max_iters, threads, stream
+    # rr_lo, rr_hi, sky_gradient, max_iters, tex_rows, images, image_dims,
+    # img_h, img_w, filter, threads, stream
     "rt_render_persistent": [
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+        _P, _P, _P, _I, _I, _I, _I, _P,
     ],
     # sph, ns, quad, nq, res, cam, seed, n, radiance, tape, segs,
-    # width, height, max_depth, sky_gradient, threads, stream
+    # width, height, max_depth, sky_gradient, tex_rows, images, image_dims,
+    # img_h, img_w, filter, threads, stream
     "rt_render_persistent_tape": [
-        _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+        _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+        _P, _P, _P, _I, _I, _I, _I, _P,
     ],
     # sph, ns, quad, nq, cam, seed, origin, direction, active, remaining, px,
     # py, sample_k, depth, n, width, height, jump_px, jump_py, max_depth,
@@ -90,21 +96,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libraytracer_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel processes, wait for every one, and
+    return their joined output; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(f) for f in sorted(CSRC_DIR.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    tmp = so.with_suffix(f".{tag}.so")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sources, objs)])
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
     return so
 

@@ -18,6 +18,9 @@ Draw-index layout (the contract between kernels and their plain twins):
     CAM_DRAWS + UPB*max_depth + bounce
                                   russian-roulette coin of bounce `bounce`
                                   (outside the shading range)
+    CAM_DRAWS + (UPB+1)*max_depth + 2*bounce + j
+                                  stochastic bilinear tap uniform j (0: x,
+                                  1: y) of bounce `bounce` (after the coins)
 
 `lane` is the global sample id, not the physical lane, so any subset of
 samples can regenerate its own stream.
@@ -46,6 +49,12 @@ def shading_ctr(bounce, j):
 def rr_ctr(bounce, max_depth: int):
     """Counter of the russian-roulette coin at bounce `bounce`."""
     return CAM_DRAWS + UNIFORMS_PER_BOUNCE * max_depth + bounce
+
+
+def tap_ctr(bounce, max_depth: int, j):
+    """Counter of the stochastic bilinear tap's uniform j (0 picks the
+    column, 1 the row) at bounce `bounce`."""
+    return CAM_DRAWS + (UNIFORMS_PER_BOUNCE + 1) * max_depth + 2 * bounce + j
 
 
 def _u32(x) -> torch.Tensor:

@@ -2,16 +2,20 @@
 and its gradient-forward (tape) mode.
 
 Kernel 2 ports raytracer_tpu/ops/persistent_kernel.py
-(`render_persistent_pallas`), dense geometry with solid and checker
-textures. The CUDA kernel is `csrc/persistent_kernel.cu` (one thread per
-wavefront lane, each running its lane's strided sample queue to the end);
-its plain PyTorch twin and spec is integrator/wavefront.py:regen_plain,
-which takes the same packed tables.
+(`render_persistent_pallas`), dense geometry with all four texture kinds
+(solid, checker, procedural Perlin marble, images filtered nearest, 4-tap
+bilinear or by one stochastic bilinear tap). The CUDA kernel is
+`csrc/persistent_kernel.cu` (one thread per wavefront lane, each running
+its lane's strided sample queue to the end; noise and images in
+`csrc/textures.cuh`, compiled in only for scenes that have them); its plain
+PyTorch twin and spec is integrator/wavefront.py:regen_plain, which takes
+the same packed tables.
 
 Kernel 3 ports `render_persistent_tape`: the same CUDA kernel, instantiated
 with a tape, traces one sample per lane without russian roulette and
 records each bounce's winner (the forward of the bucketed gradient,
-diff/bucketed.py). Its twin is integrator/wavefront.py:trace_tape_plain.
+diff/bucketed.py), with deterministic image filters only, as in JAX. Its
+twin is integrator/wavefront.py:trace_tape_plain.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py), so kernel and twin consume identical uniforms; the TPU
@@ -26,7 +30,12 @@ import torch
 
 from raytracer_tpu_torch.core.camera import CameraFrame
 from raytracer_tpu_torch.geometry.intersect import quad_derived
-from raytracer_tpu_torch.materials.packed import N_COLS, primitive_table
+from raytracer_tpu_torch.materials.packed import (
+    FILTER_STOCHASTIC,
+    N_COLS,
+    TEX_COLS,
+    primitive_table,
+)
 from raytracer_tpu_torch.ops.intersect_kernel import (
     check_float4_rows,
     check_tensor,
@@ -61,13 +70,16 @@ LAUNCHES_TAPE = 0
 
 def unsupported_reason(scene) -> str | None:
     """Why the persistent kernel (CUDA or its plain twin) cannot render
-    `scene`, naming the ROADMAP item that adds it; None if it can. The
-    render driver sends such scenes down its other paths
-    (render/driver.py:render_path); the tape-forward gradient refuses them."""
-    if scene.has_noise:
-        return "the persistent kernel does not shade noise textures yet (ROADMAP Queue 1 #9)"
-    if scene.has_image:
-        return "the persistent kernel does not shade image textures yet (ROADMAP Queue 1 #9)"
+    `scene`; None if it can. The render driver sends such scenes down its
+    other paths (render/driver.py:render_path); the tape-forward gradient
+    refuses them. The two gates are JAX's scene_supports_persistent's
+    (raytracer_tpu/ops/persistent_kernel.py:1189-1190) and, until ROADMAP
+    Queue 1 #12, the cluster-culling threshold; JAX's image-size gates
+    (:1191-1201) guarded the TPU's VMEM budget and its f32 dims encoding,
+    which the port does not have."""
+    if scene.has_noise and not scene.perlin_procedural:
+        return ("noise from rng-filled Perlin tables (procedural_perlin=False) is shaded off "
+                "the persistent kernel, as the JAX package's scene_supports_persistent does")
     if scene.num_prims > CLUSTERED_SCENE_PRIMS:
         return (
             f"{scene.num_prims} primitives > {CLUSTERED_SCENE_PRIMS} need the persistent "
@@ -89,6 +101,24 @@ def pack_persistent_tables(scene):
         pack_quad_table(qd),
         primitive_table(scene, qd),
     )
+
+
+def _texture_launch_args(textures, p: int, dev):
+    """The texture arguments of a kernel entry point (null pointers select
+    the untextured instantiation), after checking the tables of a scene of
+    `p` primitives."""
+    if textures is None:
+        return (None, None, None, 0, 0, 0)
+    check_tensor("textures.rows", textures.rows, torch.float32, (p, TEX_COLS), dev)
+    images = textures.images
+    check_tensor("textures.images", images, torch.float32, (None, None, None, 3), dev)
+    check_tensor("textures.image_dims", textures.image_dims, torch.int32,
+                 (images.shape[0], 2), dev)
+    if textures.has_noise and textures.perlin is not None:
+        raise ValueError("the kernel shades the procedural Perlin tables only")
+    check_float4_rows(texture_rows=textures.rows)
+    return (textures.rows.data_ptr(), images.data_ptr(), textures.image_dims.data_ptr(),
+            images.shape[1], images.shape[2], textures.image_filter)
 
 
 def pack_camera_scalars_bg(frame, background) -> torch.Tensor:
@@ -145,14 +175,17 @@ def render_persistent(
     rr_lo: float = 0.05,
     rr_hi: float = 0.75,
     sky_gradient: bool = False,
+    textures=None,
 ):
     """Render every lane's strided sample queue.
 
     Tables from pack_persistent_tables and pack_camera_scalars_bg; rem0,
     px0, py0 (N,) int32 per-lane schedule (samples owed, first pixel) from
-    integrator.wavefront.schedule_arrays. Returns (log (3, num_slots, N)
-    float32 retired radiance per (slot, lane), segments (N,) int32 path
-    segments traced per lane).
+    integrator.wavefront.schedule_arrays; `textures` from
+    materials.packed.texture_tables (None for scenes without noise or
+    image textures), whose `image_filter` selects the image filter. Returns
+    (log (3, num_slots, N) float32 retired radiance per (slot, lane),
+    segments (N,) int32 path segments traced per lane).
 
     CPU tensors take integrator.wavefront.regen_plain; CUDA tensors launch
     the CUDA kernel (or raise)."""
@@ -176,11 +209,13 @@ def render_persistent(
         from raytracer_tpu_torch.integrator.wavefront import regen_plain
 
         return regen_plain(
-            sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0, **cfg
+            sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0, **cfg,
+            textures=textures,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_float4_rows(sph_table=sph_table, quad_table=quad_table, res_table=res_table)
+    tex = _texture_launch_args(textures, p, dev)
     from raytracer_tpu_torch.ops.build import check_launch, load_kernels
 
     lib = load_kernels()
@@ -197,7 +232,7 @@ def render_persistent(
         rem0.data_ptr(), px0.data_ptr(), py0.data_ptr(), n,
         log.data_ptr(), segs.data_ptr(),
         width, height, jump_px, jump_py, num_slots, max_depth, rr_start,
-        rr_lo, rr_hi, int(sky_gradient), cfg["max_iters"], THREADS, stream,
+        rr_lo, rr_hi, int(sky_gradient), cfg["max_iters"], *tex, THREADS, stream,
     )
     check_launch("rt_render_persistent", err)
     LAUNCHES += 1
@@ -216,10 +251,13 @@ def render_persistent_tape(
     height: int,
     max_depth: int = 50,
     sky_gradient: bool = False,
+    textures=None,
 ):
     """Kernel 3: lane L traces global sample L at pixel L mod (width*height)
     to its end (no russian roulette; camera draws at counters 0-3, shading at
-    ops.ctr_rng.shading_ctr) and records its winner per bounce.
+    ops.ctr_rng.shading_ctr) and records its winner per bounce. `textures`
+    as render_persistent's, with a deterministic image filter (the replay
+    must reproduce every texel).
 
     Returns (radiance (3, n) float32, tape (max_depth, n) int32 with -1 for
     a miss or a dead lane, segments (n,) int32). CPU tables take
@@ -234,7 +272,10 @@ def render_persistent_tape(
     check_tensor("cam_scalars", cam_scalars, torch.float32, (N_CAM,), dev)
     if max_depth < 1:
         raise ValueError(f"max_depth must be >= 1, got {max_depth}")
-    cfg = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient)
+    if textures is not None and textures.image_filter == FILTER_STOCHASTIC:
+        raise ValueError("the tape needs a deterministic image filter, not the stochastic tap")
+    cfg = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
+               textures=textures)
     if dev.type == "cpu":
         from raytracer_tpu_torch.integrator.wavefront import trace_tape_plain
 
@@ -242,6 +283,7 @@ def render_persistent_tape(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_float4_rows(sph_table=sph_table, quad_table=quad_table, res_table=res_table)
+    tex = _texture_launch_args(textures, p, dev)
     from raytracer_tpu_torch.ops.build import check_launch, load_kernels
 
     lib = load_kernels()
@@ -257,7 +299,7 @@ def render_persistent_tape(
         res_table.data_ptr(), cam_scalars.data_ptr(),
         ctypes.c_int(int(seed) & 0xFFFFFFFF).value, n,
         radiance.data_ptr(), tape.data_ptr(), segs.data_ptr(),
-        width, height, max_depth, int(sky_gradient), THREADS, stream,
+        width, height, max_depth, int(sky_gradient), *tex, THREADS, stream,
     )
     check_launch("rt_render_persistent_tape", err)
     LAUNCHES_TAPE += 1

@@ -2,20 +2,27 @@
 render_scene and the large-scene pass loop).
 
 `render_path` routes each scene as the JAX driver does
-(raytracer_tpu/render/driver.py:477-506, 536-634):
+(raytracer_tpu/render/driver.py:477-506, 536-634), with one exception
+until ROADMAP Queue 1 #12: JAX gives solid and checker scenes of more than
+1536 primitives to its persistent kernel with in-kernel cluster culling
+(driver.py:504-506), which the port's kernel 2 does not have yet, so the
+port renders them on its "large_scene" path (kernels 4 + 1) or, up to
+LARGE_SCENE_PRIMS, on its "wavefront_step" path.
 
-* "persistent": scenes the persistent kernel serves. One kernel-2 launch
-  per spp chunk renders every sample of the chunk
-  (ops/persistent_kernel.py); the retirement log then folds into the
-  framebuffer (integrator/wavefront.py:_fold_log).
+* "persistent": scenes the persistent kernel serves, every texture kind
+  included. One kernel-2 launch per spp chunk renders every sample of the
+  chunk (ops/persistent_kernel.py); the retirement log then folds into
+  the framebuffer (integrator/wavefront.py:_fold_log).
 * "large_scene": scenes it does not serve with more than LARGE_SCENE_PRIMS
   primitives: passes of k samples per pixel, camera rays through the
   cluster-culled kernel 4 and bounces through the dense kernel 1
   (`_render_large_scene`).
-* "wavefront_step": every other scene (noise and image textures): the
+* "wavefront_step": every other scene (noise from rng-filled Perlin
+  tables; more than 1536 primitives up to LARGE_SCENE_PRIMS): the
   regenerative loop with kernel 5 as each iteration's front half and the
   shading epilogue in PyTorch (integrator/wavefront.py:
-  render_wavefront_step).
+  render_wavefront_step), images filtered by the deterministic 4-tap
+  where the scene asks for bilinear filtering.
 
 The TPU's VMEM slot model (regen_max_slots), its gather-band wavefront
 heuristic (pick_wavefront) and its tile rounding do not apply: the
@@ -97,10 +104,6 @@ def samples_per_pass_for(spp: int, num_pixels: int,
 def render_path(scene: Scene) -> str:
     """The path `render_image` takes for `scene`: "persistent",
     "large_scene" or "wavefront_step" (see the module docstring)."""
-    if scene.bilinear_textures:
-        raise NotImplementedError(
-            "bilinear image filtering is not ported yet (ROADMAP Queue 1 #11)"
-        )
     if unsupported_reason(scene) is None:
         return "persistent"
     if scene.num_prims > LARGE_SCENE_PRIMS:
@@ -136,11 +139,18 @@ def render_image(
     log_budget_bytes: int = LOG_BUDGET_BYTES,
     progress: bool = False,
     metrics=None,
+    bilinear_stochastic: bool | None = None,
 ) -> torch.Tensor:
     """Render the full image; returns linear mean radiance (H, W, 3) float32
     on `device`. CUDA runs the kernels; CPU runs their plain twins. The
     scene takes `render_path(scene)`; `wavefront` sizes the persistent
     path's lanes only.
+
+    bilinear_stochastic (scenes with `bilinear_textures`, as in the JAX
+    driver): None (default) filters images by the unbiased stochastic
+    single tap on the persistent path; False forces the deterministic
+    4-tap; True asks for the stochastic tap, which only the persistent path
+    has. Other paths filter by the 4-tap.
 
     Russian roulette starts at depth 5 and caps the survival probability at
     0.75 on the persistent path and 0.95 on the wavefront-step path (the
@@ -160,9 +170,10 @@ def render_image(
     cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
     scene = scene.to(dev)
     sph, quad, res = pack_persistent_tables(scene)
+    textures = texture_tables(scene, quad_derived(scene),
+                              stochastic=path == "persistent" and bilinear_stochastic is not False)
     if path == "wavefront_step":
         wavefront = max(STEP_WAVEFRONT_MIN, min(n_pix, STEP_WAVEFRONT_MAX))
-        textures = texture_tables(scene, quad_derived(scene))
 
     chunk = spp_chunk_for(n_pix, spp, wavefront, log_budget_bytes)
     if metrics is not None:
@@ -180,7 +191,7 @@ def render_image(
                   max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
         if path == "persistent":
             fb, segs = render_wavefront_regen(
-                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), **kw
+                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures, **kw
             )
         else:
             fb, segs, it = render_wavefront_step(

@@ -113,9 +113,11 @@ def earth(
 
 def perlin_demo(
     seed: int = 0, *, width: int = 400, spp: int = 100, max_depth: int = 50,
-    bucket: bool = False,
+    bucket: bool = False, procedural_perlin: bool = True,
 ):
-    """Marble-noise spheres (main.go:106-130)."""
+    """Marble-noise spheres (main.go:106-130). `procedural_perlin=False`
+    fills the Perlin tables from the builder's rng (SceneBuilder.build),
+    which the persistent kernel does not serve."""
     cam, settings = make_camera(
         16.0 / 9.0,
         width,
@@ -131,7 +133,7 @@ def perlin_demo(
     mat = b.lambertian(noise)
     b.add_sphere((0, -1000, 0), 1000, mat)
     b.add_sphere((0, 2, 0), 2, mat)
-    return b.build(bucket_shapes=bucket), cam, settings
+    return b.build(bucket_shapes=bucket, procedural_perlin=procedural_perlin), cam, settings
 
 
 def quad_demo(

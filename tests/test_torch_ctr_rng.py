@@ -63,9 +63,14 @@ def test_draw_layout_is_derived_and_disjoint():
     cam = set(range(prng.CAM_DRAWS))
     shade = {prng.shading_ctr(b, j) for b in range(max_depth) for j in range(UNIFORMS_PER_BOUNCE)}
     rr = {prng.rr_ctr(b, max_depth) for b in range(max_depth)}
+    tap = {prng.tap_ctr(b, max_depth, j) for b in range(max_depth) for j in range(2)}
     assert len(shade) == max_depth * UNIFORMS_PER_BOUNCE and len(rr) == max_depth
+    assert len(tap) == 2 * max_depth
     assert not (cam & shade) and not (cam & rr) and not (shade & rr)
+    assert not (tap & (cam | shade | rr))
     assert min(shade) == prng.CAM_DRAWS  # the tape layout test_ktape pins
+    # The tap draws follow the coins, so every earlier counter keeps its place.
+    assert min(tap) == max(rr) + 1 == prng.CAM_DRAWS + (UNIFORMS_PER_BOUNCE + 1) * max_depth
 
 
 def test_cuda_header_constants_match_python():
@@ -75,6 +80,11 @@ def test_cuda_header_constants_match_python():
     assert int(consts["UNIFORMS_PER_BOUNCE"]) == UNIFORMS_PER_BOUNCE
     for c in (prng._M1, prng._M2, prng._PHI, prng._SEED_XOR):
         assert f"0x{c:08X}u" in src
+    # Each counter function's body derives from the two constants as the
+    # Python functions do.
+    assert "CAM_DRAWS + UNIFORMS_PER_BOUNCE * bounce + j" in src
+    assert "CAM_DRAWS + UNIFORMS_PER_BOUNCE * max_depth + bounce" in src
+    assert "CAM_DRAWS + (UNIFORMS_PER_BOUNCE + 1) * max_depth + 2 * bounce + j" in src
 
 
 def test_moments_and_decorrelation():

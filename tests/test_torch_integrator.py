@@ -239,27 +239,31 @@ def test_russian_roulette_unbiased():
 
 
 def test_scene_support_gates():
-    """The persistent kernel still refuses noise, image textures and scenes
-    past its clustering threshold, naming the ROADMAP item (the tape-forward
-    gradient refuses them with that reason); the render driver's
-    `render_path` sends them down the wavefront-step or the large-scene
-    path, and bilinear filtering still raises, on the CPU too."""
+    """The persistent kernel serves every texture kind (noise, images,
+    bilinear filtering) and refuses two kinds of scene, as JAX's
+    scene_supports_persistent does: noise from rng-filled Perlin tables
+    (`procedural_perlin=False`) and, until ROADMAP Queue 1 #12, scenes past
+    its clustering threshold (the tape-forward gradient refuses them with
+    that reason); the render driver's `render_path` sends those down the
+    wavefront-step or the large-scene path. Bilinear scenes render."""
     from raytracer_tpu_torch.render.driver import render_image, render_path
     from raytracer_tpu_torch.scenes.registry import get_scene
 
-    for name, what, path in (("perlin", "noise", "wavefront_step"),
-                             ("simple_light", "noise", "wavefront_step"),
-                             ("earth", "image", "wavefront_step"),
-                             ("rand_spheres_large", "cluster culling", "large_scene"),
+    for name, what, path in (("rand_spheres_large", "cluster culling", "large_scene"),
                              ("quad_field", "cluster culling", "large_scene")):
         scene, cam, st = get_scene(name, width=8, spp=1)
         assert not ppk.scene_supports_persistent(scene)
         reason = ppk.unsupported_reason(scene)
         assert what in reason and "ROADMAP" in reason, reason
         assert render_path(scene) == path
-    for name in ("rand_spheres", "one_weekend_final", "quads", "cornell"):
+    rng_perlin = get_scene("perlin", width=8, procedural_perlin=False)[0]
+    assert "rng-filled Perlin" in ppk.unsupported_reason(rng_perlin)
+    assert render_path(rng_perlin) == "wavefront_step"
+    for name in ("rand_spheres", "one_weekend_final", "quads", "cornell", "perlin",
+                 "simple_light", "earth"):
         scene = get_scene(name, width=8)[0]
         assert ppk.scene_supports_persistent(scene) and render_path(scene) == "persistent"
     scene, cam, st = get_scene("earth", width=8, spp=1, bilinear=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        render_image(scene, cam, st, device="cpu")
+    assert render_path(scene) == "persistent"
+    img = render_image(scene, cam, st, device="cpu")
+    assert img.shape == (st.height, 8, 3) and bool(torch.isfinite(img).all())

@@ -14,9 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
-from raytracer_tpu_torch.geometry.intersect import build_large_scene_tables, scene_tables
+from raytracer_tpu_torch.core.camera import camera_frame, camera_rays, make_camera
+from raytracer_tpu_torch.geometry.intersect import (
+    build_large_scene_tables,
+    quad_derived,
+    scene_tables,
+)
+from raytracer_tpu_torch.geometry.scene import SceneBuilder
 from raytracer_tpu_torch.integrator import wavefront as wf
+from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import build, ctr_rng
 from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
@@ -41,8 +47,37 @@ def random_rays(n, lo, hi, seed, device="cpu"):
     return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
-def persistent_inputs(name, width, spp, wavefront, device, max_depth=10):
-    scene, cam, st = get_scene(name, width=width, spp=spp, max_depth=max_depth)
+def textured_quads(seed=0, width=48, spp=4, max_depth=10, bilinear=False):
+    """Images and noise on spheres and quads, a checker and a metal (read as
+    solid), lit by a noise emitter: every texture kind on both UV paths."""
+    b = SceneBuilder(seed)
+    img = np.random.default_rng(2).uniform(0, 1, (6, 10, 3))
+    b.add_sphere((0, -100.5, -1), 100, b.lambertian(b.noise(3.0)))
+    b.add_sphere((0, 0, -1), 0.5, b.lambertian(b.image(img)))
+    b.add_sphere((-1.1, 0, -1), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
+    b.add_sphere((1.1, 0.8, -1), 0.3, b.diffuse_light(b.noise(1.5)))
+    b.add_quad((-2, -0.4, -2.5), (4, 0, 0), (0, 2, 0), b.lambertian(b.image(img[:4, :7])))
+    b.add_quad((-1, -0.5, 0.5), (1, 0, 0), (0, 0, -1), b.lambertian(b.noise(5.0)))
+    b.add_quad((1, -0.5, 0.5), (1, 0, 0), (0, 0, -1),
+               b.lambertian(b.checker(0.2, (1, 0, 0), (0, 1, 0))))
+    cam, st = make_camera(16 / 9, width, samples_per_pixel=spp, max_depth=max_depth,
+                          look_from=(0, 0.5, 2), look_at=(0, 0, -1), fov_degrees=70,
+                          background=(0.3, 0.4, 0.5))
+    return b.build(bilinear_textures=bilinear), cam, st
+
+
+def scene_by_name(name, **kw):
+    """A registered scene, or "textured_quads" (its bilinear flag in kw)."""
+    if name == "textured_quads":
+        return textured_quads(**kw)
+    return get_scene(name, **kw)
+
+
+def persistent_inputs(name, width, spp, wavefront, device, max_depth=10, stochastic=False,
+                      **scene_kw):
+    """Kernel 2's arguments and config for `name`; the config carries the
+    texture tables (None for untextured scenes)."""
+    scene, cam, st = scene_by_name(name, width=width, spp=spp, max_depth=max_depth, **scene_kw)
     n_pix = st.width * st.height
     n, num_slots, jump = wf.strided_schedule(n_pix, spp, wavefront)
     rem0, px0, py0 = wf.schedule_arrays(n, n_pix, spp, st.width, device=device)
@@ -52,6 +87,10 @@ def persistent_inputs(name, width, spp, wavefront, device, max_depth=10):
     cfg = dict(width=st.width, height=st.height, jump_px=jump % st.width,
                jump_py=jump // st.width, num_slots=num_slots, max_depth=max_depth,
                sky_gradient=st.sky_gradient)
+    sc = scene.to(device)
+    textures = texture_tables(sc, quad_derived(sc), stochastic=stochastic)
+    if textures is not None:
+        cfg["textures"] = textures
     return (sph, quad, res, cam_s, 5, rem0, px0, py0), cfg
 
 
@@ -97,11 +136,13 @@ def test_persistent_kernel_matches_plain(cuda, name):
 
 
 def tape_inputs(name, width, device, **scene_kw):
-    scene, cam, st = get_scene(name, width=width, **scene_kw)
-    sph, quad, res = pk.pack_persistent_tables(scene.to(device))
+    """Kernel 3's tables, the settings, and the texture tables (or None)."""
+    scene, cam, st = scene_by_name(name, width=width, **scene_kw)
+    sc = scene.to(device)
+    sph, quad, res = pk.pack_persistent_tables(sc)
     cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, st.width, st.height),
                                       cam.background).to(device)
-    return (sph, quad, res, cam_s), st
+    return (sph, quad, res, cam_s), st, texture_tables(sc, quad_derived(sc))
 
 
 @pytest.mark.cuda
@@ -110,7 +151,7 @@ def tape_inputs(name, width, device, **scene_kw):
 def test_tape_kernel_matches_plain(cuda, name, width, spp, depth):
     """Kernel 3 against its twin on the same CUDA tables and seed: tape
     equal on every entry, radiance and segments equal on every lane."""
-    tables, st = tape_inputs(name, width, cuda)
+    tables, st, _ = tape_inputs(name, width, cuda)
     n = st.width * st.height * spp
     cfg = dict(width=st.width, height=st.height, max_depth=depth, sky_gradient=st.sky_gradient)
     before = pk.LAUNCHES_TAPE
@@ -121,6 +162,60 @@ def test_tape_kernel_matches_plain(cuda, name, width, spp, depth):
     assert torch.equal(tape_k, tape_p)
     torch.testing.assert_close(rad_k, rad_p, rtol=0, atol=0)
     assert torch.equal(segs_k, segs_p)
+
+
+def equal_report(pairs):
+    """'name: equal share, max |diff|' of each (name, kernel, twin) pair."""
+    return "; ".join(f"{k}: {float((a == b).float().mean()):.6f} equal, max |diff| "
+                     f"{float((a.double() - b.double()).abs().max()):.3g}" for k, a, b in pairs)
+
+
+TEXTURED = [("perlin", {}), ("simple_light", {}), ("earth", {}),
+            ("earth", {"bilinear": True}), ("earth", {"bilinear": True, "stochastic": True}),
+            ("textured_quads", {}), ("textured_quads", {"bilinear": True}),
+            ("textured_quads", {"bilinear": True, "stochastic": True})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", TEXTURED)
+def test_persistent_kernel_textured_matches_plain(cuda, name, kw):
+    """The textured instantiation of kernel 2 against its twin on the same
+    tables, schedule and seed (noise; images nearest, 4-tap and
+    stochastic, on spheres and quads): log and segments bit-equal."""
+    args, cfg = persistent_inputs(name, 48, 4, 2000, cuda, **kw)
+    assert cfg["textures"] is not None
+    before = pk.LAUNCHES
+    log_k, segs_k = pk.render_persistent(*args, **cfg)
+    assert pk.LAUNCHES == before + 1
+    log_p, segs_p = wf.regen_plain(
+        *args, **cfg, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+        max_iters=pk.max_iters_for(cfg["num_slots"], cfg["max_depth"]),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(log_k, log_p) and torch.equal(segs_k, segs_p), equal_report(
+        [("log", log_k, log_p), ("segs", segs_k, segs_p)])
+    assert float(log_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("perlin", {}), ("earth", {}), ("earth", {"bilinear": True}),
+                                     ("textured_quads", {"bilinear": True})])
+def test_tape_kernel_textured_matches_plain(cuda, name, kw):
+    """Kernel 3's textured instantiation against its twin: tape, radiance
+    and segments bit-equal, at depth 20 over 2 samples per pixel."""
+    tables, st, textures = tape_inputs(name, 48, cuda, **kw)
+    assert textures is not None
+    n = st.width * st.height * 2
+    cfg = dict(width=st.width, height=st.height, max_depth=20, sky_gradient=st.sky_gradient,
+               textures=textures)
+    before = pk.LAUNCHES_TAPE
+    rad_k, tape_k, segs_k = pk.render_persistent_tape(*tables, 9, n, **cfg)
+    assert pk.LAUNCHES_TAPE == before + 1
+    rad_p, tape_p, segs_p = wf.trace_tape_plain(*tables, 9, n, **cfg)
+    torch.cuda.synchronize()
+    assert (torch.equal(tape_k, tape_p) and torch.equal(rad_k, rad_p)
+            and torch.equal(segs_k, segs_p)), equal_report(
+        [("tape", tape_k, tape_p), ("radiance", rad_k, rad_p), ("segs", segs_k, segs_p)])
 
 
 @pytest.mark.cuda
@@ -150,7 +245,7 @@ def test_cpu_calls_take_the_plain_twin_and_count_nothing():
 
 
 def test_cpu_tape_call_takes_the_twin_and_counts_nothing():
-    tables, st = tape_inputs("cornell", 16, "cpu")
+    tables, st, _ = tape_inputs("cornell", 16, "cpu")
     n = st.width * st.height
     before = pk.LAUNCHES_TAPE
     rad, tape, segs = pk.render_persistent_tape(*tables, 4, n, width=st.width,
@@ -160,6 +255,26 @@ def test_cpu_tape_call_takes_the_twin_and_counts_nothing():
     assert int(tape.max()) < tables[2].shape[0] and int(segs.min()) >= 1
     with pytest.raises(ValueError, match="max_depth"):
         pk.render_persistent_tape(*tables, 4, n, width=st.width, height=st.height, max_depth=0)
+
+
+def test_cpu_textured_calls_take_the_twin_and_count_nothing():
+    """Textured kernel-2 and kernel-3 calls on CPU tables run the twins;
+    the tape refuses the stochastic tap (its replay could not repeat it)."""
+    args, cfg = persistent_inputs("textured_quads", 16, 2, 300, "cpu", max_depth=4,
+                                  bilinear=True, stochastic=True)
+    before = (pk.LAUNCHES, pk.LAUNCHES_TAPE)
+    log, segs = pk.render_persistent(*args, **cfg)
+    ref, _ = wf.regen_plain(*args, **cfg, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+                            max_iters=pk.max_iters_for(cfg["num_slots"], 4))
+    assert torch.equal(log, ref) and int(segs.sum()) >= 16 * 9 * 2
+    tables, st, textures = tape_inputs("textured_quads", 16, "cpu", bilinear=True)
+    rad, tape, _ = pk.render_persistent_tape(*tables, 4, 144, width=st.width, height=st.height,
+                                             max_depth=4, textures=textures)
+    assert bool(torch.isfinite(rad).all()) and int(tape.max()) < tables[2].shape[0]
+    assert (pk.LAUNCHES, pk.LAUNCHES_TAPE) == before
+    with pytest.raises(ValueError, match="deterministic"):
+        pk.render_persistent_tape(*tables, 4, 144, width=st.width, height=st.height,
+                                  max_depth=4, textures=cfg["textures"])
 
 
 def test_wrappers_reject_unsupported_devices():

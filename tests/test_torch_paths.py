@@ -1,7 +1,9 @@
 """Every registered scene end to end on the CPU through the path
-render/driver.py:render_path gives it: the wavefront-step path's scenes
-(noise and image textures) against the golden statistics, every scene at
-8 px, the CLI's path report, and `trace`'s default closest hit."""
+render/driver.py:render_path gives it: the noise and image scenes through
+the persistent path (kernel 2's twin) and perlin with rng-filled Perlin
+tables through the wavefront-step path against the golden statistics,
+every scene at 8 px, the CLI's path report, and `trace`'s default closest
+hit."""
 
 import json
 from pathlib import Path
@@ -44,25 +46,35 @@ def box5(img):
                for dy in range(5) for dx in range(5)) / 25.0
 
 
-@pytest.mark.parametrize("name", ["perlin", "earth", "simple_light"])
-def test_wavefront_step_scenes_match_golden(name):
-    """The noise and image scenes through the wavefront-step path (kernel
-    5's twin, russian roulette capped at 0.95 as the JAX driver sets it)
-    meet their golden statistics at tests/test_golden.py's CFG, seed and
-    tolerances. simple_light's probe (3h/4, 3w/4) is firefly noise from
+@pytest.mark.parametrize("name,path", [("perlin", "persistent"), ("earth", "persistent"),
+                                       ("simple_light", "persistent"),
+                                       ("perlin_rng_tables", "wavefront_step")])
+def test_wavefront_step_scenes_match_golden(name, path):
+    """The noise and image scenes, now through the persistent path (kernel
+    2's twin with its textures, russian roulette capped at 0.75), and
+    perlin with rng-filled Perlin tables through the wavefront-step path
+    (kernel 5's twin, the cap 0.95, as the JAX driver sets them), meet the
+    golden statistics at tests/test_golden.py's CFG, seed and tolerances
+    (the rng-table perlin those of perlin: its sky dominates the means,
+    and its marble differs only in pattern). simple_light's probe (3h/4, 3w/4) is firefly noise from
     its emitter: the JAX package's own renders read 0.003, 0, 0.621 and
     0.16 there at seeds 0-3 against the pinned 0.023, so that scene's
     probes are held against the JAX package's own renders instead (the
     mean of four seeds, each probe the 5x5 mean around it, as
     tests/test_torch_slice.py holds cornell); its means and std against
     the golden."""
-    scene, cam, settings = get_scene(name, **CFG)
-    assert render_path(scene) == "wavefront_step"
+    if name == "perlin_rng_tables":
+        # rng-filled Perlin tables, which JAX too renders off its
+        # persistent kernel.
+        scene, cam, settings = get_scene("perlin", **CFG, procedural_perlin=False)
+    else:
+        scene, cam, settings = get_scene(name, **CFG)
+    assert render_path(scene) == path
     metrics = RenderMetrics(total_spp=settings.samples_per_pixel,
                             pixels=settings.width * settings.height)
     img = render_image(scene, cam, settings, device="cpu", seed=SEED, metrics=metrics).numpy()
     assert np.isfinite(img).all()
-    got, want = stats(img), GOLDEN[name]
+    got, want = stats(img), GOLDEN[name.removesuffix("_rng_tables")]
     np.testing.assert_allclose(got["mean"], want["mean"], rtol=0.02, atol=0.004)
     np.testing.assert_allclose(got["std"], want["std"], rtol=0.05, atol=0.01)
     if name == "simple_light":
@@ -78,7 +90,10 @@ def test_wavefront_step_scenes_match_golden(name):
     np.testing.assert_allclose(got["probes"], want["probes"], rtol=0.5, atol=0.12)
     snap = metrics.snapshot()
     assert snap["traced_segments"] >= settings.width * settings.height * 24
-    assert 0 < snap["iterations"] and 0 < snap["lane_occupancy"] <= 1
+    if path == "persistent":
+        assert 0 < snap["warp_occupancy"] <= 1 and "iterations" not in snap
+    else:
+        assert 0 < snap["iterations"] and 0 < snap["lane_occupancy"] <= 1
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -98,8 +113,30 @@ def test_every_registered_scene_renders(name):
 def test_cli_reports_the_path(tmp_path):
     report = cli.main(["--device", "cpu", "--scene", "perlin", "--width", "16", "--spp", "2",
                        "--max-depth", "4", "--out", str(tmp_path / "p.ppm")])
-    assert report["path"] == "wavefront_step" and report["iterations"] >= 1
+    assert report["path"] == "persistent" and "iterations" not in report
+    assert 0 < report["warp_occupancy"] <= 1
     assert report["size"] == [16, 9] and (tmp_path / "p.ppm").exists()
+
+
+def test_cli_bilinear_flags(tmp_path):
+    """--bilinear renders earth through the persistent path with the
+    stochastic tap, --bilinear-exact with the 4-tap (another image at the
+    same seed, the same segments: the filter changes colors, not paths,
+    below russian roulette's start); scenes without a `bilinear` builder
+    parameter refuse the flag."""
+    argv = ["--device", "cpu", "--scene", "earth", "--width", "16", "--spp", "2",
+            "--max-depth", "3", "--bilinear"]
+    reports, imgs = [], []
+    for extra in ([], ["--bilinear-exact"]):
+        out = tmp_path / f"e{len(extra)}.ppm"
+        reports.append(cli.main(argv + extra + ["--out", str(out)]))
+        imgs.append(out.read_bytes())
+    assert [r["path"] for r in reports] == ["persistent", "persistent"]
+    assert reports[0]["traced_segments"] == reports[1]["traced_segments"]
+    assert imgs[0] != imgs[1]
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", "--scene", "perlin", "--bilinear", "--out",
+                  str(tmp_path / "p.ppm")])
 
 
 def test_trace_default_hit_goes_through_the_kernel_wrapper(monkeypatch):

@@ -171,16 +171,19 @@ def step_inputs(name, width, spp, wavefront, max_depth):
 
 
 @pytest.mark.parametrize("name,wavefront", [("rand_spheres", 2592), ("rand_spheres", 1000),
-                                            ("cornell", 700)])
+                                            ("cornell", 700), ("perlin", 1000),
+                                            ("earth", 1000)])
 def test_step_path_equals_regen_plain_bit_for_bit(name, wavefront):
     """At 48 wide, 2 spp, depth 8, rr_hi 0.75 (the persistent path's
     setting), one sample per lane and several: the wavefront-step loop's
     log and segments equal regen_plain's exactly (same estimator, same
-    counters)."""
+    counters), with the texture tables of the noise and image scenes."""
     scene, (sph, quad, res), cs, sched, cfg = step_inputs(name, 48, 2, wavefront, 8)
+    tex = texture_tables(scene, pwf.quad_derived(scene))
+    assert (tex is None) == (name not in ("perlin", "earth"))
     before = pwk.LAUNCHES
-    log_s, segs_s, iters = pwf.wavefront_step_loop(sph, quad, res, None, cs, 7, *sched, **cfg)
-    log_r, segs_r = pwf.regen_plain(sph, quad, res, cs, 7, *sched, **cfg)
+    log_s, segs_s, iters = pwf.wavefront_step_loop(sph, quad, res, tex, cs, 7, *sched, **cfg)
+    log_r, segs_r = pwf.regen_plain(sph, quad, res, cs, 7, *sched, **cfg, textures=tex)
     assert pwk.LAUNCHES == before  # CPU tensors take the twin
     assert torch.equal(log_s, log_r) and torch.equal(segs_s, segs_r)
     assert iters >= int(segs_s.max()) and float(log_s.sum()) > 0
