@@ -18,9 +18,15 @@ counters reset just before and read just after:
 * the wavefront-step path (phase 10): perlin with rng-filled Perlin
   tables at 400x225, 100 spp, depth 50 through render_image, kernel 5 and
   the PyTorch shading epilogue;
-* the large-scene path (phase 10): the CLI render of rand_spheres_large
-  (10,001 spheres) at 400x225, 64 spp, depth 8, camera rays through the
-  cluster-culled kernel (kernel 4), bounces through kernel 1;
+* the persistent path on large scenes (phase 10): the CLI renders of
+  rand_spheres_large (10,001 spheres) and quad_field (8,001 quads) and the
+  render_image render of rand_spheres_large with 50,001 spheres, at
+  400x225, 64 spp, depth 8, each clustered on the host and rendered in one
+  launch of kernel 2's culled instantiation;
+* the large-scene path (phase 10): `_render_large_scene` on
+  rand_spheres_large at the same shape, camera rays through the
+  cluster-culled kernel 4, bounces through kernel 1, its mean against the
+  persistent render's;
 * the textured render path (phase 10): the CLI renders of perlin, earth,
   earth --bilinear, earth --bilinear --bilinear-exact and simple_light at
   400x225, 100 spp, depth 50, each one launch of kernel 2's textured
@@ -29,7 +35,13 @@ counters reset just before and read just after:
 Phase 3 also holds kernel 2's textured instantiation against its twin bit
 for bit (perlin, earth nearest, stochastic and 4-tap, simple_light) at
 96x54, 8 spp, depth 10 and at phase 10's own kernel calls (400x225, 100
-spp, depth 50, the CLI's seed and lanes), phase 4 checks renders of every golden scene the
+spp, depth 50, the CLI's seed and lanes), phase 3c holds kernel 2's
+culled instantiation against its twin bit for bit (log and segments) on
+rand_spheres_large, quad_field and the JAX package's two-level and
+image-quad culling scenes at 96x54, 8 spp, depth 8, and at phase 10's
+three large renders' own kernel calls (400x225, depth 8, the render's
+2^18 lanes, seed 0 and clustered tables): whole at 4 spp, and the 64-spp
+call on every sample the 4-spp schedule holds, phase 4 checks renders of every golden scene the
 card can reproduce (and earth with a 512x1024 texture), all through kernel
 2, phase 6 holds the tape kernel against its twin at the training path's
 shape (rand_spheres, and textured: earth with the 4-tap and perlin),
@@ -83,6 +95,31 @@ TEXTURED_CASES = (
      ["--scene", "simple_light", "--spp", "100"]),
 )
 GOLDEN_NO_PROBES = ("simple_light",)
+# Phase 3c's culled cases: (label, scene, cluster_scene arguments or None
+# for render_image's own clustering (render/driver.py:cluster_for_render)).
+# The last two are the JAX package's culling scenes (tests/cluster_scenes.py),
+# their rows sorted front to back as the driver sorts them.
+CULLED_CASES = (
+    ("rand_spheres_large", "rand_spheres_large", None),
+    ("quad_field", "quad_field", None),
+    ("grid_two_level", "grid_two_level", dict(max_leaf=4, super_fan=4, min_fine_for_super=8)),
+    ("image_quad_field", "image_quad_field", dict(max_leaf=4, super_fan=2, min_fine_for_super=2)),
+)
+CULLED_SHAPE = dict(width=96, spp=8, max_depth=8)
+# Samples per pixel of phase 3c's twin at the large renders' own shape:
+# 360,000 samples fill the render's 2^18 lanes and a second slot on 97,856
+# of them, and the twin's dense search over 10,001-50,001 primitives stays
+# within seconds.
+HELD_SPP = 4
+# Phase 10's large renders through the persistent path: (label, scene,
+# builder overrides, CLI arguments or None for render_image; the CLI has no
+# sphere-count flag).
+LARGE_CASES = (
+    ("rand_spheres_large", "rand_spheres_large", {},
+     ["--scene", "rand_spheres_large", "--spp", "64"]),
+    ("rand_spheres_large_50k", "rand_spheres_large", {"n_spheres": 50000}, None),
+    ("quad_field", "quad_field", {}, ["--scene", "quad_field", "--spp", "64"]),
+)
 OUT_DIR = REPO / "chiprun_out"
 # The training path's shape: the JAX package's gradient reference point
 # (bench.py:_measure_grad_depth50).
@@ -189,11 +226,28 @@ def cuda_textures(scene, stochastic=False):
     return texture_tables(sc, quad_derived(sc), stochastic=stochastic)
 
 
-def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False):
+def clustered(scene, cam, cluster_kw):
+    """(permuted scene, ClusterSet): render_image's own clustering for
+    None, else cluster_scene(**cluster_kw) with the rows sorted front to
+    back as the driver sorts them."""
+    from raytracer_tpu_torch.geometry.bvh import cluster_scene
+    from raytracer_tpu_torch.render.driver import cluster_for_render, order_clusters
+
+    if cluster_kw is None:
+        return cluster_for_render(scene, cam)
+    scene, cs = cluster_scene(scene, **cluster_kw)
+    return scene, order_clusters(cs, cam.look_from.numpy())
+
+
+def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False, clusters=None,
+                    work=False):
     """Kernel 2 and its plain twin on the same CUDA tables (with the
     scene's texture tables), schedule and seed: (kernel, plain, fold) —
     zero-argument calls each returning (log, segments), and the fold of a
-    log into per-pixel mean radiance."""
+    log into per-pixel mean radiance. With `clusters` (a ClusterSet of the
+    already permuted `scene`) both run the culled closest hit, and with
+    `work` the twin also returns its per-lane work counts (slab, sphere
+    and quad tests of per-lane culling)."""
     from raytracer_tpu_torch.core.camera import camera_frame
     from raytracer_tpu_torch.integrator import wavefront as wf
     from raytracer_tpu_torch.ops import persistent_kernel as pk
@@ -209,13 +263,16 @@ def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False):
                num_slots=num_slots, max_depth=settings.max_depth, rr_start=5,
                rr_lo=0.05, rr_hi=0.75, sky_gradient=settings.sky_gradient,
                textures=cuda_textures(scene, stochastic))
+    if clusters is not None:
+        cfg["clusters"] = pk.pack_cluster_table(clusters, "cuda")
     args = (sph, quad, res, cam_s, seed, rem0, px0, py0)
 
     def kernel():
         return pk.render_persistent(*args, **cfg)
 
     def plain():
-        return wf.regen_plain(*args, **cfg, max_iters=pk.max_iters_for(num_slots, settings.max_depth))
+        return wf.regen_plain(*args, **cfg, return_work=work,
+                              max_iters=pk.max_iters_for(num_slots, settings.max_depth))
 
     def fold(log):
         return wf._fold_log(log, num_slots, n, n_pix, jump) / spp
@@ -695,15 +752,125 @@ def timed_host(fn):
     return out, time.perf_counter() - t0
 
 
-def large_scene_reference():
-    """rand_spheres_large's linear image mean from a small CPU render
-    through the same path's plain twins (48x27, 4 spp, depth 8)."""
+def cpu_reference(name, width=48, **kw):
+    """`name`'s clamped linear image mean from a small CPU render (width
+    wide, 4 spp, its depth) through the path render_path gives it, with the
+    kernels' plain twins: the image mean of another resolution estimates
+    the same integral over the viewport."""
     from raytracer_tpu_torch.render.driver import render_image
     from raytracer_tpu_torch.scenes.registry import get_scene
 
-    scene, cam, st = get_scene("rand_spheres_large", width=48, spp=4)
+    scene, cam, st = get_scene(name, width=width, spp=4, **kw)
     img = render_image(scene, cam, st, device="cpu", seed=3)
     return img.clamp(0.0, 1.0).mean((0, 1)).numpy()
+
+
+def culled_scene(name):
+    """Phase 3c's scene at CULLED_SHAPE: a registered one, or one of the
+    JAX package's culling scenes (tests/cluster_scenes.py)."""
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+    from raytracer_tpu_torch.scenes.registry import SCENES, get_scene
+
+    if name in SCENES:
+        return get_scene(name, **CULLED_SHAPE)
+    sys.path.insert(0, str(REPO / "tests"))
+    from cluster_scenes import SCENES as CLUSTER_SCENES
+
+    scene, cam_kw = CLUSTER_SCENES[name](SceneBuilder(0))
+    cam, st = make_camera(1.0, CULLED_SHAPE["width"], **dict(
+        cam_kw, samples_per_pixel=CULLED_SHAPE["spp"], max_depth=CULLED_SHAPE["max_depth"]))
+    return scene, cam, st
+
+
+def persistent_culled_check():
+    """Phase 3c: kernel 2's culled instantiation against its twin on each
+    CULLED_CASES scene (permuted, its cluster table) at CULLED_SHAPE with
+    8192 lanes: every log cell and every lane's segments bit-equal."""
+    out = {}
+    for label, name, cluster_kw in CULLED_CASES:
+        scene, cam, st = culled_scene(name)
+        scene_cl, cs = clustered(scene, cam, cluster_kw)
+        kernel, plain, fold = persistent_pair(scene_cl, cam, st, 8192, seed=11, clusters=cs)
+        kernel_out, ms = timed(kernel)
+        plain_out, plain_ms = timed(plain)
+        rec = check_pair(f"culled {label}", kernel_out, plain_out, fold, exact=True)
+        out[label] = dict(rec, ms=ms, plain_ms=plain_ms, size=[st.width, st.height],
+                          spp=st.samples_per_pixel, max_depth=st.max_depth, lanes=8192,
+                          ns=scene_cl.num_spheres, nq=scene_cl.num_quads,
+                          cluster_rows=[len(x) for x in cs[:4]], builder=cs.builder)
+        del kernel_out, plain_out
+    return out
+
+
+def held_culled(label, name, kw):
+    """Phase 3c at a phase-10 large render's own kernel call: the scene at
+    400x225, depth 8, with the render's DEFAULT_WAVEFRONT lanes, seed 0
+    and cluster_for_render's permuted tables.
+
+    At HELD_SPP the kernel against its twin, log and segments bit-equal;
+    the twin's per-lane work counts give the bound, and the dense
+    instantiation on the same permuted tables is timed beside the culled
+    one (it must be slower: the witness that the kernel skips clusters).
+    Then the render's own 64-spp call: a sample's path depends on its
+    sample id alone, so its log must equal the twin's on every (slot,
+    lane) cell the HELD_SPP schedule holds; its segments are what phase
+    10's render must trace."""
+    import torch
+
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.render.driver import DEFAULT_WAVEFRONT, cluster_for_render
+    from raytracer_tpu_torch.scenes.registry import get_scene
+    from raytracer_tpu_torch.utils.metrics import warp_slots
+
+    scene, cam, st = get_scene(name, spp=HELD_SPP, **kw)
+    scene_cl, cs = cluster_for_render(scene, cam)
+    kernel, plain, fold = persistent_pair(scene_cl, cam, st, DEFAULT_WAVEFRONT, seed=0,
+                                          clusters=cs, work=True)
+    kernel_out = kernel()
+    (log_p, segs_p, work), plain_ms = timed(plain)
+    rec = check_pair(f"culled {label} at the render's call", kernel_out, (log_p, segs_p), fold,
+                     exact=True)
+    del kernel_out
+    ms = time_cuda(kernel, reps=3)
+    dense, _, _ = persistent_pair(scene_cl, cam, st, DEFAULT_WAVEFRONT, seed=0)
+    dense_ms = time_cuda(dense, reps=3)
+    if not ms < dense_ms:
+        fail(f"kernel 2 culled {label}: {ms:.3f} ms, not faster than the dense loops' "
+             f"{dense_ms:.3f} ms on the same tables")
+    w, h = st.width, st.height
+    n, num_slots, _ = wf.strided_schedule(w * h, HELD_SPP, DEFAULT_WAVEFRONT)
+    rem0 = wf.schedule_arrays(n, w * h, HELD_SPP, w, device="cuda")[0]
+    kernel64, _, _ = persistent_pair(scene_cl, cam, st._replace(samples_per_pixel=64),
+                                     DEFAULT_WAVEFRONT, seed=0, clusters=cs)
+    log64, segs64 = kernel64()
+    held = torch.arange(num_slots, device="cuda")[:, None] < rem0.long()[None, :]
+    prefix = torch.where(held, log64[:, :num_slots], 0.0)
+    if not torch.equal(prefix, log_p):
+        fail(f"kernel 2 culled {label} at 64 spp: {float((prefix == log_p).float().mean()):.6f} "
+             f"of the {HELD_SPP}-spp twin's log cells bit-equal")
+    segments = int(segs_p.sum())
+    w_sum = work.sum(1).tolist()
+    return dict(rec, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, size=[w, h], spp=HELD_SPP,
+                max_depth=st.max_depth, lanes=n, slots=num_slots,
+                warp_occupancy=segments / warp_slots(segs_p), log_bytes=log_p.numel() * 4,
+                slab_tests=w_sum[0], sphere_tests=w_sum[1], quad_tests=w_sum[2],
+                ns=scene_cl.num_spheres, nq=scene_cl.num_quads,
+                cluster_rows=[len(x) for x in cs[:4]], render_call=dict(
+                    spp=64, slots=int(log64.shape[1]), segments=int(segs64.sum()),
+                    prefix_cells_equal=True, ms=time_cuda(kernel64, reps=3)))
+
+
+def culled_bound(h):
+    """(bound_ms, bound_by) of a culled call from its twin's work counts
+    (perfect per-lane culling): the per-segment ray terms and inverse
+    direction, every slab test, sphere test and quad test; bytes the log,
+    the schedule and segments, the cluster rows and the primitive tables."""
+    ops = (h["segments"] * (RAY_OPS + 3) + h["slab_tests"] * SLAB_OPS
+           + h["sphere_tests"] * SPHERE_OPS + h["quad_tests"] * QUAD_OPS)
+    nbytes = (h["log_bytes"] + 16 * h["lanes"] + 32 * sum(h["cluster_rows"])
+              + (16 + 64) * h["ns"] + (48 + 64) * h["nq"])
+    return bound(ops, nbytes)
 
 
 def png_linear_mean(path):
@@ -795,9 +962,15 @@ def main() -> int:
     build.load_kernels()
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in build.build_log().splitlines() if "registers" in ln]
+    from raytracer_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the C++ BVH builder did not build: {native.build_error()}")
+    native_s = time.perf_counter() - t0
     print(f"phase 1 device: {kind} x{count}; {smi}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}; kernel build {build_s:.3f} s; ptxas: {regs}",
-          flush=True)
+          f"cuda {torch.version.cuda}; kernel build {build_s:.3f} s; BVH builder native, "
+          f"built in {native_s:.3f} s; ptxas: {regs}", flush=True)
 
     # ---- phase 2: kernel 1 vs its plain twin, 1M random rays ----
     k1 = {}
@@ -852,9 +1025,16 @@ def main() -> int:
                             size=[settings.width, settings.height], lanes=DEFAULT_WAVEFRONT,
                             ns=scene.num_spheres, nq=scene.num_quads,
                             log_bytes=3 * kernel_out_shape[0] * kernel_out_shape[1] * 4)
-    record["persistent"] = dict(k2, textured=k2_tex, textured_cli_shape=k2_tex_cli)
     print("phase 3 kernel 2 vs plain, 8 spp depth 10 with 8192 lanes, and 400x225@500spp "
           f"depth 50 with {DEFAULT_WAVEFRONT} lanes: {json.dumps(k2)}", flush=True)
+    k2_cull = persistent_culled_check()
+    k2_held = {label: held_culled(label, name, kw) for label, name, kw, _ in LARGE_CASES}
+    record["persistent"] = dict(k2, textured=k2_tex, textured_cli_shape=k2_tex_cli,
+                                culled=k2_cull, culled_render_shape=k2_held)
+    print(f"phase 3c kernel 2 (culled) vs plain, log and segments, at {CULLED_SHAPE} with 8192 "
+          f"lanes: {json.dumps(k2_cull)}; at the large renders' 400x225 depth 8 with "
+          f"{DEFAULT_WAVEFRONT} lanes, {HELD_SPP} spp whole and the 64-spp call on the "
+          f"{HELD_SPP}-spp samples: {json.dumps(k2_held)}; {smi}", flush=True)
 
     # ---- phase 4: render_image on CUDA against the golden statistics ----
     golden = json.loads((REPO / "tests" / "golden_stats.json").read_text())
@@ -1087,7 +1267,7 @@ def main() -> int:
     print(f"phase 9 kernel 4 vs plain and kernel 1 on rand_spheres_large's first-pass camera "
           f"rays: {json.dumps(k4)}", flush=True)
 
-    # ---- phase 10: the wavefront-step, large-scene and textured paths, counted ----
+    # ---- phase 10: the wavefront-step, culled, large-scene and textured paths, counted ----
     from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
     counters = (("closest_hit", ik, "LAUNCHES"), ("persistent_render", pk, "LAUNCHES"),
@@ -1131,22 +1311,71 @@ def main() -> int:
     print(f"phase 10 wavefront_step path, rng-table perlin 400x225@100spp depth 50 via "
           f"render_image: {json.dumps(paths['wavefront_step'])}", flush=True)
 
-    large_ref = large_scene_reference()
-    out_png = OUT_DIR / "rand_spheres_large.png"
-    rep, counts = counted(lambda: cli.main(["--scene", "rand_spheres_large", "--spp", "64",
-                                            "--out", str(out_png)]))
-    check_launches("rand_spheres_large", counts, ("culled", "closest_hit"))
-    shape, lin_mean = png_linear_mean(out_png)
-    if rep["path"] != "large_scene" or shape != (225, 400, 3) or not np.allclose(
-            lin_mean, large_ref, rtol=0.05):
-        fail(f"rand_spheres_large: path {rep['path']}, image {shape}, linear mean {lin_mean} "
-             f"vs reference {large_ref}")
-    paths["large_scene"] = dict(report=rep, launches=counts,
+    # The persistent path on large scenes: each render clustered on the
+    # host and rendered in one launch of kernel 2's culled instantiation;
+    # its mean against a small CPU render through the twins, its segments
+    # those of its own kernel call, which phase 3c held against the twin.
+    large = {}
+    for label, name, kw, argv in LARGE_CASES:
+        ref = cpu_reference(name, width=32 if kw else 48, **kw)
+        scene, cam, st = get_scene(name, spp=64, **kw)
+        with PersistentTimer(pk) as timer:
+            if argv:
+                out_png = OUT_DIR / f"{label}.png"
+                rep, counts = counted(lambda: cli.main(argv + ["--out", str(out_png)]))
+                shape, lin_mean = png_linear_mean(out_png)
+            else:
+                metrics = RenderMetrics(total_spp=st.samples_per_pixel,
+                                        pixels=st.width * st.height)
+                t0 = time.perf_counter()
+                img, counts = counted(lambda: render_image(scene, cam, st, device="cuda",
+                                                           seed=0, metrics=metrics))
+                rep = dict(metrics.snapshot(), wall_s=time.perf_counter() - t0,
+                           path=render_path(scene), size=[st.width, st.height],
+                           spp=st.samples_per_pixel, max_depth=st.max_depth)
+                shape = tuple(img.shape)
+                lin_mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
+        kernel_ms = timer.ms()
+        check_launches(label, counts, ("persistent_render",))
+        held = k2_held[label]["render_call"]
+        if (rep["path"] != "persistent" or counts["persistent_render"] != 1
+                or shape != (225, 400, 3) or rep["traced_segments"] != held["segments"]
+                or rep.get("bvh_builder") != "native"
+                or not np.allclose(lin_mean, ref, rtol=0.05)):
+            fail(f"{label}: {rep}; launches {counts}; image {shape}, linear mean {lin_mean} vs "
+                 f"the CPU twins' {ref}; phase 3c's 64-spp kernel call traced "
+                 f"{held['segments']} segments")
+        large[label] = dict(report=rep, launches=counts, kernel_ms=kernel_ms,
+                            linear_mean=np.asarray(lin_mean).round(4).tolist(),
+                            reference_mean=np.asarray(ref).round(4).tolist())
+        print(f"phase 10 persistent path (culled), {label} 400x225@64spp depth 8 via "
+              f"{'the CLI' if argv else 'render_image'}: {json.dumps(rep)}; launches "
+              f"{json.dumps(counts)}; kernel 2 {kernel_ms:.3f} ms by CUDA events; linear mean "
+              f"{np.asarray(lin_mean).round(4).tolist()} vs "
+              f"{np.asarray(ref).round(4).tolist()}; {smi}", flush=True)
+    paths["persistent_culled"] = large
+
+    # The large-scene path (kernels 4 + 1), which render_path keeps for
+    # scenes kernel 2 does not serve, on rand_spheres_large at the same
+    # shape and seed: an A/B against the persistent render's mean.
+    from raytracer_tpu_torch.render.driver import _render_large_scene
+
+    scene, cam, st = get_scene("rand_spheres_large", spp=64)
+    metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=st.width * st.height)
+    t0 = time.perf_counter()
+    img, counts = counted(lambda: _render_large_scene(scene.to("cuda"), cam, st, seed=0,
+                                                      metrics=metrics))
+    wall = time.perf_counter() - t0
+    check_launches("large-scene path", counts, ("culled", "closest_hit"))
+    lin_mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
+    want = np.asarray(large["rand_spheres_large"]["linear_mean"])
+    if not np.allclose(lin_mean, want, rtol=0.05):
+        fail(f"large-scene path: mean {lin_mean} vs the persistent render's {want}")
+    paths["large_scene"] = dict(report=dict(metrics.snapshot(), wall_s=wall), launches=counts,
                                 linear_mean=lin_mean.round(4).tolist(),
-                                reference_mean=np.asarray(large_ref).round(4).tolist())
-    print(f"phase 10 large_scene path, --scene rand_spheres_large --spp 64: {json.dumps(rep)}; "
-          f"launches {json.dumps(counts)}; linear mean {lin_mean.round(4).tolist()} vs "
-          f"reference {np.asarray(large_ref).round(4).tolist()}", flush=True)
+                                persistent_mean=want.tolist())
+    print(f"phase 10 large_scene path, _render_large_scene on rand_spheres_large 400x225@64spp "
+          f"depth 8: {json.dumps(paths['large_scene'])}", flush=True)
 
     # The slice's CLI renders at 400x225, 100 spp, depth 50, each through
     # kernel 2's textured instantiation in one launch: the kernel call that
@@ -1225,6 +1454,25 @@ def main() -> int:
                                "warp_occupancy", "textured_hits")},
             bound_ms=b[0], bound_by=b[1],
             launches_in_training=train_t.get(label, {}).get("tape_launches"))
+    # Kernel 2 culled, at each large render: ms, twin ms and bound at
+    # phase 3c's call of the render's shape at HELD_SPP (the bound from the
+    # twin's work counts there), the dense loops' ms on the same call, and
+    # the render's own launches, kernel ms by CUDA events and wall.
+    k2_culled = {}
+    for label, t in large.items():
+        h = k2_held[label]
+        b = culled_bound(h)
+        k2_culled[label] = dict(
+            shape=f"400x225@{h['spp']}spp depth 8, {h['lanes']} lanes, {h['ns']} spheres, "
+                  f"{h['nq']} quads, cluster rows {h['cluster_rows']}",
+            ms=h["ms"], plain_ms=h["plain_ms"], dense_ms=h["dense_ms"], bound_ms=b[0],
+            bound_by=b[1], segments=h["segments"], warp_occupancy=h["warp_occupancy"],
+            slab_tests=h["slab_tests"], sphere_tests=h["sphere_tests"],
+            quad_tests=h["quad_tests"], launches=t["launches"]["persistent_render"],
+            render_shape="400x225@64spp depth 8", render_ms=t["kernel_ms"],
+            render_call_ms=h["render_call"]["ms"], render_segments=t["report"]["traced_segments"],
+            render_warp_occupancy=t["report"]["warp_occupancy"], wall_s=t["report"]["wall_s"],
+            cluster_s=t["report"]["cluster_s"], bvh_builder=t["report"]["bvh_builder"])
     kernels = [
         {
             "name": "closest_hit",
@@ -1251,10 +1499,13 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/persistent_kernel.py:1214",
             "launches": launches["persistent_render"],
             "on_main_path": True,
-            "path": "render, the CLI (phase 5); textured: the CLI on perlin, earth (nearest, "
+            "path": "render, the CLI (phase 5); culled: the CLI on rand_spheres_large and "
+                    "quad_field, render_image on its 50,001-sphere variant (phase 10); "
+                    "textured: the CLI on perlin, earth (nearest, "
                     "stochastic, 4-tap) and simple_light (phase 10)",
             "max_abs_err": max(v["max_abs"] for v in (*k2.values(), *k2_tex.values(),
-                                                      *k2_tex_cli.values())),
+                                                      *k2_tex_cli.values(), *k2_cull.values(),
+                                                      *k2_held.values())),
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
             "bound_ms": b2[0],
@@ -1262,6 +1513,7 @@ def main() -> int:
             "library_ms": None,
             "shape": f"rand_spheres 400x225@500spp depth 50, {DEFAULT_WAVEFRONT} lanes",
             "textured": k2_textured,
+            "culled": k2_culled,
         },
         {
             "name": "persistent_tape",
@@ -1288,7 +1540,8 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/culled_kernel.py:255",
             "launches": paths["large_scene"]["launches"]["culled"],
             "on_main_path": True,
-            "path": "render, large-scene path: the CLI on rand_spheres_large (phase 10)",
+            "path": "render, large-scene path: _render_large_scene on rand_spheres_large "
+                    "(phase 10, the A/B against the persistent path)",
             "max_abs_err": max(v["max_abs"] for k_, v in k4.items() if k_.startswith("vs_")),
             "ms": k4["ms"],
             "plain_ms": k4["plain_ms"],

@@ -88,7 +88,8 @@ def main(argv=None) -> dict:
     }
     snap = metrics.snapshot()
     for k in ("traced_segments", "warp_occupancy", "iterations", "lane_occupancy", "passes",
-              "wavefront_lanes", "retirement_log_mb"):
+              "wavefront_lanes", "retirement_log_mb", "cluster_s", "bvh_builder",
+              "cluster_rows"):
         if k in snap:
             report[k] = snap[k]
     # Both rates over the render's wall time (image encoding excluded).

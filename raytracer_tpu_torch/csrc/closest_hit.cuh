@@ -5,6 +5,9 @@
 // culled) includes it, so a numerical fix cannot drift between them. Its plain twin is
 // raytracer_tpu_torch/ops/intersect_kernel.py:closest_hit_scaled.
 //
+// It also holds the nudged inverse direction of the cluster slab tests
+// (kernels 2 and 4).
+//
 // Conventions:
 // * spheres are float4 rows [cx, cy, cz, |c|^2 - r^2] (1e30 for dummy rows);
 //   quads are three float4 per row: [n.x n.y n.z n.Q] [av.x av.y av.z bv.x]
@@ -27,6 +30,16 @@ namespace rt {
 
 constexpr float T_MIN = 1e-3f;
 constexpr float QUAD_DENOM_EPS = 1e-8f;
+// Sign-preserving stand-in for a zero direction component in a slab test:
+// (bmin - o) * (1/0) is 0 * inf = NaN for an origin on the box plane, and a
+// NaN compare would cull a box the ray hits.
+constexpr float SLAB_TINY = 1e-30f;
+
+// 1 / d with |d| < SLAB_TINY nudged to +-SLAB_TINY (the TPU kernels' _safe).
+static __device__ __forceinline__ float slab_inv(float d) {
+  const float safe = fabsf(d) < SLAB_TINY ? (d < 0.0f ? -SLAB_TINY : SLAB_TINY) : d;
+  return 1.0f / safe;
+}
 
 struct RayTerms {
   float ox, oy, oz, dx, dy, dz;
@@ -79,12 +92,13 @@ static __device__ __forceinline__ void sphere_candidates(
   sphere_candidates_range(sph, 0, ns, r, t_best, p_best);
 }
 
-// Quad candidates; the recorded prim id is prim_offset + row (callers pass
-// their sphere count, so quads number after spheres).
-static __device__ __forceinline__ void quad_candidates(
-    const float4* __restrict__ quad, int nq, int prim_offset, const RayTerms& r,
+// Quad candidates of table rows [begin, end); the recorded prim id is
+// prim_offset + row (callers pass their sphere count, so quads number after
+// spheres).
+static __device__ __forceinline__ void quad_candidates_range(
+    const float4* __restrict__ quad, int begin, int end, int prim_offset, const RayTerms& r,
     float& t_best, int& p_best) {
-  for (int qi = 0; qi < nq; ++qi) {
+  for (int qi = begin; qi < end; ++qi) {
     const float4 q0 = __ldg(quad + 3 * qi);
     const float4 q1 = __ldg(quad + 3 * qi + 1);
     const float4 q2 = __ldg(quad + 3 * qi + 2);
@@ -105,6 +119,13 @@ static __device__ __forceinline__ void quad_candidates(
       p_best = prim_offset + qi;
     }
   }
+}
+
+// Quad candidates of the whole table.
+static __device__ __forceinline__ void quad_candidates(
+    const float4* __restrict__ quad, int nq, int prim_offset, const RayTerms& r,
+    float& t_best, int& p_best) {
+  quad_candidates_range(quad, 0, nq, prim_offset, r, t_best, p_best);
 }
 
 }  // namespace rt

@@ -36,13 +36,8 @@
 
 namespace {
 
-constexpr float SLAB_TINY = 1e-30f;
+using rt::slab_inv;
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
-
-static __device__ __forceinline__ float slab_inv(float d) {
-  const float safe = fabsf(d) < SLAB_TINY ? (d < 0.0f ? -SLAB_TINY : SLAB_TINY) : d;
-  return 1.0f / safe;
-}
 
 // clusters: G rows of two float4, [min.x min.y min.z max.x] [max.y max.z start count].
 __global__ void culled_kernel(const float4* __restrict__ clusters, int g,

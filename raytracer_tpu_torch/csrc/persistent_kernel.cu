@@ -1,11 +1,11 @@
 // Kernel 2: the whole regenerative wavefront render in one launch.
 //
 // Replaces raytracer_tpu/ops/persistent_kernel.py:render_persistent_pallas
-// (_persistent_kernel), dense geometry: per lane, strided regeneration and
-// the thin-lens camera ray, closest hit, winner resolve, hit epilogue,
-// texture, miss/sky, emission, Lambertian / metal / dielectric scatter,
-// depth budget, russian roulette, and retirement into the (3, K, N)
-// per-(slot, lane) log.
+// (_persistent_kernel): per lane, strided regeneration and the thin-lens
+// camera ray, closest hit (dense, or cluster-culled: kCull below), winner
+// resolve, hit epilogue, texture, miss/sky, emission, Lambertian / metal /
+// dielectric scatter, depth budget, russian roulette, and retirement into
+// the (3, K, N) per-(slot, lane) log.
 //
 // Textures are a compile-time parameter (kTex). Without it the kernel
 // shades solid and checker textures from the (P, 16) row table only; with
@@ -36,6 +36,43 @@
 // the global sample id lane + k*N (csrc/ctr_rng.cuh), so the plain twin
 // consumes identical uniforms. A per-lane safety bound of
 // num_slots*(max_depth+2)+8 iterations mirrors the TPU kernel's.
+//
+// Culling is a compile-time parameter too (kCull, render mode only, with
+// either kTex). It replaces the TPU kernel's cluster-culled sphere and quad
+// loops (persistent_kernel.py:457-545, 571-602) for scenes that
+// geometry/bvh.py:cluster_scene permuted into cluster order. The cluster
+// table (ops/persistent_kernel.py:ClusterTable) holds, per kind, super rows
+// whose [start, count) index fine rows and fine rows whose [start, count)
+// index the primitive table, each with its AABB. Per segment and kind, in
+// row order: slab-test each super; if it can be hit, slab-test its fine
+// rows; for each fine row that can be hit, test its primitives
+// (closest_hit.cuh's *_candidates_range). With no super level the fine rows
+// are walked directly; with no rows of a kind its dense loop runs. The slab
+// test is the TPU kernel's (_can_hit): nudged inverse direction
+// (rt::slab_inv), lo clamped to T_MIN, and `lo*a < min(hi*a, t_best)` in
+// scaled-t space, on the interval padded by SLAB_PAD each side (below);
+// kernel and twin make the same decision. The TPU
+// tile voted with jnp.any and skipped a loop under lax.cond; here each
+// lane branches on its own test. A warp runs a loop while any of its lanes
+// is in it, which costs what the tile vote cost and never changes a
+// result; there is no warp vote, since lanes leave the kernel at different
+// times (the early return, the `rem <= 0` break) and a __any_sync over
+// exited lanes is undefined. Culling only skips clusters that cannot hold
+// a strictly closer hit, and a strict `<` keeps the first minimal
+// candidate, so the result equals the dense search in the visit order
+// (supers, their fine rows, each row's range), ties included; the driver
+// sorts fine rows front to back inside each super
+// (render/driver.py:cluster_for_render), so that order is not the table's.
+// The kernel keeps no count of the clusters it enters (the TPU kernel's
+// clusters_entered): the twin counts them (ClusterVisit.hit_work), so a
+// render pays for no counters.
+//
+// What bounds the culled instantiation on an H100: per segment, every
+// super slab test (23 FP32 operations), the fine slab tests of the supers
+// it enters, and 21 operations per sphere (40 per quad) of the fine
+// clusters it enters. Bounce rays are incoherent, so a warp pays for the
+// union of its lanes' clusters. Staging the cluster table in shared
+// memory is later work.
 //
 // Plain twin (and spec): raytracer_tpu_torch/integrator/wavefront.py:
 // regen_plain. Shading math follows persistent_kernel.py:860-989 line by line;
@@ -92,7 +129,76 @@ struct TexArgs {
   int img_h, img_w, filter;
 };
 
-template <bool kTape, bool kTex>
+// Cluster inputs of the kCull instantiations: (R, 8) rows, two float4 a
+// row [min.x min.y min.z max.x] [max.y max.z start count], in the sections
+// [sphere supers | sphere fine | quad supers | quad fine] of the given
+// lengths.
+struct CullArgs {
+  const float4* rows;
+  int s_super, s_fine, q_super, q_fine;
+};
+
+// Padding (in t) of a cluster's slab interval on each side. A bounce ray
+// starts on a surface, and the expanded-form sphere test can re-hit that
+// surface just past T_MIN at a point outside the sphere's own box, where
+// the TPU kernel's unpadded test would cull a candidate that the dense
+// search keeps. Padding only enters more clusters, so the result stays the
+// dense search's. ops/persistent_kernel.py:CLUSTER_SLAB_PAD.
+constexpr float SLAB_PAD = 4e-3f;
+
+// Can the ray hit the AABB of cluster row `row` before its current best
+// (scaled t)? The TPU kernel's _can_hit, per lane, on the padded interval.
+static __device__ __forceinline__ bool cluster_enters(float4 b0, float4 b1,
+                                                      const rt::RayTerms& r, float ix,
+                                                      float iy, float iz, float t_best) {
+  const float tx0 = (b0.x - r.ox) * ix;
+  const float tx1 = (b0.w - r.ox) * ix;
+  float lo = fminf(tx0, tx1);
+  float hi = fmaxf(tx0, tx1);
+  const float ty0 = (b0.y - r.oy) * iy;
+  const float ty1 = (b1.x - r.oy) * iy;
+  lo = fmaxf(lo, fminf(ty0, ty1));
+  hi = fminf(hi, fmaxf(ty0, ty1));
+  const float tz0 = (b0.z - r.oz) * iz;
+  const float tz1 = (b1.y - r.oz) * iz;
+  lo = fmaxf(lo, fminf(tz0, tz1));
+  hi = fminf(hi, fmaxf(tz0, tz1));
+  lo = fmaxf(lo - SLAB_PAD, rt::T_MIN);
+  return lo * r.a < fminf((hi + SLAB_PAD) * r.a, t_best);
+}
+
+// One kind's two-level walk: supers at rows [super_base, super_base +
+// n_super) (none: every fine row), fine rows at fine_base + their index;
+// test(begin, end) runs the primitive range of each fine row entered.
+// `t_best` is the caller's running best, which test() lowers.
+template <typename Test>
+static __device__ __forceinline__ void cluster_walk(const float4* __restrict__ rows,
+                                                    int super_base, int n_super, int fine_base,
+                                                    int n_fine, const rt::RayTerms& r, float ix,
+                                                    float iy, float iz, const float& t_best,
+                                                    Test test) {
+  const int n_outer = n_super > 0 ? n_super : 1;
+  for (int si = 0; si < n_outer; ++si) {
+    int f_lo = 0, f_hi = n_fine;
+    if (n_super > 0) {
+      const float4 s0 = __ldg(rows + 2 * (super_base + si));
+      const float4 s1 = __ldg(rows + 2 * (super_base + si) + 1);
+      if (!cluster_enters(s0, s1, r, ix, iy, iz, t_best)) continue;
+      f_lo = (int)s1.z;
+      f_hi = f_lo + (int)s1.w;
+    }
+    for (int fi = f_lo; fi < f_hi; ++fi) {
+      const float4 b0 = __ldg(rows + 2 * (fine_base + fi));
+      const float4 b1 = __ldg(rows + 2 * (fine_base + fi) + 1);
+      if (cluster_enters(b0, b1, r, ix, iy, iz, t_best)) {
+        const int start = (int)b1.z;
+        test(start, start + (int)b1.w);
+      }
+    }
+  }
+}
+
+template <bool kTape, bool kTex, bool kCull>
 __global__ void persistent_kernel(
     const float4* __restrict__ sph, int ns, const float4* __restrict__ quad, int nq,
     const float4* __restrict__ res, const float* __restrict__ cam, uint32_t seed,
@@ -100,7 +206,7 @@ __global__ void persistent_kernel(
     const int* __restrict__ py0, int n, float* __restrict__ log,
     int* __restrict__ segs_out, int width, int height, int jump_px, int jump_py,
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
-    int sky_gradient, int max_iters, int* __restrict__ tape, TexArgs tex) {
+    int sky_gradient, int max_iters, int* __restrict__ tape, TexArgs tex, CullArgs cull) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
@@ -154,8 +260,29 @@ __global__ void persistent_kernel(
     const rt::RayTerms r = rt::ray_terms(ox, oy, oz, dx, dy, dz);
     float t_s = INFINITY;
     int prim = -1;
-    rt::sphere_candidates(sph, ns, r, t_s, prim);
-    rt::quad_candidates(quad, nq, ns, r, t_s, prim);
+    if (kCull) {
+      const float ix = rt::slab_inv(dx);
+      const float iy = rt::slab_inv(dy);
+      const float iz = rt::slab_inv(dz);
+      if (cull.s_fine > 0) {
+        cluster_walk(cull.rows, 0, cull.s_super, cull.s_super, cull.s_fine, r, ix, iy, iz, t_s,
+                     [&](int b, int e) { rt::sphere_candidates_range(sph, b, e, r, t_s, prim); });
+      } else {
+        rt::sphere_candidates(sph, ns, r, t_s, prim);
+      }
+      if (cull.q_fine > 0) {
+        const int q_base = cull.s_super + cull.s_fine;
+        cluster_walk(cull.rows, q_base, cull.q_super, q_base + cull.q_super, cull.q_fine, r, ix,
+                     iy, iz, t_s, [&](int b, int e) {
+                       rt::quad_candidates_range(quad, b, e, ns, r, t_s, prim);
+                     });
+      } else {
+        rt::quad_candidates(quad, nq, ns, r, t_s, prim);
+      }
+    } else {
+      rt::sphere_candidates(sph, ns, r, t_s, prim);
+      rt::quad_candidates(quad, nq, ns, r, t_s, prim);
+    }
     if (kTape) tape[(size_t)depth * (size_t)n + (size_t)lane] = t_s < INFINITY ? prim : -1;
 
     bool survives = false;
@@ -371,22 +498,30 @@ static TexArgs tex_args(const void* tex_rows, const void* images, const void* di
                  img_w, filter};
 }
 
-// Kernel 2. Returns cudaGetLastError() after the launch (0 = launched).
+// Kernel 2. A null cluster table selects the dense (kCull = false)
+// instantiations. Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int rt_render_persistent(
     const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
     int seed, const void* rem0, const void* px0, const void* py0, int n, void* log,
     void* segs, int width, int height, int jump_px, int jump_py, int num_slots,
     int max_depth, int rr_start, float rr_lo, float rr_hi, int sky_gradient,
     int max_iters, const void* tex_rows, const void* images, const void* dims, int img_h,
-    int img_w, int filter, int threads, void* stream) {
+    int img_w, int filter, const void* clusters, int s_super, int s_fine, int q_super,
+    int q_fine, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
-  auto kernel = tex_rows ? persistent_kernel<false, true> : persistent_kernel<false, false>;
+  const CullArgs cull{(const float4*)clusters, s_super, s_fine, q_super, q_fine};
+  auto kernel = tex_rows ? (clusters ? persistent_kernel<false, true, true>
+                                     : persistent_kernel<false, true, false>)
+                         : (clusters ? persistent_kernel<false, false, true>
+                                     : persistent_kernel<false, false, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, (const int*)rem0, (const int*)px0,
       (const int*)py0, n, (float*)log, (int*)segs, width, height, jump_px, jump_py,
-      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr, tex);
+      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr, tex,
+      cull);
   return (int)cudaGetLastError();
 }
 
@@ -400,11 +535,13 @@ extern "C" int rt_render_persistent_tape(
     const void* dims, int img_h, int img_w, int filter, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
-  auto kernel = tex_rows ? persistent_kernel<true, true> : persistent_kernel<true, false>;
+  auto kernel =
+      tex_rows ? persistent_kernel<true, true, false> : persistent_kernel<true, false, false>;
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, nullptr, nullptr, nullptr, n,
       (float*)radiance, (int*)segs, width, height, 0, 0, /*num_slots=*/1, max_depth,
-      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape, tex);
+      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape, tex,
+      CullArgs{nullptr, 0, 0, 0, 0});
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,8 @@ alive mask.
 * `regen_plain`: the regenerative wavefront over a strided per-lane sample
   queue, the plain twin and spec of the persistent CUDA kernel
   (csrc/persistent_kernel.cu) — the regen loop body and its epilogue
-  (`_bounce_and_retire`), with every texture kind and image filter.
+  (`_bounce_and_retire`), with every texture kind and image filter, and
+  the culled instantiation's closest hit (`ClusterVisit`).
 * `render_wavefront_regen`: schedule, kernel wrapper, `_fold_log`.
 * `wavefront_step_loop`, `render_wavefront_step`: the same regenerative
   loop for scenes the persistent kernel does not serve (noise from
@@ -28,6 +29,9 @@ Every random draw is the ctr_rng counter hash keyed by the global sample id
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import camera_rays
@@ -41,10 +45,14 @@ from raytracer_tpu_torch.materials.packed import (
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops import persistent_kernel as pk
 from raytracer_tpu_torch.ops.intersect_kernel import (
+    INF,
+    T_MIN,
+    candidates_scaled,
     intersect,
     intersect_plain,
     pack_quad_table,
     pack_sphere_table,
+    slab_inv,
 )
 from raytracer_tpu_torch.ops.wavefront_kernel import advance_pixels, wavefront_step
 
@@ -226,6 +234,152 @@ def schedule_arrays(n: int, n_pixels: int, spp: int, width: int, device="cpu"):
     return as32(remaining), as32(pix % width), as32(pix // width)
 
 
+# Candidate cells (rays x primitives) per block of ClusterVisit.hit_work.
+WORK_CELLS = 1 << 24
+
+
+class _KindVisit(NamedTuple):
+    """One kind's clusters in kernel 2's visit order (ClusterVisit)."""
+
+    dense: bool  # no clusters: the dense loop over all `size` rows
+    size: int
+    col0: int  # first column of the kind in the visit-ordered candidates
+    fine_box: torch.Tensor  # (F, 6) visited fine rows' [min, max]
+    fine_count: torch.Tensor  # (F,) int64 primitives per fine row
+    fine_col: torch.Tensor  # (F,) first column of each fine row, within the kind
+    super_box: torch.Tensor | None  # (S, 6), None without a super level
+    super_col: torch.Tensor | None  # (S,) first column of each super
+    fine_super: torch.Tensor | None  # (F,) position of each fine row's super
+    super_fine: torch.Tensor | None  # (S,) fine rows per super
+
+
+class ClusterVisit(NamedTuple):
+    """Kernel 2's culled closest hit, without culling: the sphere and quad
+    table rows in the order the kernel visits them (supers in row order,
+    their fine rows, each fine row's primitive range; a kind without rows
+    in table order), built once per call from a ClusterTable. `hit` runs
+    the dense search over the rows gathered in that order and maps the
+    winner back to its table row: culling only skips clusters that cannot
+    hold a strictly closer hit, and the first minimal candidate wins, so
+    this is the kernel's result bit for bit, ties included. `hit_work`
+    also counts per ray the slab tests, sphere tests and quad tests that
+    the kernel's per-lane culling makes."""
+
+    prim_of: torch.Tensor  # (Ps + Pq,) int64 prim id of each visited row
+    sph_rows: torch.Tensor  # (Ps, 4) sphere table rows in visit order
+    quad_rows: torch.Tensor  # (Pq, 12) quad table rows in visit order
+    kinds: tuple  # (_KindVisit spheres, _KindVisit quads)
+
+    @staticmethod
+    def build(clusters, sph_table, quad_table) -> "ClusterVisit":
+        dev = sph_table.device
+        rows = clusters.rows.cpu().numpy()
+        s_super, s_fine, q_super, q_fine = clusters.counts
+        ns, nq = sph_table.shape[0], quad_table.shape[0]
+        kinds, idx = [], []
+        col0 = 0
+        for base, n_super, n_fine, size in ((0, s_super, s_fine, ns),
+                                            (s_super + s_fine, q_super, q_fine, nq)):
+            kind, order = _kind_visit(rows, base, n_super, n_fine, size, col0, dev)
+            kinds.append(kind)
+            idx.append(torch.from_numpy(order).to(dev))
+            col0 += len(order)
+        return ClusterVisit(torch.cat([idx[0], ns + idx[1]]), sph_table[idx[0]],
+                            quad_table[idx[1]], tuple(kinds))
+
+    def _to_table_rows(self, p):
+        """Visit-ordered winner index (-1 on a miss) -> prim id."""
+        return torch.where(p >= 0, self.prim_of[p.clamp(min=0).long()], -1).to(torch.int32)
+
+    def hit(self, o, d):
+        t, p = intersect_plain(self.sph_rows, self.quad_rows, o, d)
+        return t, self._to_table_rows(p)
+
+    def hit_work(self, o, d):
+        """(t, prim, work (3, L) int64: slab, sphere and quad tests)."""
+        n = o.shape[0]
+        dev = o.device
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        prim = torch.empty(n, dtype=torch.int32, device=dev)
+        work = torch.zeros(3, n, dtype=torch.int64, device=dev)
+        cols = max(1, self.sph_rows.shape[0] + self.quad_rows.shape[0])
+        step = max(1, WORK_CELLS // cols)
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            ob, db = o[s:e], d[s:e]
+            cands, a = candidates_scaled(self.sph_rows, self.quad_rows, ob, db)
+            t_best, i = cands.min(dim=1)
+            t[s:e] = t_best * (1.0 / a)
+            prim[s:e] = self._to_table_rows(torch.where(t_best < INF, i, -1))
+            # Each cluster's slab test sees the best hit of every earlier
+            # visited row (a skipped cluster could not have lowered it).
+            before = torch.cat([torch.full_like(cands[:, :1], INF),
+                                torch.cummin(cands, dim=1).values[:, :-1]], dim=1)
+            inv = slab_inv(db)
+            for k, kind in enumerate(self.kinds):
+                if kind.dense:
+                    work[1 + k, s:e] += kind.size
+                    continue
+                enter = _slab_enters(kind.fine_box, ob, inv, a,
+                                     before[:, kind.col0 + kind.fine_col])
+                if kind.super_box is None:
+                    work[0, s:e] += kind.fine_box.shape[0]
+                else:
+                    sup = _slab_enters(kind.super_box, ob, inv, a,
+                                       before[:, kind.col0 + kind.super_col])
+                    work[0, s:e] += kind.super_box.shape[0] + (sup.long() * kind.super_fine).sum(1)
+                    enter = enter & sup[:, kind.fine_super]
+                work[1 + k, s:e] += (enter.long() * kind.fine_count).sum(1)
+        return t, prim, work
+
+
+def _kind_visit(rows, base: int, n_super: int, n_fine: int, size: int, col0: int, dev):
+    """(_KindVisit, table rows in visit order) of one kind's table section."""
+    empty = torch.zeros(0, device=dev)
+    if n_fine == 0:
+        return _KindVisit(True, size, col0, empty, empty, empty, None, None, None,
+                          None), np.arange(size, dtype=np.int64)
+    fine = rows[base + n_super : base + n_super + n_fine]
+    if n_super:
+        sup = rows[base : base + n_super]
+        ranges = [np.arange(int(r[6]), int(r[6]) + int(r[7])) for r in sup]
+        visit = np.concatenate(ranges)
+        fine_super = np.repeat(np.arange(n_super), [len(r) for r in ranges])
+    else:
+        visit = np.arange(n_fine)
+    f = fine[visit]
+    count = f[:, 7].astype(np.int64)
+    order = np.concatenate([np.arange(int(r[6]), int(r[6]) + int(r[7])) for r in f])
+    fine_col = np.concatenate([[0], np.cumsum(count)[:-1]])
+    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    super_box = super_col = fs = super_fine = None
+    if n_super:
+        first = np.concatenate([[0], np.cumsum([len(r) for r in ranges])[:-1]])
+        super_box, super_col = as_t(sup[:, :6]), as_t(fine_col[first])
+        fs, super_fine = as_t(fine_super), as_t(np.array([len(r) for r in ranges]))
+    return _KindVisit(False, size, col0, as_t(f[:, :6]), as_t(count), as_t(fine_col),
+                      super_box, super_col, fs, super_fine), order.astype(np.int64)
+
+
+def _slab_enters(box, origin, inv, a, t_best, pad=pk.CLUSTER_SLAB_PAD):
+    """(rays, boxes) bool: kernel 2's cluster slab test (csrc/
+    persistent_kernel.cu:cluster_enters) of each ray against each [min, max]
+    box (K, 6), against the ray's best scaled t before that box (rays, K),
+    on the interval padded by `pad` (the kernel's: CLUSTER_SLAB_PAD) each
+    side."""
+    lo = hi = None
+    for k in range(3):
+        o_k, i_k = origin[:, k : k + 1], inv[:, k : k + 1]
+        t0 = (box[None, :, k] - o_k) * i_k
+        t1 = (box[None, :, 3 + k] - o_k) * i_k
+        tn, tf = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        lo = tn if lo is None else torch.maximum(lo, tn)
+        hi = tf if hi is None else torch.minimum(hi, tf)
+    lo = torch.clamp(lo - pad, min=T_MIN)
+    a = a[:, None]
+    return lo * a < torch.minimum((hi + pad) * a, t_best)
+
+
 def regen_plain(
     sph_table,
     quad_table,
@@ -248,6 +402,8 @@ def regen_plain(
     sky_gradient: bool,
     max_iters: int,
     textures=None,
+    clusters=None,
+    return_work: bool = False,
 ):
     """Plain twin of the persistent kernel: the same per-lane semantics
     (strided regeneration, camera ray, closest hit, shade, depth budget,
@@ -255,7 +411,14 @@ def regen_plain(
     lanes that have a path in flight. `textures` is
     materials.packed.texture_tables (None without noise or image textures);
     the stochastic bilinear tap draws its uniforms at ops.ctr_rng.tap_ctr.
-    Returns (log, segments per lane)."""
+    `clusters` (ops.persistent_kernel.ClusterTable) gives the culled
+    instantiation's closest hit (ClusterVisit). Returns (log, segments per
+    lane) and, with `return_work` (clusters only), (3, N) int32 per-lane
+    counts of the cluster slab tests, sphere tests and quad tests that the
+    kernel's per-lane culling makes (the TPU kernel's clusters_entered, per
+    lane; the work of its bound)."""
+    if return_work and clusters is None:
+        raise ValueError("return_work counts the culled loops: pass clusters")
     dev = rem0.device
     n = rem0.shape[0]
     ns = sph_table.shape[0]
@@ -277,6 +440,8 @@ def regen_plain(
     rad = torch.zeros(n, 3, dtype=torch.float32, device=dev)
     log = torch.zeros(3, num_slots, n, dtype=torch.float32, device=dev)
     segs = torch.zeros(n, dtype=torch.int32, device=dev)
+    work = torch.zeros(3, n, dtype=torch.int64, device=dev) if return_work else None
+    visit = None if clusters is None else ClusterVisit.build(clusters, sph_table, quad_table)
 
     for _ in range(max_iters):
         # ---- regeneration: idle lanes owing samples start their next one ----
@@ -303,7 +468,13 @@ def regen_plain(
         o, d, sk_a = origin[a], direction[a], sk[a]
         sid = lane_ids[a] + sk_a * n
         bounce = depth[a]
-        t, prim = intersect_plain(sph_table, quad_table, o, d)
+        if return_work:
+            t, prim, w = visit.hit_work(o, d)
+            work[:, a] += w
+        elif visit is not None:
+            t, prim = visit.hit(o, d)
+        else:
+            t, prim = intersect_plain(sph_table, quad_table, o, d)
         uni = ctr_rng.uniform(seed, sid[:, None], ctr_rng.shading_ctr(bounce[:, None], j3))
         rru = ctr_rng.uniform(seed, sid, ctr_rng.rr_ctr(bounce, max_depth))
         tap = None
@@ -315,7 +486,7 @@ def regen_plain(
             (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
             rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient, tap=tap,
         )
-    return log, segs
+    return (log, segs, work.to(torch.int32)) if return_work else (log, segs)
 
 
 def _bounce_and_retire(
@@ -386,13 +557,16 @@ def render_wavefront_regen(
     max_depth: int = 50,
     sky_gradient: bool = False,
     textures=None,
+    clusters=None,
 ):
     """Render spp samples per pixel with path regeneration: a fixed set of
     lanes, each starting its next strided sample as soon as its path ends.
     Tables are on the render device (CUDA runs the kernel, CPU its twin);
     `textures` is materials.packed.texture_tables (None without noise or
-    image textures). Russian roulette takes render_persistent's defaults.
-    Returns (framebuffer (n_pixels, 3) radiance sums, segments (N,) int32)."""
+    image textures); `clusters` an ops.persistent_kernel.ClusterTable for
+    tables packed from a clustered scene (None: dense loops). Russian
+    roulette takes render_persistent's defaults. Returns (framebuffer
+    (n_pixels, 3) radiance sums, segments (N,) int32)."""
     n_pixels = width * height
     n, num_slots, jump = strided_schedule(n_pixels, spp, wavefront_size)
     rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
@@ -400,6 +574,7 @@ def render_wavefront_regen(
         sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0,
         width=width, height=height, jump_px=jump % width, jump_py=jump // width,
         num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient, textures=textures,
+        clusters=clusters,
     )
     return _fold_log(log, num_slots, n, n_pixels, jump), segs
 

@@ -29,15 +29,12 @@ from raytracer_tpu_torch.ops.intersect_kernel import (
     check_float4_rows,
     check_tensor,
     closest_hit_scaled,
+    slab_inv,
 )
 
 # Threads per block of the CUDA kernel (a multiple of the 32-lane warp).
 THREADS = 128
 WARP = 32
-# Sign-preserving stand-in for a zero direction component in the slab test:
-# (bmin - o) * (1/0) is 0 * inf = NaN for an origin on the box plane, and a
-# NaN compare would cull a box the ray hits.
-SLAB_TINY = 1e-30
 
 # CUDA launches of the kernel (plain-twin calls do not count).
 LAUNCHES = 0
@@ -161,9 +158,7 @@ def intersect_culled_plain(clusters, order, sph_cl, orig_ids, quad_table, ns_tot
     octs = warp_octants(direction)
     cl = clusters.cpu()
     orig = orig_ids.long()
-    d_safe = torch.where(direction.abs() < SLAB_TINY,
-                         torch.where(direction < 0, -SLAB_TINY, SLAB_TINY), direction)
-    inv_d = 1.0 / d_safe
+    inv_d = slab_inv(direction)
     for oct_id in torch.unique(octs).tolist():
         rays = torch.nonzero(octs == oct_id).squeeze(1)
         for s in range(0, rays.numel(), PLAIN_CHUNK):

@@ -20,6 +20,10 @@ import torch
 INF = float("inf")
 T_MIN = 1e-3
 QUAD_DENOM_EPS = 1e-8
+# Sign-preserving stand-in for a zero direction component in a cluster slab
+# test: (bmin - o) * (1/0) is 0 * inf = NaN for an origin on the box plane,
+# and a NaN compare would cull a box the ray hits.
+SLAB_TINY = 1e-30
 # Rays per block of the plain twin's dense (rays, prims) candidate matrices.
 PLAIN_CHUNK = 16384
 # Threads per block of the CUDA kernel.
@@ -57,6 +61,15 @@ def _ray_terms(origin, direction):
 def closest_hit_scaled(sph_table, quad_table, origin, direction):
     """Winning scaled t' = t*|d|^2 (+inf on a miss) and prim (-1 on a miss)
     for a block of rays: dense (rays, prims) candidates, then one min."""
+    cands, a = candidates_scaled(sph_table, quad_table, origin, direction)
+    t_best, idx = cands.min(dim=1)
+    prim = torch.where(t_best < INF, idx, torch.full_like(idx, -1)).to(torch.int32)
+    return t_best, prim, a
+
+
+def candidates_scaled(sph_table, quad_table, origin, direction):
+    """((rays, spheres + quads) scaled-t candidates, +inf where a primitive
+    is missed; |d|^2 per ray)."""
     (ox, oy, oz), (dx, dy, dz), a, d_dot_o, o_sq = _ray_terms(origin, direction)
     tmin_a = (T_MIN * a)[:, None]
     col = lambda v: v[:, None]  # noqa: E731 — per-ray column
@@ -101,9 +114,14 @@ def closest_hit_scaled(sph_table, quad_table, origin, direction):
             & (beta <= 1.0)
         )
         cands.append(torch.where(ok, t * col(a), torch.full_like(t, INF)))
-    t_best, idx = torch.cat(cands, dim=1).min(dim=1)
-    prim = torch.where(t_best < INF, idx, torch.full_like(idx, -1)).to(torch.int32)
-    return t_best, prim, a
+    return torch.cat(cands, dim=1), a
+
+
+def slab_inv(direction):
+    """1 / direction with components below SLAB_TINY in magnitude nudged to
+    +-SLAB_TINY (csrc/closest_hit.cuh:slab_inv), elementwise."""
+    tiny = torch.where(direction < 0, -SLAB_TINY, SLAB_TINY)
+    return 1.0 / torch.where(direction.abs() < SLAB_TINY, tiny, direction)
 
 
 def intersect_plain(sph_table, quad_table, origin, direction):

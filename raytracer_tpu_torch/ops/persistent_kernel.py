@@ -2,14 +2,17 @@
 and its gradient-forward (tape) mode.
 
 Kernel 2 ports raytracer_tpu/ops/persistent_kernel.py
-(`render_persistent_pallas`), dense geometry with all four texture kinds
-(solid, checker, procedural Perlin marble, images filtered nearest, 4-tap
-bilinear or by one stochastic bilinear tap). The CUDA kernel is
+(`render_persistent_pallas`) whole: all four texture kinds (solid,
+checker, procedural Perlin marble, images filtered nearest, 4-tap bilinear
+or by one stochastic bilinear tap), with dense primitive loops or, given a
+cluster table (`pack_cluster_table`, from geometry/bvh.py:cluster_scene),
+the two-level cluster-culled loops of large scenes. The CUDA kernel is
 `csrc/persistent_kernel.cu` (one thread per wavefront lane, each running
 its lane's strided sample queue to the end; noise and images in
-`csrc/textures.cuh`, compiled in only for scenes that have them); its plain
-PyTorch twin and spec is integrator/wavefront.py:regen_plain, which takes
-the same packed tables.
+`csrc/textures.cuh`, compiled in only for scenes that have them, and the
+culled loops only for calls with a cluster table); its plain PyTorch twin
+and spec is integrator/wavefront.py:regen_plain, which takes the same
+packed tables.
 
 Kernel 3 ports `render_persistent_tape`: the same CUDA kernel, instantiated
 with a tape, traces one sample per lane without russian roulette and
@@ -25,7 +28,9 @@ kernel's hardware PRNG has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import CameraFrame
@@ -54,11 +59,17 @@ CAM_DEFOCUS = 18  # > 0 -> thin-lens sampling
 CAM_BG = 19  # 3 — flat background color
 N_CAM = 22
 
-# Above this primitive count the TPU kernel switches to in-kernel cluster
-# culling (raytracer_tpu/render/driver.py CLUSTERED_SCENE_PRIMS); the port's
-# kernel has no culling yet, so it refuses such scenes rather than render
-# them densely.
+# Above this primitive count the render driver clusters the scene and
+# kernel 2 culls (raytracer_tpu/render/driver.py CLUSTERED_SCENE_PRIMS).
 CLUSTERED_SCENE_PRIMS = 1536
+
+# Padding (in t) of a cluster's slab interval on each side in kernel 2's
+# culled walk (csrc/persistent_kernel.cu:SLAB_PAD). A bounce ray starts on
+# a surface, and the expanded-form sphere test can re-hit that surface
+# just past T_MIN at a point outside the sphere's own box; the TPU
+# kernel's unpadded test culls such a candidate where the dense search
+# keeps it. Padding only enters more clusters.
+CLUSTER_SLAB_PAD = 4e-3
 
 # Threads per block of the CUDA kernel.
 THREADS = 128
@@ -70,21 +81,15 @@ LAUNCHES_TAPE = 0
 
 def unsupported_reason(scene) -> str | None:
     """Why the persistent kernel (CUDA or its plain twin) cannot render
-    `scene`; None if it can. The render driver sends such scenes down its
-    other paths (render/driver.py:render_path); the tape-forward gradient
-    refuses them. The two gates are JAX's scene_supports_persistent's
-    (raytracer_tpu/ops/persistent_kernel.py:1189-1190) and, until ROADMAP
-    Queue 1 #12, the cluster-culling threshold; JAX's image-size gates
-    (:1191-1201) guarded the TPU's VMEM budget and its f32 dims encoding,
-    which the port does not have."""
+    `scene`; None if it can, at any size. The render driver sends such
+    scenes down its other paths (render/driver.py:render_path); the
+    tape-forward gradient refuses them. The one gate is JAX's
+    scene_supports_persistent's (raytracer_tpu/ops/persistent_kernel.py:
+    1189-1190); its image-size gates (:1191-1201) guarded the TPU's VMEM
+    budget and its f32 dims encoding, which the port does not have."""
     if scene.has_noise and not scene.perlin_procedural:
         return ("noise from rng-filled Perlin tables (procedural_perlin=False) is shaded off "
                 "the persistent kernel, as the JAX package's scene_supports_persistent does")
-    if scene.num_prims > CLUSTERED_SCENE_PRIMS:
-        return (
-            f"{scene.num_prims} primitives > {CLUSTERED_SCENE_PRIMS} need the persistent "
-            "kernel's cluster culling, not ported yet (ROADMAP Queue 1 #12)"
-        )
     return None
 
 
@@ -119,6 +124,45 @@ def _texture_launch_args(textures, p: int, dev):
     check_float4_rows(texture_rows=textures.rows)
     return (textures.rows.data_ptr(), images.data_ptr(), textures.image_dims.data_ptr(),
             images.shape[1], images.shape[2], textures.image_filter)
+
+
+class ClusterTable(NamedTuple):
+    """Kernel 2's cluster table: `rows` (R, 8) float32 on the render device,
+    the sections [sphere supers | sphere fine | quad supers | quad fine] of
+    a geometry.bvh.ClusterSet in that order (JAX's layout,
+    raytracer_tpu/ops/persistent_kernel.py:1279-1302), each row two float4
+    [min.x min.y min.z max.x] [max.y max.z start count], and the four
+    section lengths. A super's start indexes its kind's fine rows, a fine
+    row's start the (permuted) primitive table. No sphere rows: the dense
+    sphere loop; no quad rows: the dense quad loop."""
+
+    rows: torch.Tensor
+    n_sph_super: int
+    n_sph: int
+    n_quad_super: int
+    n_quad: int
+
+    @property
+    def counts(self) -> tuple[int, int, int, int]:
+        return self.n_sph_super, self.n_sph, self.n_quad_super, self.n_quad
+
+
+def pack_cluster_table(clusters, device="cpu") -> ClusterTable:
+    """ClusterTable of a geometry.bvh.ClusterSet (its rows stay float32
+    bit for bit). An empty set packs one zero row, so the kernel always
+    gets a valid pointer."""
+    parts = [np.asarray(x, np.float32).reshape(-1, 8)
+             for x in (clusters.sph_super, clusters.sph, clusters.quad_super, clusters.quad)]
+    rows = np.concatenate(parts) if sum(len(x) for x in parts) else np.zeros((1, 8), np.float32)
+    return ClusterTable(torch.from_numpy(np.ascontiguousarray(rows)).to(device),
+                        *(len(x) for x in parts))
+
+
+def _check_clusters(clusters: ClusterTable, dev) -> None:
+    check_tensor("clusters.rows", clusters.rows, torch.float32, (None, 8), dev)
+    if min(clusters.counts) < 0 or sum(clusters.counts) > clusters.rows.shape[0]:
+        raise ValueError(f"cluster counts {clusters.counts} do not fit "
+                         f"{clusters.rows.shape[0]} rows")
 
 
 def pack_camera_scalars_bg(frame, background) -> torch.Tensor:
@@ -176,6 +220,7 @@ def render_persistent(
     rr_hi: float = 0.75,
     sky_gradient: bool = False,
     textures=None,
+    clusters: ClusterTable | None = None,
 ):
     """Render every lane's strided sample queue.
 
@@ -183,9 +228,12 @@ def render_persistent(
     px0, py0 (N,) int32 per-lane schedule (samples owed, first pixel) from
     integrator.wavefront.schedule_arrays; `textures` from
     materials.packed.texture_tables (None for scenes without noise or
-    image textures), whose `image_filter` selects the image filter. Returns
-    (log (3, num_slots, N) float32 retired radiance per (slot, lane),
-    segments (N,) int32 path segments traced per lane).
+    image textures), whose `image_filter` selects the image filter;
+    `clusters` a ClusterTable on the tables' device (None: dense primitive
+    loops), the sphere and quad tables then packed from the scene that
+    geometry.bvh.cluster_scene permuted. Returns (log (3, num_slots, N)
+    float32 retired radiance per (slot, lane), segments (N,) int32 path
+    segments traced per lane).
 
     CPU tensors take integrator.wavefront.regen_plain; CUDA tensors launch
     the CUDA kernel (or raise)."""
@@ -199,6 +247,8 @@ def render_persistent(
     check_tensor("cam_scalars", cam_scalars, torch.float32, (N_CAM,), dev)
     for name, x in (("rem0", rem0), ("px0", px0), ("py0", py0)):
         check_tensor(name, x, torch.int32, (n,), dev)
+    if clusters is not None:
+        _check_clusters(clusters, dev)
     cfg = dict(
         width=width, height=height, jump_px=jump_px, jump_py=jump_py,
         num_slots=num_slots, max_depth=max_depth, rr_start=rr_start,
@@ -210,12 +260,16 @@ def render_persistent(
 
         return regen_plain(
             sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0, **cfg,
-            textures=textures,
+            textures=textures, clusters=clusters,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_float4_rows(sph_table=sph_table, quad_table=quad_table, res_table=res_table)
     tex = _texture_launch_args(textures, p, dev)
+    cull = (None, 0, 0, 0, 0)
+    if clusters is not None:
+        check_float4_rows(cluster_rows=clusters.rows)
+        cull = (clusters.rows.data_ptr(), *clusters.counts)
     from raytracer_tpu_torch.ops.build import check_launch, load_kernels
 
     lib = load_kernels()
@@ -232,7 +286,7 @@ def render_persistent(
         rem0.data_ptr(), px0.data_ptr(), py0.data_ptr(), n,
         log.data_ptr(), segs.data_ptr(),
         width, height, jump_px, jump_py, num_slots, max_depth, rr_start,
-        rr_lo, rr_hi, int(sky_gradient), cfg["max_iters"], *tex, THREADS, stream,
+        rr_lo, rr_hi, int(sky_gradient), cfg["max_iters"], *tex, *cull, THREADS, stream,
     )
     check_launch("rt_render_persistent", err)
     LAUNCHES += 1

@@ -1,42 +1,44 @@
 """Render driver (port of raytracer_tpu/render/driver.py:render_image,
-render_scene and the large-scene pass loop).
+render_scene, the large-scene pass loop and the host clustering of large
+scenes).
 
 `render_path` routes each scene as the JAX driver does
-(raytracer_tpu/render/driver.py:477-506, 536-634), with one exception
-until ROADMAP Queue 1 #12: JAX gives solid and checker scenes of more than
-1536 primitives to its persistent kernel with in-kernel cluster culling
-(driver.py:504-506), which the port's kernel 2 does not have yet, so the
-port renders them on its "large_scene" path (kernels 4 + 1) or, up to
-LARGE_SCENE_PRIMS, on its "wavefront_step" path.
+(raytracer_tpu/render/driver.py:477-506, 536-634):
 
-* "persistent": scenes the persistent kernel serves, every texture kind
-  included. One kernel-2 launch per spp chunk renders every sample of the
-  chunk (ops/persistent_kernel.py); the retirement log then folds into
-  the framebuffer (integrator/wavefront.py:_fold_log).
-* "large_scene": scenes it does not serve with more than LARGE_SCENE_PRIMS
-  primitives: passes of k samples per pixel, camera rays through the
-  cluster-culled kernel 4 and bounces through the dense kernel 1
-  (`_render_large_scene`).
-* "wavefront_step": every other scene (noise from rng-filled Perlin
-  tables; more than 1536 primitives up to LARGE_SCENE_PRIMS): the
-  regenerative loop with kernel 5 as each iteration's front half and the
-  shading epilogue in PyTorch (integrator/wavefront.py:
-  render_wavefront_step), images filtered by the deterministic 4-tap
-  where the scene asks for bilinear filtering.
+* "persistent": every scene the persistent kernel serves, every texture
+  kind and every size included. One kernel-2 launch per spp chunk renders
+  every sample of the chunk (ops/persistent_kernel.py); the retirement log
+  then folds into the framebuffer (integrator/wavefront.py:_fold_log).
+  Scenes of more than CLUSTERED_SCENE_PRIMS primitives are first permuted
+  into BVH-cluster order (`cluster_for_render`, once per scene, cached),
+  and kernel 2 culls clusters inside its loop.
+* "large_scene": scenes it does not serve (noise from rng-filled Perlin
+  tables) with more than LARGE_SCENE_PRIMS primitives: passes of k samples
+  per pixel, camera rays through the cluster-culled kernel 4 and bounces
+  through the dense kernel 1 (`_render_large_scene`).
+* "wavefront_step": the other scenes it does not serve: the regenerative
+  loop with kernel 5 as each iteration's front half and the shading
+  epilogue in PyTorch (integrator/wavefront.py:render_wavefront_step),
+  images filtered by the deterministic 4-tap where the scene asks for
+  bilinear filtering.
 
 The TPU's VMEM slot model (regen_max_slots), its gather-band wavefront
 heuristic (pick_wavefront) and its tile rounding do not apply: the
 wavefront size is chosen to fill the GPU, and the spp budget is chunked
 only when the (3, K, N) float32 log would pass `log_budget_bytes` of
-device memory.
+device memory. JAX's RT_CLUSTER_LEAF / RT_CLUSTER_FAN probing overrides
+are not ported.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame, camera_rays
+from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_scene
 from raytracer_tpu_torch.geometry.intersect import (
     build_large_scene_tables,
     intersect_scene_culled,
@@ -53,7 +55,9 @@ from raytracer_tpu_torch.integrator.wavefront import (
 from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops.persistent_kernel import (
+    CLUSTERED_SCENE_PRIMS,
     pack_camera_scalars_bg,
+    pack_cluster_table,
     pack_persistent_tables,
     unsupported_reason,
 )
@@ -78,6 +82,11 @@ STEP_WAVEFRONT_MAX = 1 << 21
 # Rays per pass of the large-scene path (the JAX driver's
 # DEFAULT_TARGET_RAYS_PER_PASS).
 TARGET_RAYS_PER_PASS = 1 << 19
+# Cluster granularity of large scenes on the persistent path (the JAX
+# driver's, swept on its TPU): fine clusters of <= CLUSTER_LEAF primitives,
+# supers of <= CLUSTER_LEAF * CLUSTER_FAN.
+CLUSTER_LEAF = 64
+CLUSTER_FAN = 16
 
 
 def log_bytes(n_pixels: int, spp: int, wavefront: int) -> int:
@@ -109,6 +118,73 @@ def render_path(scene: Scene) -> str:
     if scene.num_prims > LARGE_SCENE_PRIMS:
         return "large_scene"
     return "wavefront_step"
+
+
+# Host clustering results keyed by the identity of the scene's sphere-center
+# tensor (kept alive by the entry, so the id cannot be reused), so repeated
+# renders of one scene pay the host build once. Bounded.
+_CLUSTER_CACHE: dict[int, tuple] = {}
+
+
+def _clustered_scene_cached(scene: Scene):
+    """(cluster_scene(scene) at CLUSTER_LEAF / CLUSTER_FAN, from the cache
+    when the same scene was clustered before)."""
+    key = id(scene.sph_center)
+    hit = _CLUSTER_CACHE.get(key)
+    if hit is None or hit[0] is not scene.sph_center:
+        hit = (scene.sph_center, *cluster_scene(scene, max_leaf=CLUSTER_LEAF,
+                                                super_fan=CLUSTER_FAN))
+        if len(_CLUSTER_CACHE) >= 8:
+            _CLUSTER_CACHE.pop(next(iter(_CLUSTER_CACHE)))
+        _CLUSTER_CACHE[key] = hit
+    return hit[1], hit[2]
+
+
+def _order_front_to_back(fine: np.ndarray, sup: np.ndarray, eye: np.ndarray):
+    """Sort one kind's cluster rows by distance from the eye. With a super
+    level the supers are sorted and each super's block of fine rows is
+    sorted in place (a super's [start, count] indexes fine ROWS, so its
+    rows stay contiguous); the supers' starts are rebuilt for the new
+    layout."""
+
+    def dist(rows):
+        c = (rows[:, 0:3] + rows[:, 3:6]) * 0.5
+        return ((c - eye) ** 2).sum(axis=1)
+
+    if fine.shape[0] == 0:
+        return fine, sup
+    if sup.shape[0] == 0:
+        return fine[np.argsort(dist(fine))], sup
+    new_fine, new_sup = [], []
+    pos = 0
+    for si in np.argsort(dist(sup)):
+        s, c = int(sup[si, 6]), int(sup[si, 7])
+        block = fine[s : s + c]
+        new_fine.append(block[np.argsort(dist(block))])
+        row = sup[si].copy()
+        row[6] = float(pos)
+        new_sup.append(row)
+        pos += c
+    return np.concatenate(new_fine), np.stack(new_sup)
+
+
+def order_clusters(cs: ClusterSet, eye) -> ClusterSet:
+    """`cs` with each kind's rows sorted front to back from `eye`."""
+    s_fine, s_sup = _order_front_to_back(cs.sph, cs.sph_super, eye)
+    q_fine, q_sup = _order_front_to_back(cs.quad, cs.quad_super, eye)
+    return cs._replace(sph=s_fine, sph_super=s_sup, quad=q_fine, quad_super=q_sup)
+
+
+def cluster_for_render(scene: Scene, cam: Camera):
+    """Cluster-order a large scene for kernel 2 and sort its cluster rows
+    front to back from the eye: camera rays (most segments) find their
+    nearest hit early, and the shrinking best hit culls the clusters behind
+    it (the ordered traversal of bvh.go:225-232). Fine rows may move freely
+    within their super: their start/count index the permuted primitive
+    tables, not the row position. Returns (permuted scene,
+    geometry.bvh.ClusterSet)."""
+    scene, cs = _clustered_scene_cached(scene)
+    return scene, order_clusters(cs, cam.look_from.cpu().numpy())
 
 
 def chunk_seed(seed: int, idx: int) -> int:
@@ -157,8 +233,14 @@ def render_image(
     JAX driver's settings, driver.py:602); the large-scene path has none.
     It is unbiased.
 
+    Persistent-path scenes of more than CLUSTERED_SCENE_PRIMS primitives
+    are clustered on the host first (`cluster_for_render`) and kernel 2
+    culls clusters.
+
     metrics: optional utils.metrics.RenderMetrics, updated per chunk (or
-    pass) and with traced-segment totals after the last (one device sync)."""
+    pass) and with traced-segment totals after the last (one device sync);
+    a clustered render also records its host clustering seconds, the BVH
+    builder and the cluster table's section lengths."""
     path = render_path(scene)
     dev = resolve_device(device)
     if path == "large_scene":
@@ -168,6 +250,15 @@ def render_image(
     n_pix = w * h
     frame = camera_frame(cam, w, h)
     cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
+    clusters = None
+    if path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
+        t0 = time.perf_counter()
+        scene, cs = cluster_for_render(scene, cam)
+        clusters = pack_cluster_table(cs, dev)
+        if metrics is not None:
+            metrics.cluster_s += time.perf_counter() - t0
+            metrics.bvh_builder = cs.builder
+            metrics.cluster_rows = list(clusters.counts)
     scene = scene.to(dev)
     sph, quad, res = pack_persistent_tables(scene)
     textures = texture_tables(scene, quad_derived(scene),
@@ -191,7 +282,8 @@ def render_image(
                   max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
         if path == "persistent":
             fb, segs = render_wavefront_regen(
-                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures, **kw
+                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures,
+                clusters=clusters, **kw
             )
         else:
             fb, segs, it = render_wavefront_step(

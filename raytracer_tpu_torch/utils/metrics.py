@@ -8,7 +8,10 @@ its busiest lane drains, so occupancy = segments / (sum over warps of the
 busiest lane's segments * 32). The wavefront-step and large-scene paths
 count loop `iterations` instead (kernel-5 steps; bounces of every pass),
 and the large-scene path its `passes`; their lane occupancy is segments /
-(iterations * wavefront_lanes).
+(iterations * wavefront_lanes). A render of a clustered scene records the
+host seconds its clustering took (`cluster_s`, ~0 when cached), the BVH
+builder ("native" or "numpy") and the cluster table's section lengths
+[sphere supers, sphere fine, quad supers, quad fine].
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ class RenderMetrics:
     warp_slots: int = 0
     iterations: int = 0
     passes: int = 0
+    cluster_s: float = 0.0
+    bvh_builder: str = ""
+    cluster_rows: list = field(default_factory=list)
 
     def update(self, spp_done: int, segments: int = 0, warp_slots: int = 0,
                iterations: int = 0, passes: int = 0):
@@ -70,6 +76,10 @@ class RenderMetrics:
             out["wavefront_lanes"] = self.wavefront_lanes
         if self.retirement_log_mb:
             out["retirement_log_mb"] = self.retirement_log_mb
+        if self.bvh_builder:
+            out["cluster_s"] = self.cluster_s
+            out["bvh_builder"] = self.bvh_builder
+            out["cluster_rows"] = self.cluster_rows
         return out
 
 

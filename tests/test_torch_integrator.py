@@ -240,25 +240,36 @@ def test_russian_roulette_unbiased():
 
 def test_scene_support_gates():
     """The persistent kernel serves every texture kind (noise, images,
-    bilinear filtering) and refuses two kinds of scene, as JAX's
-    scene_supports_persistent does: noise from rng-filled Perlin tables
-    (`procedural_perlin=False`) and, until ROADMAP Queue 1 #12, scenes past
-    its clustering threshold (the tape-forward gradient refuses them with
-    that reason); the render driver's `render_path` sends those down the
-    wavefront-step or the large-scene path. Bilinear scenes render."""
-    from raytracer_tpu_torch.render.driver import render_image, render_path
+    bilinear filtering) at any size, and refuses one kind of scene, as
+    JAX's scene_supports_persistent does: noise from rng-filled Perlin
+    tables (`procedural_perlin=False`), which `render_path` sends down the
+    wavefront-step path, or past LARGE_SCENE_PRIMS the large-scene path.
+    Large scenes (rand_spheres_large, quad_field, 2,000 solid spheres) take
+    the persistent path and render clustered. Bilinear scenes render."""
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+    from raytracer_tpu_torch.render.driver import LARGE_SCENE_PRIMS, render_image, render_path
     from raytracer_tpu_torch.scenes.registry import get_scene
+    from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
-    for name, what, path in (("rand_spheres_large", "cluster culling", "large_scene"),
-                             ("quad_field", "cluster culling", "large_scene")):
-        scene, cam, st = get_scene(name, width=8, spp=1)
-        assert not ppk.scene_supports_persistent(scene)
-        reason = ppk.unsupported_reason(scene)
-        assert what in reason and "ROADMAP" in reason, reason
-        assert render_path(scene) == path
+    for name, kw in (("rand_spheres_large", {}), ("quad_field", {}),
+                     ("rand_spheres_large", {"n_spheres": 2000})):
+        scene, cam, st = get_scene(name, width=8, spp=1, max_depth=2, **kw)
+        assert scene.num_prims > ppk.CLUSTERED_SCENE_PRIMS
+        assert ppk.scene_supports_persistent(scene) and ppk.unsupported_reason(scene) is None
+        assert render_path(scene) == "persistent"
+        metrics = RenderMetrics(total_spp=1, pixels=st.width * st.height)
+        img = render_image(scene, cam, st, device="cpu", metrics=metrics)
+        assert bool(torch.isfinite(img).all()) and sum(metrics.cluster_rows) > 1
     rng_perlin = get_scene("perlin", width=8, procedural_perlin=False)[0]
     assert "rng-filled Perlin" in ppk.unsupported_reason(rng_perlin)
     assert render_path(rng_perlin) == "wavefront_step"
+    b = SceneBuilder(0)
+    marble = b.lambertian(b.noise(4.0))
+    for i in range(LARGE_SCENE_PRIMS + 1):
+        b.add_sphere((i % 64, 0.2, i // 64), 0.3, marble)
+    big_rng_perlin = b.build(procedural_perlin=False)
+    assert "rng-filled Perlin" in ppk.unsupported_reason(big_rng_perlin)
+    assert render_path(big_rng_perlin) == "large_scene"
     for name in ("rand_spheres", "one_weekend_final", "quads", "cornell", "perlin",
                  "simple_light", "earth"):
         scene = get_scene(name, width=8)[0]

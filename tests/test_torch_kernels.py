@@ -14,7 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from cluster_scenes import SCENES as CLUSTER_SCENES
+from cluster_scenes import TWIN_CASES
 from raytracer_tpu_torch.core.camera import camera_frame, camera_rays, make_camera
+from raytracer_tpu_torch.geometry.bvh import cluster_scene
 from raytracer_tpu_torch.geometry.intersect import (
     build_large_scene_tables,
     quad_derived,
@@ -28,6 +31,7 @@ from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
 from raytracer_tpu_torch.ops import persistent_kernel as pk
 from raytracer_tpu_torch.ops import wavefront_kernel as wk
+from raytracer_tpu_torch.render.driver import cluster_for_render, order_clusters
 from raytracer_tpu_torch.scenes.registry import get_scene
 
 torch.set_num_threads(1)
@@ -67,17 +71,38 @@ def textured_quads(seed=0, width=48, spp=4, max_depth=10, bilinear=False):
 
 
 def scene_by_name(name, **kw):
-    """A registered scene, or "textured_quads" (its bilinear flag in kw)."""
+    """A registered scene, "textured_quads" (its bilinear flag in kw), or a
+    scene of tests/cluster_scenes.py."""
     if name == "textured_quads":
         return textured_quads(**kw)
+    if name in CLUSTER_SCENES:
+        scene, cam_kw = CLUSTER_SCENES[name](SceneBuilder(0))
+        cam, st = make_camera(1.0, kw["width"], **dict(
+            cam_kw, samples_per_pixel=kw["spp"], max_depth=kw["max_depth"]))
+        return scene, cam, st
     return get_scene(name, **kw)
 
 
+def clustered(scene, cam, cluster_kw, front_to_back):
+    """(permuted scene, ClusterSet): render_image's clustering for None,
+    else cluster_scene(**cluster_kw), its rows sorted front to back if
+    asked."""
+    if cluster_kw is None:
+        return cluster_for_render(scene, cam)
+    scene, cs = cluster_scene(scene, **cluster_kw)
+    return scene, order_clusters(cs, cam.look_from.numpy()) if front_to_back else cs
+
+
 def persistent_inputs(name, width, spp, wavefront, device, max_depth=10, stochastic=False,
-                      **scene_kw):
+                      cluster=False, cluster_kw=None, front_to_back=True, **scene_kw):
     """Kernel 2's arguments and config for `name`; the config carries the
-    texture tables (None for untextured scenes)."""
+    texture tables (None for untextured scenes) and, with `cluster`, the
+    cluster table of the permuted scene (`clustered`)."""
     scene, cam, st = scene_by_name(name, width=width, spp=spp, max_depth=max_depth, **scene_kw)
+    cl = None
+    if cluster:
+        scene, cs = clustered(scene, cam, cluster_kw, front_to_back)
+        cl = pk.pack_cluster_table(cs, device)
     n_pix = st.width * st.height
     n, num_slots, jump = wf.strided_schedule(n_pix, spp, wavefront)
     rem0, px0, py0 = wf.schedule_arrays(n, n_pix, spp, st.width, device=device)
@@ -91,7 +116,34 @@ def persistent_inputs(name, width, spp, wavefront, device, max_depth=10, stochas
     textures = texture_tables(sc, quad_derived(sc), stochastic=stochastic)
     if textures is not None:
         cfg["textures"] = textures
+    if cl is not None:
+        cfg["clusters"] = cl
     return (sph, quad, res, cam_s, 5, rem0, px0, py0), cfg
+
+
+# Kernel 2 culled: the JAX package's culling scenes (cluster_scene
+# arguments, front-to-back order), and the large registered scenes at a
+# reduced image with render_image's clustering.
+CULLED = [(name, kw, ftb, {}) for name, kw, ftb in TWIN_CASES] + [
+    ("rand_spheres_large", None, True, {}),
+    ("quad_field", None, True, {}),
+    ("rand_spheres_large", None, True, {"n_spheres": 50000}),
+]
+
+
+def culled_pair(name, kw, ftb, scene_kw, device, width=48, spp=4):
+    """Kernel 2 culled and its twin, each returning (log, segs)."""
+    args, cfg = persistent_inputs(name, width, spp, 2000, device, max_depth=8, cluster=True,
+                                  cluster_kw=kw, front_to_back=ftb, **scene_kw)
+
+    def kernel():
+        return pk.render_persistent(*args, **cfg)
+
+    def plain():
+        return wf.regen_plain(*args, **cfg, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+                              max_iters=pk.max_iters_for(cfg["num_slots"], 8))
+
+    return kernel, plain
 
 
 @pytest.mark.cuda
@@ -219,6 +271,23 @@ def test_tape_kernel_textured_matches_plain(cuda, name, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,ftb,scene_kw", CULLED)
+def test_persistent_kernel_culled_matches_plain(cuda, name, kw, ftb, scene_kw):
+    """Kernel 2's culled instantiation against its twin on the same
+    permuted tables, cluster table, schedule and seed: log and segments
+    bit-equal."""
+    kernel, plain = culled_pair(name, kw, ftb, scene_kw, cuda)
+    before = pk.LAUNCHES
+    out_k = kernel()
+    assert pk.LAUNCHES == before + 1
+    out_p = plain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out_k, out_p)), equal_report(
+        [("log", out_k[0], out_p[0]), ("segs", out_k[1], out_p[1])])
+    assert float(out_k[0].sum()) > 0
+
+
+@pytest.mark.cuda
 def test_kernels_reject_bad_inputs(cuda):
     sph, quad = scene_tables(get_scene("cornell")[0].to(cuda))
     o, d = random_rays(64, (1, 1, 1), (554, 554, 554), seed=0, device=cuda)
@@ -242,6 +311,23 @@ def test_cpu_calls_take_the_plain_twin_and_count_nothing():
     log, segs = pk.render_persistent(*args, **cfg)
     assert log.shape == (3, cfg["num_slots"], 300) and int(segs.sum()) >= 16 * 16 * 2
     assert (ik.LAUNCHES, pk.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("name,kw,ftb,scene_kw", [CULLED[2], CULLED[4], CULLED[6]])
+def test_cpu_culled_call_takes_the_twin_and_counts_nothing(name, kw, ftb, scene_kw):
+    """A culled kernel-2 call on CPU tables runs the twin (log, segments
+    and work equal to regen_plain's) and counts no launch; the culled
+    search equals the dense one on the same permuted tables."""
+    kernel, plain = culled_pair(name, kw, ftb, scene_kw, "cpu", width=16, spp=2)
+    before = pk.LAUNCHES
+    out = kernel()
+    assert pk.LAUNCHES == before
+    assert all(torch.equal(a, b) for a, b in zip(out, plain()))
+    args, cfg = persistent_inputs(name, 16, 2, 2000, "cpu", max_depth=8, cluster=True,
+                                  cluster_kw=kw, front_to_back=ftb, **scene_kw)
+    del cfg["clusters"]
+    log_d, segs_d = pk.render_persistent(*args, **cfg)
+    assert torch.equal(out[0], log_d) and torch.equal(out[1], segs_d)
 
 
 def test_cpu_tape_call_takes_the_twin_and_counts_nothing():

@@ -110,12 +110,42 @@ def test_every_registered_scene_renders(name):
     assert ("iterations" in metrics.snapshot()) == (path != "persistent")
 
 
+@pytest.mark.parametrize("name,kw,path,clustered", [
+    ("rand_spheres_large", {}, "persistent", True),
+    ("quad_field", {}, "persistent", True),
+    ("rand_spheres_large", {"n_spheres": 2000}, "persistent", True),
+    ("rand_spheres", {}, "persistent", False),
+    ("perlin", {"procedural_perlin": False}, "wavefront_step", False),
+])
+def test_render_path_routes_by_scene(name, kw, path, clustered):
+    """render_path as the JAX driver routes: every scene the persistent
+    kernel serves goes to it at any size, clustered past
+    CLUSTERED_SCENE_PRIMS primitives (the metrics carry the cluster
+    table's section lengths and the BVH builder); rng-table noise takes
+    the wavefront-step path (the large-scene path past 4096 primitives,
+    tests/test_torch_integrator.py)."""
+    scene, cam, st = get_scene(name, width=8, spp=1, max_depth=2, **kw)
+    assert render_path(scene) == path
+    metrics = RenderMetrics(total_spp=1, pixels=st.width * st.height)
+    img = render_image(scene, cam, st, device="cpu", seed=1, metrics=metrics)
+    assert bool(torch.isfinite(img).all())
+    snap = metrics.snapshot()
+    assert ("bvh_builder" in snap) == clustered
+    if clustered:
+        assert snap["bvh_builder"] in ("native", "numpy") and len(snap["cluster_rows"]) == 4
+
+
 def test_cli_reports_the_path(tmp_path):
     report = cli.main(["--device", "cpu", "--scene", "perlin", "--width", "16", "--spp", "2",
                        "--max-depth", "4", "--out", str(tmp_path / "p.ppm")])
     assert report["path"] == "persistent" and "iterations" not in report
     assert 0 < report["warp_occupancy"] <= 1
     assert report["size"] == [16, 9] and (tmp_path / "p.ppm").exists()
+    assert "bvh_builder" not in report
+    report = cli.main(["--device", "cpu", "--scene", "quad_field", "--width", "8", "--spp", "1",
+                       "--max-depth", "2", "--out", str(tmp_path / "q.ppm")])
+    assert report["path"] == "persistent" and report["bvh_builder"] == "native"
+    assert report["cluster_s"] > 0 and report["cluster_rows"][3] > 1
 
 
 def test_cli_bilinear_flags(tmp_path):
