@@ -14,14 +14,25 @@
 //   [bv.y bv.z Q.av Q.bv] (zero normal for dummy rows);
 // * candidates compare in scaled t-space, t' = t*a with a = |d|^2 > 0; the
 //   caller rescales the winner once;
-// * no feasibility mask on spheres: sqrtf of a negative discriminant is NaN
-//   and every NaN compare is false, so the candidate falls through to +inf.
-//   This needs IEEE sqrtf: never build with --use_fast_math;
+// * a sphere whose discriminant is not >= 0 (negative, or NaN) is missed:
+//   the root is taken of 1.0 instead and the candidate is +inf. That keeps
+//   misses, nearly every candidate, off the IEEE square root's slow path:
+//   on sm_90 sqrtf is MUFU.RSQ plus a range check that CALLs a subroutine
+//   for any argument outside the positive normal range (22 instructions and
+//   a branch pair per candidate; utils/sass_loop.py counts them). The bits
+//   are the twin's (ops/intersect_kernel.py:candidates_scaled), which takes
+//   torch.sqrt of a negative discriminant and lets its NaN compares fall
+//   through to +inf: for disc >= 0 (+-0 included) every operation is the
+//   same, and for the rest both give +inf. sqrtf stays IEEE (correctly
+//   rounded, as torch.sqrt): never --use_fast_math, rsqrtf or __fsqrt_*;
 // * strict open interval t > T_MIN, and a strict `<` keeps the first minimal
-//   candidate on ties (spheres before quads, lower row first).
+//   candidate on ties (spheres before quads, lower row first). Sphere rows
+//   go in groups of four: a group whose four discriminants are all
+//   negative takes no root and no compare (sphere_candidates_range).
 //
 // All threads of a warp read the same table row in the same step, so the
-// __ldg loads are broadcasts served from L1.
+// __ldg loads are broadcasts served from L1. (Staging the tables in shared
+// memory measured slower on an H100: PERF.md, section 6.)
 #pragma once
 
 #include <math.h>
@@ -61,23 +72,64 @@ static __device__ __forceinline__ RayTerms ray_terms(float ox, float oy, float o
   return r;
 }
 
+// The discriminant terms of one sphere row: half_b and disc of the scaled
+// quadratic.
+static __device__ __forceinline__ void sphere_disc(const float4 s, const RayTerms& r,
+                                                   float& half_b, float& disc) {
+  const float d_dot_c = r.dx * s.x + r.dy * s.y + r.dz * s.z;
+  const float o_dot_c = r.ox * s.x + r.oy * s.y + r.oz * s.z;
+  half_b = r.d_dot_o - d_dot_c;
+  const float c = r.o_sq - 2.0f * o_dot_c + s.w;
+  disc = half_b * half_b - r.a * c;
+}
+
+// The scaled-t candidate of a sphere row from its discriminant terms (+inf
+// when missed).
+static __device__ __forceinline__ float sphere_root(float half_b, float disc,
+                                                    const RayTerms& r) {
+  const bool real = disc >= 0.0f;  // false for NaN too
+  const float sq = sqrtf(real ? disc : 1.0f);
+  const float nhb = -half_b;
+  const float t0s = nhb - sq;
+  const float t1s = nhb + sq;
+  const float t_cand = (t0s > r.tmin_a) ? t0s : ((t1s > r.tmin_a) ? t1s : INFINITY);
+  return real ? t_cand : INFINITY;
+}
+
+// Sphere rows per group of sphere_candidates_range.
+constexpr int SPHERE_GROUP = 4;
+
 // Sphere candidates of table rows [begin, end); the recorded prim id is the
-// table row.
+// table row. Rows go in groups of SPHERE_GROUP: the discriminants of a
+// group first, then, only if one of them is >= 0, the roots and the compare
+// chain in row order. Nearly every group misses, so a lane pays the
+// discriminants and one branch for most of the table.
 static __device__ __forceinline__ void sphere_candidates_range(
     const float4* __restrict__ sph, int begin, int end, const RayTerms& r,
     float& t_best, int& p_best) {
-  for (int i = begin; i < end; ++i) {
-    const float4 s = __ldg(sph + i);
-    const float d_dot_c = r.dx * s.x + r.dy * s.y + r.dz * s.z;
-    const float o_dot_c = r.ox * s.x + r.oy * s.y + r.oz * s.z;
-    const float half_b = r.d_dot_o - d_dot_c;
-    const float c = r.o_sq - 2.0f * o_dot_c + s.w;
-    const float disc = half_b * half_b - r.a * c;
-    const float sq = sqrtf(disc);  // NaN (disc < 0) -> rejected below
-    const float nhb = -half_b;
-    const float t0s = nhb - sq;
-    const float t1s = nhb + sq;
-    const float t_cand = (t0s > r.tmin_a) ? t0s : ((t1s > r.tmin_a) ? t1s : INFINITY);
+  int i = begin;
+  for (; i + SPHERE_GROUP <= end; i += SPHERE_GROUP) {
+    float half_b[SPHERE_GROUP], disc[SPHERE_GROUP];
+    bool any_real = false;
+#pragma unroll
+    for (int k = 0; k < SPHERE_GROUP; ++k) {
+      sphere_disc(__ldg(sph + i + k), r, half_b[k], disc[k]);
+      any_real |= disc[k] >= 0.0f;
+    }
+    if (!any_real) continue;  // every row of the group missed: no root
+#pragma unroll
+    for (int k = 0; k < SPHERE_GROUP; ++k) {
+      const float t_cand = sphere_root(half_b[k], disc[k], r);
+      if (t_cand < t_best) {
+        t_best = t_cand;
+        p_best = i + k;
+      }
+    }
+  }
+  for (; i < end; ++i) {
+    float half_b, disc;
+    sphere_disc(__ldg(sph + i), r, half_b, disc);
+    const float t_cand = sphere_root(half_b, disc, r);
     if (t_cand < t_best) {
       t_best = t_cand;
       p_best = i;

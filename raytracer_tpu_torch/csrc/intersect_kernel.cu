@@ -4,16 +4,18 @@
 // (_intersect_kernel), which held (rows, 128) ray tiles in VMEM and broadcast
 // primitive parameters from SMEM scalars.
 //
-// What bounds it on an H100: arithmetic. Each ray reads 24 bytes and writes 8,
-// then runs ~20 FP32 operations per primitive, so at 489 primitives the
-// kernel does ~10^4 flops per 32 bytes of device memory. The table rows are
-// the same address for every thread of a warp in a given loop step: broadcast
+// What bounds it on an H100: instruction issue. Each ray reads 24 bytes and
+// writes 8, then runs ~20 FP32 operations per primitive, each its own
+// instruction with contraction off, so at 488 primitives the kernel issues
+// ~10^4 instructions per 32 bytes of device memory. The table rows are the
+// same address for every thread of a warp in a given loop step: broadcast
 // loads from L1 (the 8 KB sphere table of rand_spheres stays resident).
 //
 // Design: one thread per ray, a sequential loop over the table (the math is
-// csrc/closest_hit.cuh, shared with the persistent kernel), the ragged edge
-// masked instead of padding N to a tile. Shared-memory staging of the table
-// and coherent ray ordering are later work.
+// csrc/closest_hit.cuh, shared with every other kernel: misses stay off the
+// square root's slow path, groups of four rows branch past their roots), the ragged edge masked
+// instead of padding N to a tile. Shared-memory staging (kernels 2 and 3)
+// and coherent ray ordering are not done here.
 //
 // Plain twin: raytracer_tpu_torch/ops/intersect_kernel.py:intersect_plain.
 

@@ -17,13 +17,15 @@
 // instantiation, which compiles to the code it had before textures.
 //
 // What bounds it on an H100: the closest-hit loop, ~20 FP32 operations per
-// primitive per path segment (489 spheres on rand_spheres), and SIMT
-// divergence: a warp runs until its longest lane queue drains, and lanes of
-// one warp are at different bounces of different paths. On noise scenes the
-// marble adds ~3,800 integer and FP32 operations per noise hit (perlin's two
-// spheres make the closest hit cheap), so there the marble bounds it.
+// primitive per path segment (488 rows on rand_spheres), each its own
+// instruction with contraction off (--fmad=false, ops/build.py), so the
+// instruction issue rate sets its floor; SIMT divergence costs little (a
+// warp runs until its longest lane queue drains: warp occupancy 0.947). On
+// noise scenes the marble adds ~3,800 integer and FP32 operations per noise
+// hit (perlin's two spheres make the closest hit cheap), so there the marble
+// bounds it.
 //
-// Design (right before fast): one thread per wavefront lane, each running its
+// Design: one thread per wavefront lane, each running its
 // lane's whole strided sample queue in a loop until it owes no sample and has
 // no path in flight. This replaces the TPU tile's while_loop and its max
 // reduces. All path state lives in registers; nothing touches device memory
@@ -35,7 +37,11 @@
 // framebuffer atomics. Random numbers are the ctr_rng counter hash keyed by
 // the global sample id lane + k*N (csrc/ctr_rng.cuh), so the plain twin
 // consumes identical uniforms. A per-lane safety bound of
-// num_slots*(max_depth+2)+8 iterations mirrors the TPU kernel's.
+// num_slots*(max_depth+2)+8 iterations mirrors the TPU kernel's. The
+// sphere loop (csrc/closest_hit.cuh) takes the discriminants of a group of
+// four rows and branches past their roots when all four miss, so a miss
+// costs its ~17 operations and a quarter of a branch, and never reaches
+// the square root's slow path.
 //
 // Culling is a compile-time parameter too (kCull, render mode only, with
 // either kTex). It replaces the TPU kernel's cluster-culled sphere and quad
@@ -80,19 +86,34 @@
 //
 // Kernel 3, the tape mode (kTape = true), replaces
 // raytracer_tpu/ops/persistent_kernel.py:render_persistent_tape
-// (_persistent_kernel_tape), the forward of the bucketed gradient: one
-// sample per lane (sample id = lane, pixel = lane mod width*height, computed
-// here instead of read from a schedule), no russian roulette
-// (rr_start = max_depth), the per-lane radiance in the (3, 1, N) log, and the
-// winner of every bounce in tape[b * N + lane] (-1 for a miss; rows after
-// the path's end are filled with -1 when it retires). A warp's 32 lanes
-// write 128 contiguous bytes per bounce. The TPU kernel's tile drains at its
-// deepest lane of 8K and was split into a depth-capped launch plus an XLA
-// continuation; a warp drains at its deepest of 32, so one launch runs every
-// lane to max_depth. Plain twin (and spec):
+// (_persistent_kernel_tape), the forward of the bucketed gradient: each of
+// the N samples traced once to its end (sample s at pixel s mod
+// width*height, keyed by s), no russian roulette (rr_start = max_depth), its
+// radiance in the (3, 1, N) log at cell s, and the winner of every bounce
+// in tape[b * N + s] (-1 for a miss; the wrapper fills the tape with -1 in
+// one pass, so the kernel stores only the bounces a path reaches). What
+// bounds it is the closest hit of its ~2.9 segments a sample; with one
+// sample per thread a warp ran until the deepest of its 32 paths ended
+// (depth 50), so three quarters of its issue slots idled (warp occupancy
+// 0.241). So samples come from a queue: a thread whose path retires takes
+// the next sample id from a global counter (take_sample: one atomicAdd per
+// converged group of threads). The grid is a share of what stays resident
+// on the card (the occupancy API's grid divided by
+// ops/persistent_kernel.py:TAPE_GRID_DIVISOR, capped at N threads), so each
+// thread traces tens of samples and its warp's lanes run out of samples
+// together (a resident grid's ~5 samples a thread left a 50-segment path
+// running alone at the end of most warps). A sample's
+// outputs depend on its id alone, never on the thread that traced it, so
+// they equal the twin's bit for bit. A safety bound of max_depth + 2
+// iterations per sample mirrors the TPU kernel's. `thread_segs`, when
+// given, receives each thread's segments (the measured warp occupancy).
+// The TPU kernel's tile drained at its deepest lane of 8K and was split into
+// a depth-capped launch plus an XLA continuation; one launch runs every
+// sample to its end here. Plain twin (and spec):
 // integrator/wavefront.py:trace_tape_plain. The render instantiation
 // (kTape = false) compiles without any tape code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +124,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using rt::CAM_BG;
 using rt::CAM_DEFOCUS;
 using rt::TWO_PI;
@@ -198,6 +220,16 @@ static __device__ __forceinline__ void cluster_walk(const float4* __restrict__ r
   }
 }
 
+// Kernel 3's sample queue: the next sample id for each calling thread,
+// one atomicAdd on `next` per group of converged threads (ids past the
+// last sample mean the queue is empty).
+static __device__ __forceinline__ int take_sample(int* next) {
+  const cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(next, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
 template <bool kTape, bool kTex, bool kCull>
 __global__ void persistent_kernel(
     const float4* __restrict__ sph, int ns, const float4* __restrict__ quad, int nq,
@@ -206,21 +238,19 @@ __global__ void persistent_kernel(
     const int* __restrict__ py0, int n, float* __restrict__ log,
     int* __restrict__ segs_out, int width, int height, int jump_px, int jump_py,
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
-    int sky_gradient, int max_iters, int* __restrict__ tape, TexArgs tex, CullArgs cull) {
+    int sky_gradient, int max_iters, int* __restrict__ tape, int* __restrict__ next_sample,
+    int* __restrict__ thread_segs, TexArgs tex, CullArgs cull) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  if (!kTape && lane >= n) return;
 
-  int rem, px, py;
-  if (kTape) {
-    const int pix = lane % (width * height);
-    rem = 1;
-    px = pix % width;
-    py = pix / width;
-  } else {
+  int rem = 0, px = 0, py = 0;
+  if (!kTape) {
     rem = rem0[lane];
     px = px0[lane];
     py = py0[lane];
   }
+  int sample = 0;     // kTape: the sample in flight
+  int thread_segs_total = 0;  // kTape: segments of every sample this thread traced
   int sk = -1;
   int depth = 0;
   bool active = false;
@@ -228,26 +258,36 @@ __global__ void persistent_kernel(
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 1.0f, dz = 0.0f;
   float tpx = 1.0f, tpy = 1.0f, tpz = 1.0f;
   float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
-  int segs = 0;
+  int segs = 0;  // the lane's segments (kTape: the sample's)
   const size_t ch_stride = (size_t)num_slots * (size_t)n;
   const bool use_disk = __ldg(cam + CAM_DEFOCUS) > 0.0f;
 
-  for (int it = 0; it < max_iters; ++it) {
-    // ---- regeneration: strided pixel advance + camera ray ----
+  for (int it = 0; kTape || it < max_iters; ++it) {
+    // ---- regeneration: the next sample's pixel + camera ray ----
     if (!active) {
-      if (rem <= 0) break;
-      if (sk >= 0) {
-        px += jump_px;
-        py += jump_py;
-        if (px >= width) {
-          px -= width;
-          py += 1;
+      if (kTape) {  // from the queue: sample s at pixel s mod (width*height)
+        sample = take_sample(next_sample);
+        if (sample >= n) break;
+        const int pix = sample % (width * height);
+        px = pix % width;
+        py = pix / width;
+        key = rt::sample_key(seed, (uint32_t)sample);
+        segs = 0;
+      } else {  // strided: the lane's next slot, the pixel advanced by the jump
+        if (rem <= 0) break;
+        if (sk >= 0) {
+          px += jump_px;
+          py += jump_py;
+          if (px >= width) {
+            px -= width;
+            py += 1;
+          }
+          if (py >= height) py -= height;
         }
-        if (py >= height) py -= height;
+        sk += 1;
+        rem -= 1;
+        key = rt::sample_key(seed, (uint32_t)lane + (uint32_t)sk * (uint32_t)n);
       }
-      sk += 1;
-      rem -= 1;
-      key = rt::sample_key(seed, (uint32_t)lane + (uint32_t)sk * (uint32_t)n);
       rt::camera_ray(cam, px, py, key, use_disk, ox, oy, oz, dx, dy, dz);
       tpx = tpy = tpz = 1.0f;
       rdx = rdy = rdz = 0.0f;
@@ -255,6 +295,7 @@ __global__ void persistent_kernel(
       active = true;
     }
     ++segs;
+    ++thread_segs_total;
 
     // ---- closest hit (scaled-t compare space) ----
     const rt::RayTerms r = rt::ray_terms(ox, oy, oz, dx, dy, dz);
@@ -283,7 +324,7 @@ __global__ void persistent_kernel(
       rt::sphere_candidates(sph, ns, r, t_s, prim);
       rt::quad_candidates(quad, nq, ns, r, t_s, prim);
     }
-    if (kTape) tape[(size_t)depth * (size_t)n + (size_t)lane] = t_s < INFINITY ? prim : -1;
+    if (kTape) tape[(size_t)depth * (size_t)n + (size_t)sample] = t_s < INFINITY ? prim : -1;
 
     bool survives = false;
     if (!(t_s < INFINITY)) {
@@ -473,19 +514,22 @@ __global__ void persistent_kernel(
       }
     }
 
-    // ---- retire a finished path into its (slot, lane) cell ----
-    if (!survives) {
-      const size_t cell = (size_t)sk * (size_t)n + (size_t)lane;
+    // ---- retire a finished path into its (slot, lane) cell (kTape: its
+    // sample's cell; a sample past its safety bound retires as it stands) ----
+    if (!survives || (kTape && segs >= max_iters)) {
+      const size_t cell = kTape ? (size_t)sample : (size_t)sk * (size_t)n + (size_t)lane;
       log[cell] = rdx;
       log[ch_stride + cell] = rdy;
       log[2 * ch_stride + cell] = rdz;
+      if (kTape) segs_out[sample] = segs;
       active = false;
     }
   }
-  if (kTape) {  // one bounce per segment: rows segs.. were never reached
-    for (int b = segs; b < max_depth; ++b) tape[(size_t)b * (size_t)n + (size_t)lane] = -1;
+  if (!kTape) {
+    segs_out[lane] = segs;
+  } else if (thread_segs != nullptr) {
+    thread_segs[lane] = thread_segs_total;
   }
-  segs_out[lane] = segs;
 }
 
 }  // namespace
@@ -520,28 +564,46 @@ extern "C" int rt_render_persistent(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, (const int*)rem0, (const int*)px0,
       (const int*)py0, n, (float*)log, (int*)segs, width, height, jump_px, jump_py,
-      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr, tex,
-      cull);
+      num_slots, max_depth, rr_start, rr_lo, rr_hi, sky_gradient, max_iters, nullptr, nullptr,
+      nullptr, tex, cull);
   return (int)cudaGetLastError();
 }
 
-// Kernel 3: radiance (3, n) float32, tape (max_depth, n) int32, segs (n,).
-// The wrapper passes only deterministic image filters. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Kernel 3: radiance (3, n) float32, tape (max_depth, n) int32 (the caller
+// fills it with -1), segs (n,). The grid is the resident one (the
+// occupancy API's blocks per SM times the SMs) divided by grid_divisor,
+// capped at n threads; its threads take samples from the queue counter
+// `next_sample` (one int32 the caller zeroes). `thread_segs` (null, or one
+// int32 per launched thread: at most n rounded up to a block) gets each
+// thread's segments. The wrapper passes only deterministic image filters.
+// Returns the first CUDA error of the device queries or the launch (0 =
+// launched).
 extern "C" int rt_render_persistent_tape(
     const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
     int seed, int n, void* radiance, void* tape, void* segs, int width, int height,
     int max_depth, int sky_gradient, const void* tex_rows, const void* images,
-    const void* dims, int img_h, int img_w, int filter, int threads, void* stream) {
-  const int blocks = (n + threads - 1) / threads;
+    const void* dims, int img_h, int img_w, int filter, void* next_sample,
+    void* thread_segs, int grid_divisor, int threads, void* stream) {
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
   auto kernel =
       tex_rows ? persistent_kernel<true, true, false> : persistent_kernel<true, false, false>;
+  int device = 0, sms = 0, per_sm = 0, err = 0;
+  if ((err = (int)cudaGetDevice(&device))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) {
+    return err;
+  }
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0))) {
+    return err;
+  }
+  const long long resident = (long long)per_sm * sms * threads;
+  const long long grid = resident / grid_divisor > threads ? resident / grid_divisor : threads;
+  const int grid_threads = (int)(grid < n ? grid : n);
+  const int blocks = (grid_threads + threads - 1) / threads;
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, nullptr, nullptr, nullptr, n,
       (float*)radiance, (int*)segs, width, height, 0, 0, /*num_slots=*/1, max_depth,
-      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, max_depth + 2, (int*)tape, tex,
-      CullArgs{nullptr, 0, 0, 0, 0});
+      /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, /*max_iters=*/max_depth + 2,
+      (int*)tape, (int*)next_sample, (int*)thread_segs, tex, CullArgs{nullptr, 0, 0, 0, 0});
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Host-side BVH builder to flat arrays, and the two-level cluster cut of it
 (port of raytracer_tpu/geometry/bvh.py: primitive_bounds, FlatBVH,
-build_bvh, ClusterSet, cluster_scene).
+build_bvh, ClusterSet, cluster_scene; the port splits cluster_scene into
+`cluster_order` and `permute_scene`).
 
 A deterministic top-down longest-axis median split (the reference's random
 axis, bvh.go:147, only picks *a* valid tree), laid out in DFS preorder with
@@ -15,8 +16,9 @@ is available; `build_bvh_reporting` also says which one ran. The arrays stay
 NumPy: the build is host work, and ops/culled_kernel.py:build_clusters and
 `cluster_scene` read them on the host.
 
-`cluster_scene` cuts the tree into fine clusters and super-clusters for
-kernel 2's in-kernel culling (ops/persistent_kernel.py:pack_cluster_table).
+`cluster_order` cuts the tree into fine clusters and super-clusters for
+kernel 2's in-kernel culling (ops/persistent_kernel.py:pack_cluster_table),
+and `permute_scene` puts a scene's primitives in that order.
 """
 
 from __future__ import annotations
@@ -251,10 +253,25 @@ def _cluster_kind(bvh: FlatBVH, bmin, bmax, keep, max_leaf: int, super_fan: int,
     return perm, fine, sup
 
 
-def cluster_scene(scene, max_leaf: int = 128, super_fan: int = 16,
-                  min_fine_for_super: int = 24, use_native: bool = True):
-    """Cluster-order the scene's primitives along BVH subtree cuts (host,
-    once per scene) for kernel 2's in-kernel culling.
+class ClusterOrder(NamedTuple):
+    """The host clustering of a scene's geometry (`cluster_order`): the
+    primitive permutation and the cluster rows over the permuted tables.
+
+    * `sph` (S',) int64 CPU tensor: the sphere rows in cluster order (dummy
+      spheres dropped, but one kept when no real sphere exists).
+    * `quad` (Q',) int64 CPU tensor of quad rows in cluster order, or None
+      when the scene has no real quad (the quad table stays as it is).
+    * `clusters`: the ClusterSet."""
+
+    sph: torch.Tensor
+    quad: torch.Tensor | None
+    clusters: ClusterSet
+
+
+def cluster_order(scene, max_leaf: int = 128, super_fan: int = 16,
+                  min_fine_for_super: int = 24, use_native: bool = True) -> ClusterOrder:
+    """Cluster-order the scene's primitives along BVH subtree cuts (host)
+    for kernel 2's in-kernel culling; `permute_scene` applies the result.
 
     Cuts the BVH (leaf 8) at the shallowest subtrees holding <= max_leaf
     primitives of a kind and lays each subtree's primitives out
@@ -266,13 +283,11 @@ def cluster_scene(scene, max_leaf: int = 128, super_fan: int = 16,
     fine clusters that level is dropped. Spheres and quads get their own
     tables (the kernel intersects them in separate loops).
 
-    Returns (the scene with spheres and quads permuted into cluster order,
-    dummy primitives dropped since they never hit, and a ClusterSet).
-    Materials and textures are shared tables keyed by sph_mat / quad_mat,
-    so only the per-primitive fields move. A scene without a real sphere
-    keeps one dummy sphere row (so the tables keep their shapes) in one
-    fine cluster; one without a real quad keeps its quad table and gets no
-    quad clusters."""
+    It reads the geometry alone (sph_center, sph_radius, quad_q, quad_u,
+    quad_v; `primitive_bounds`). Dummy primitives are dropped since they
+    never hit. A scene without a real sphere keeps one dummy sphere row (so
+    the tables keep their shapes) in one fine cluster; one without a real
+    quad keeps its quad table and gets no quad clusters."""
     ns = scene.num_spheres
     bvh, builder = build_bvh_reporting(scene, leaf_size=8, use_native=use_native)
     bmin, bmax = primitive_bounds(scene)
@@ -286,15 +301,33 @@ def cluster_scene(scene, max_leaf: int = 128, super_fan: int = 16,
         s_perm = [0]
         s_fine = np.array([[0, 0, 0, 0, 0, 0, 0.0, 1.0]], np.float32)
         s_super = _empty_rows()
-    dev = scene.sph_center.device
-    p = torch.as_tensor(s_perm, dtype=torch.int64, device=dev)
-    repl = dict(sph_center=scene.sph_center[p], sph_radius=scene.sph_radius[p],
-                sph_mat=scene.sph_mat[p])
+    q = None
     if q_perm:
-        q = torch.as_tensor(q_perm, dtype=torch.int64, device=dev) - ns
-        repl.update(quad_q=scene.quad_q[q], quad_u=scene.quad_u[q], quad_v=scene.quad_v[q],
-                    quad_mat=scene.quad_mat[q])
+        q = torch.as_tensor(q_perm, dtype=torch.int64) - ns
     else:
         q_fine, q_super = _empty_rows(), _empty_rows()
-    return dataclasses.replace(scene, **repl), ClusterSet(
-        sph=s_fine, sph_super=s_super, quad=q_fine, quad_super=q_super, builder=builder)
+    return ClusterOrder(torch.as_tensor(s_perm, dtype=torch.int64), q, ClusterSet(
+        sph=s_fine, sph_super=s_super, quad=q_fine, quad_super=q_super, builder=builder))
+
+
+def permute_scene(scene, order: ClusterOrder):
+    """`scene` with its per-primitive fields (geometry and material ids) in
+    `order`'s cluster order. Materials and textures are shared tables keyed
+    by sph_mat / quad_mat, so they stay as the scene has them."""
+    dev = scene.sph_center.device
+    p = order.sph.to(dev)
+    repl = dict(sph_center=scene.sph_center[p], sph_radius=scene.sph_radius[p],
+                sph_mat=scene.sph_mat[p])
+    if order.quad is not None:
+        q = order.quad.to(dev)
+        repl.update(quad_q=scene.quad_q[q], quad_u=scene.quad_u[q], quad_v=scene.quad_v[q],
+                    quad_mat=scene.quad_mat[q])
+    return dataclasses.replace(scene, **repl)
+
+
+def cluster_scene(scene, max_leaf: int = 128, super_fan: int = 16,
+                  min_fine_for_super: int = 24, use_native: bool = True):
+    """(the scene permuted into cluster order, its ClusterSet):
+    `cluster_order` applied by `permute_scene`."""
+    order = cluster_order(scene, max_leaf, super_fan, min_fine_for_super, use_native)
+    return permute_scene(scene, order), order.clusters

@@ -7,8 +7,9 @@ seconds). The build runs at first use, never at import, into `build/` next
 to this package's sources; the library's file name carries a hash of the
 sources and flags, so an edit rebuilds.
 
-Fast math stays off (the closest-hit NaN rejection needs IEEE sqrt of a
-negative number), and so does multiply-add contraction (`--fmad=false`):
+Fast math stays off (the closest hit takes the IEEE, correctly rounded
+square root of the twin's torch.sqrt), and so does multiply-add
+contraction (`--fmad=false`):
 the plain PyTorch twins are the kernels' spec and round every product and
 sum separately, and near-tangent or near-origin rays amplify a contracted
 rounding difference (with contraction on, the worst of 2^20 random rays
@@ -54,10 +55,11 @@ SIGNATURES = {
     ],
     # sph, ns, quad, nq, res, cam, seed, n, radiance, tape, segs,
     # width, height, max_depth, sky_gradient, tex_rows, images, image_dims,
-    # img_h, img_w, filter, threads, stream
+    # img_h, img_w, filter, next_sample, thread_segs, grid_divisor,
+    # threads, stream
     "rt_render_persistent_tape": [
         _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-        _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P,
     ],
     # sph, ns, quad, nq, cam, seed, origin, direction, active, remaining, px,
     # py, sample_k, depth, n, width, height, jump_px, jump_py, max_depth,

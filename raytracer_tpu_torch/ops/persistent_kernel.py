@@ -15,10 +15,11 @@ and spec is integrator/wavefront.py:regen_plain, which takes the same
 packed tables.
 
 Kernel 3 ports `render_persistent_tape`: the same CUDA kernel, instantiated
-with a tape, traces one sample per lane without russian roulette and
-records each bounce's winner (the forward of the bucketed gradient,
-diff/bucketed.py), with deterministic image filters only, as in JAX. Its
-twin is integrator/wavefront.py:trace_tape_plain.
+with a tape, traces every sample once without russian roulette and records
+each bounce's winner (the forward of the bucketed gradient,
+diff/bucketed.py), with deterministic image filters only, as in JAX; its
+threads take samples from a queue. Its twin is
+integrator/wavefront.py:trace_tape_plain.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py), so kernel and twin consume identical uniforms; the TPU
@@ -73,6 +74,13 @@ CLUSTER_SLAB_PAD = 4e-3
 
 # Threads per block of the CUDA kernel.
 THREADS = 128
+# Kernel 3 launches the resident grid divided by this: its threads take
+# samples from a queue, and each thread's share of samples must be large
+# against the deepest path (50 segments against a mean of ~3) for its
+# warps' lanes to finish together. On an H100 at rand_spheres' training
+# shape a quarter of the resident grid ran 22% faster than all of it
+# (PERF.md, section 6).
+TAPE_GRID_DIVISOR = 4
 
 # CUDA launches of kernel 2 and of kernel 3 (plain-twin calls do not count).
 LAUNCHES = 0
@@ -306,17 +314,21 @@ def render_persistent_tape(
     max_depth: int = 50,
     sky_gradient: bool = False,
     textures=None,
+    thread_segments: bool = False,
 ):
-    """Kernel 3: lane L traces global sample L at pixel L mod (width*height)
-    to its end (no russian roulette; camera draws at counters 0-3, shading at
-    ops.ctr_rng.shading_ctr) and records its winner per bounce. `textures`
-    as render_persistent's, with a deterministic image filter (the replay
-    must reproduce every texel).
+    """Kernel 3: global sample s of the n traced at pixel s mod
+    (width*height) to its end (no russian roulette; camera draws at counters
+    0-3, shading at ops.ctr_rng.shading_ctr), recording its winner per
+    bounce. `textures` as render_persistent's, with a deterministic image
+    filter (the replay must reproduce every texel).
 
     Returns (radiance (3, n) float32, tape (max_depth, n) int32 with -1 for
     a miss or a dead lane, segments (n,) int32). CPU tables take
     integrator.wavefront.trace_tape_plain; CUDA tables launch the CUDA
-    kernel (or raise)."""
+    kernel (or raise), whose threads take samples from a queue. With
+    `thread_segments` (CUDA only, to measure warp occupancy) a fourth
+    output holds each launched thread's segments, int32, zero past the
+    launched grid."""
     global LAUNCHES_TAPE
     dev = sph_table.device
     check_tensor("sph_table", sph_table, torch.float32, (None, 4), dev)
@@ -330,6 +342,8 @@ def render_persistent_tape(
         raise ValueError("the tape needs a deterministic image filter, not the stochastic tap")
     cfg = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
                textures=textures)
+    if dev.type == "cpu" and thread_segments:
+        raise ValueError("thread_segments exist only for the CUDA kernel's threads")
     if dev.type == "cpu":
         from raytracer_tpu_torch.integrator.wavefront import trace_tape_plain
 
@@ -342,10 +356,15 @@ def render_persistent_tape(
 
     lib = load_kernels()
     radiance = torch.empty(3, n, dtype=torch.float32, device=dev)
-    tape = torch.empty(max_depth, n, dtype=torch.int32, device=dev)
+    tape = torch.full((max_depth, n), -1, dtype=torch.int32, device=dev)
     segs = torch.empty(n, dtype=torch.int32, device=dev)
+    next_sample = torch.zeros(1, dtype=torch.int32, device=dev)
+    # The launched grid is at most n threads rounded up to a block.
+    per_thread = (torch.zeros(-(-n // THREADS) * THREADS, dtype=torch.int32, device=dev)
+                  if thread_segments else None)
+    outs = (radiance, tape, segs) + ((per_thread,) if thread_segments else ())
     if n == 0:
-        return radiance, tape, segs
+        return outs
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_render_persistent_tape(
         sph_table.data_ptr(), sph_table.shape[0],
@@ -353,8 +372,9 @@ def render_persistent_tape(
         res_table.data_ptr(), cam_scalars.data_ptr(),
         ctypes.c_int(int(seed) & 0xFFFFFFFF).value, n,
         radiance.data_ptr(), tape.data_ptr(), segs.data_ptr(),
-        width, height, max_depth, int(sky_gradient), *tex, THREADS, stream,
+        width, height, max_depth, int(sky_gradient), *tex, next_sample.data_ptr(),
+        per_thread.data_ptr() if thread_segments else None, TAPE_GRID_DIVISOR, THREADS, stream,
     )
     check_launch("rt_render_persistent_tape", err)
     LAUNCHES_TAPE += 1
-    return radiance, tape, segs
+    return outs

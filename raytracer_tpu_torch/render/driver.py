@@ -10,7 +10,8 @@ scenes).
   every sample of the chunk (ops/persistent_kernel.py); the retirement log
   then folds into the framebuffer (integrator/wavefront.py:_fold_log).
   Scenes of more than CLUSTERED_SCENE_PRIMS primitives are first permuted
-  into BVH-cluster order (`cluster_for_render`, once per scene, cached),
+  into BVH-cluster order (`cluster_for_render`; the clustering is cached per
+  geometry, the permutation applied on every render),
   and kernel 2 culls clusters inside its loop.
 * "large_scene": scenes it does not serve (noise from rng-filled Perlin
   tables) with more than LARGE_SCENE_PRIMS primitives: passes of k samples
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame, camera_rays
-from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_scene
+from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_order, permute_scene
 from raytracer_tpu_torch.geometry.intersect import (
     build_large_scene_tables,
     intersect_scene_culled,
@@ -120,24 +121,41 @@ def render_path(scene: Scene) -> str:
     return "wavefront_step"
 
 
-# Host clustering results keyed by the identity of the scene's sphere-center
-# tensor (kept alive by the entry, so the id cannot be reused), so repeated
-# renders of one scene pay the host build once. Bounded.
-_CLUSTER_CACHE: dict[int, tuple] = {}
+# The geometry tensors geometry.bvh.cluster_order reads: the clustering
+# depends on these alone.
+CLUSTER_GEOMETRY = ("sph_center", "sph_radius", "quad_q", "quad_u", "quad_v")
+# Host clustering results (ClusterOrder: the permutation and the
+# ClusterSet), keyed by the identity of the scene's geometry tensors. Bounded.
+_CLUSTER_CACHE: dict[tuple, tuple] = {}
 
 
-def _clustered_scene_cached(scene: Scene):
-    """(cluster_scene(scene) at CLUSTER_LEAF / CLUSTER_FAN, from the cache
-    when the same scene was clustered before)."""
-    key = id(scene.sph_center)
+def _cluster_order_cached(scene: Scene):
+    """geometry.bvh.cluster_order(scene) at CLUSTER_LEAF / CLUSTER_FAN, from
+    the cache when the same geometry tensors, at the same version, were
+    clustered before.
+
+    An entry holds the tensors it was built from (so their ids cannot be
+    reused) and their version counters, which every in-place update bumps
+    (torch.optim's steps on make_inverse_renderer's leaves included), so a
+    moved sphere is clustered anew. Only the permutation is cached:
+    cluster_for_render applies it to the scene it is given, so a
+    dataclasses.replace that keeps the geometry but changes materials,
+    textures or material ids renders its own values. The JAX driver
+    (raytracer_tpu/render/driver.py:373-384) caches the permuted scene by
+    the sphere-center array alone, which renders a replaced scene's old
+    radii and materials; the port fixes this rather than match it."""
+    tensors = tuple(getattr(scene, f) for f in CLUSTER_GEOMETRY)
+    key = tuple(id(t) for t in tensors)
+    versions = tuple(t._version for t in tensors)
     hit = _CLUSTER_CACHE.get(key)
-    if hit is None or hit[0] is not scene.sph_center:
-        hit = (scene.sph_center, *cluster_scene(scene, max_leaf=CLUSTER_LEAF,
+    if hit is None or hit[1] != versions or any(a is not b for a, b in zip(hit[0], tensors)):
+        hit = (tensors, versions, cluster_order(scene, max_leaf=CLUSTER_LEAF,
                                                 super_fan=CLUSTER_FAN))
+        _CLUSTER_CACHE.pop(key, None)
         if len(_CLUSTER_CACHE) >= 8:
             _CLUSTER_CACHE.pop(next(iter(_CLUSTER_CACHE)))
         _CLUSTER_CACHE[key] = hit
-    return hit[1], hit[2]
+    return hit[2]
 
 
 def _order_front_to_back(fine: np.ndarray, sup: np.ndarray, eye: np.ndarray):
@@ -181,10 +199,12 @@ def cluster_for_render(scene: Scene, cam: Camera):
     nearest hit early, and the shrinking best hit culls the clusters behind
     it (the ordered traversal of bvh.go:225-232). Fine rows may move freely
     within their super: their start/count index the permuted primitive
-    tables, not the row position. Returns (permuted scene,
-    geometry.bvh.ClusterSet)."""
-    scene, cs = _clustered_scene_cached(scene)
-    return scene, order_clusters(cs, cam.look_from.cpu().numpy())
+    tables, not the row position. The clustering is cached per geometry
+    (`_cluster_order_cached`); the permutation is applied to `scene` on
+    every call. Returns (permuted scene, geometry.bvh.ClusterSet)."""
+    order = _cluster_order_cached(scene)
+    return permute_scene(scene, order), order_clusters(order.clusters,
+                                                       cam.look_from.cpu().numpy())
 
 
 def chunk_seed(seed: int, idx: int) -> int:

@@ -1,0 +1,187 @@
+"""Count the SASS instructions of the sphere-candidate loops in the kernel
+library.
+
+    python -m raytracer_tpu_torch.utils.sass_loop [--out out/sass]
+
+Builds the library as ops/build.py does (or reuses it), disassembles it with
+`cuobjdump -sass`, and in every kernel finds the innermost loops that test
+sphere candidates: a backward branch whose body holds a table load (LDG or
+LDS) and MUFU.RSQ, the reciprocal-root step of the IEEE square root, once
+per candidate. For each such loop it reports its static instructions, the
+candidates per trip (its MUFU.RSQ count), instructions per candidate, the
+subroutine calls and convergence barriers (BSSY/BSYNC) inside it, and each
+branch that leaves it with the length of the out-of-line block it reaches
+(the square root's slow path sits in such a block or in a called
+subroutine). Static counts: a path the data never takes costs nothing, so
+the slow path is reported beside the loop, not in it. Prints one JSON line;
+with --out also writes each kernel's SASS there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+from pathlib import Path
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LABEL = re.compile(r"^\s*([.$][\w.$]+):\s*$")
+# A branch or call target: a label, or an absolute address (newer cuobjdump).
+_TARGET = re.compile(r"`\(([^)]+)\)|\b(0x[0-9a-f]+)\b")
+_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+
+
+def parse_functions(sass: str) -> dict[str, tuple[list, dict]]:
+    """{mangled name: (instructions [(address, text)], labels {name or
+    address: index of the instruction it marks})} of a cuobjdump -sass
+    listing."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            name = m.group(1)
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        instrs, labels = funcs[name]
+        m = _LABEL.match(line)
+        if m:
+            labels[m.group(1)] = len(instrs)
+            continue
+        m = _INSTR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels[hex(addr)] = len(instrs)
+            instrs.append((addr, m.group(2).strip()))
+    return funcs
+
+
+def _target(text: str):
+    """The label or address a branch or call names (None if none)."""
+    if not _opcode(text).startswith(("BRA", "CALL")):
+        return None
+    m = _TARGET.search(text)
+    if not m:
+        return None
+    return m.group(1) if m.group(1) else hex(int(m.group(2), 16))
+
+
+def _opcode(text: str) -> str:
+    parts = text.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0] if parts else ""
+
+
+def _block(instrs, labels, start: int) -> dict:
+    """The out-of-line block at `start`, up to the first unconditional BRA,
+    RET or EXIT: its instructions, and the length of each subroutine it
+    calls (up to its RET)."""
+    end = len(instrs) - 1
+    for i in range(start, len(instrs)):
+        text = instrs[i][1]
+        op = _opcode(text)
+        if op.startswith(("RET", "EXIT")) or (op.startswith("BRA") and not text.startswith("@")):
+            end = i
+            break
+    calls = {}
+    for _, text in instrs[start : end + 1]:
+        tgt = _target(text)
+        if _opcode(text).startswith("CALL") and tgt in labels:
+            calls[tgt] = _block(instrs, labels, labels[tgt])["instructions"]
+    return dict(instructions=end - start + 1, calls=calls)
+
+
+def candidate_loops(instrs, labels) -> list[dict]:
+    """The innermost loops holding a table load and MUFU.RSQ."""
+    loops = []
+    for end, (_, text) in enumerate(instrs):
+        tgt = _target(text)
+        if not _opcode(text).startswith("BRA") or tgt not in labels:
+            continue
+        start = labels[tgt]
+        if start > end:
+            continue
+        body = [t for _, t in instrs[start : end + 1]]
+        ops = [_opcode(t) for t in body]
+        rsq = sum(op.startswith("MUFU.RSQ") for op in ops)
+        if not rsq or not any(op.startswith(("LDG", "LDS", "LD.")) for op in ops):
+            continue
+        exits, called = [], {}
+        for t in body:
+            tgt = _target(t)
+            if tgt not in labels or start <= labels[tgt] <= end:
+                continue
+            blk = _block(instrs, labels, labels[tgt])
+            if _opcode(t).startswith("CALL"):
+                called[tgt] = blk["instructions"]
+            else:
+                exits.append(dict(op=_opcode(t), target=tgt, **blk))
+        real = [op for op in ops if op != "NOP"]
+        loops.append(dict(
+            instructions=len(real), candidates_per_trip=rsq,
+            instructions_per_candidate=len(real) / rsq,
+            calls=sum(op.startswith("CALL") for op in ops), called=called,
+            convergence=sum(op.startswith(("BSSY", "BSYNC")) for op in ops),
+            loads=sorted({op for op in ops if op.startswith(("LDG", "LDS", "LD."))}),
+            exits=exits, span=(start, end)))
+    # A loop whose body holds another such loop is an outer loop.
+    inner = [lp for lp in loops if not any(
+        o["span"] != lp["span"] and lp["span"][0] <= o["span"][0] and o["span"][1] <= lp["span"][1]
+        for o in loops)]
+    for lp in inner:
+        lo, hi = lp.pop("span")
+        lp["address"] = f"{instrs[lo][0]:04x}-{instrs[hi][0]:04x}"
+    return sorted(inner, key=lambda lp: lp["address"].zfill(16))
+
+
+def _demangle(names: list[str], tool_dir: Path) -> dict[str, str]:
+    filt = tool_dir / "cu++filt"
+    if not filt.exists():
+        return {n: n for n in names}
+    out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def main(argv=None) -> dict:
+    from raytracer_tpu_torch.ops import build
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="directory for the library's SASS")
+    ap.add_argument("--sass", default=None,
+                    help="read this saved listing instead of building and disassembling")
+    ap.add_argument("--csrc", default=None,
+                    help="build these sources instead of the package's csrc/ (a variant's "
+                         "copy, utils/time_kernels.py)")
+    args = ap.parse_args(argv)
+    if args.csrc:
+        build.CSRC_DIR = Path(args.csrc)
+    if args.sass:
+        so, tool_dir = Path(args.sass), Path("/nonexistent")
+        sass = so.read_text()
+    else:
+        so = build.build_library()
+        tool_dir = Path(build.find_nvcc()).parent
+        sass = subprocess.run([str(tool_dir / "cuobjdump"), "-sass", str(so)],
+                              capture_output=True, text=True, check=True).stdout
+    funcs = parse_functions(sass)
+    names = _demangle(sorted(funcs), tool_dir)
+    report = {}
+    for mangled, (instrs, labels) in sorted(funcs.items()):
+        loops = candidate_loops(instrs, labels)
+        if loops:
+            report[names[mangled]] = dict(instructions=len(instrs), sphere_loops=loops)
+    if args.out:
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{so.stem}.sass").write_text(sass)
+    line = dict(library=so.name, kernels=report)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,328 @@
+"""Time kernels 1, 2 (dense) and 3 at their paths' shapes, by CUDA events,
+for variants of the build and launch settings taken in turns.
+
+    python -m raytracer_tpu_torch.utils.time_kernels [--rounds 2] [--reps 3] \\
+        [--variant NAME:KEY=VALUE,...]...
+
+Cells (each through its public wrapper, so a parent checkout runs it too):
+
+* `k2_rand_spheres`: kernel 2 dense at rand_spheres 400x225@500spp depth 50
+  on the render's 2^18 lanes, seed 0 (the CLI render's kernel call);
+* `k2_cornell` (quads only) and `k2_quads_1536` (quad_field cut to 1,534
+  tiles, its ground quad and its dummy sphere: 1,536 primitives, the most
+  a dense render serves), both 400 wide, 16 spp, depth 50 and 8, on 2^18
+  lanes; `k2_perlin` (textured, 400x225@100spp depth 50) and
+  `k2_culled_large` (rand_spheres_large clustered as the render clusters
+  it, 400x225@64spp depth 8: the culled instantiation), the CLI renders'
+  kernel calls;
+* `k3_train`: kernel 3 at rand_spheres 400x225@8spp depth 50, 720,000
+  lanes, seed 1234 (the bucketed training step's forward), with its warp
+  occupancy (segments / the sum over warps of the busiest thread's
+  segments x 32); `k3_earth` (the 4-tap) and `k3_perlin` likewise, all
+  three timed behind a spin kernel;
+* `k1_train`: kernel 1 on that step's 720,000 bounce-0 camera rays (seed
+  101), timed behind a spin kernel.
+
+A variant sets `threads` (kernel 2 and 3's block size), `k1_threads`
+(kernel 1's), `tape_grid` (ops/persistent_kernel.py:TAPE_GRID_DIVISOR,
+where the checkout has it) and `patch`: names from PATCHES joined by '+',
+source edits applied to a copy of csrc/ that builds into a library of its
+own (e.g. `--variant g8:patch=group8` or `--variant grid1:tape_grid=1`). PATCHES
+holds the loop variants measured against this source and not kept; each
+edit must find its anchor, or the script fails. Without --variant the
+checkout's own settings run as "default". Rounds run the variants in turns
+(forwards, then backwards). Every variant's outputs must equal the first
+variant's bit for bit, or the script fails. Prints one JSON line per
+(round, variant) and a summary line of medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import shutil
+import statistics
+import subprocess
+
+# Source edits of the variants measured and not kept: {name: [(file, old,
+# new)]}, against csrc/closest_hit.cuh's grouped sphere loop and
+# csrc/persistent_kernel.cu.
+_SKIP = "    if (!any_real) continue;  // every row of the group missed: no root\n"
+_LAUNCH = "kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>("
+_STAGE_HELPER = """// Dynamic shared memory of a staged launch (none when culled).
+static size_t stage_bytes(const void* kernel, int ns, int nq, bool culled) {
+  const size_t bytes = culled ? 0 : sizeof(float4) * ((size_t)ns + 3 * (size_t)nq);
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  return bytes;
+}
+
+"""
+PATCHES = {
+    # Every row's root, misses masked (no group branch).
+    "select": [("closest_hit.cuh", _SKIP, "")],
+    # The parent's loop: every row's root, NaN for misses.
+    "nomask": [("closest_hit.cuh", _SKIP, ""),
+               ("closest_hit.cuh", "sqrtf(real ? disc : 1.0f)", "sqrtf(disc)"),
+               ("closest_hit.cuh", "return real ? t_cand : INFINITY;", "return t_cand;")],
+    **{f"group{k}": [("closest_hit.cuh", "constexpr int SPHERE_GROUP = 4;",
+                      f"constexpr int SPHERE_GROUP = {k};")] for k in (1, 2, 8)},
+    # Kernels 2 and 3 dense with the sphere and quad tables copied into each
+    # block's shared memory (plain loads, LDS there; every other kernel's
+    # loads lose __ldg too). Kernel 3's grid is still sized without it.
+    "stage": [
+        ("closest_hit.cuh", "__ldg(sph + i + k)", "sph[i + k]"),
+        ("closest_hit.cuh", "__ldg(sph + i)", "sph[i]"),
+        ("closest_hit.cuh", "__ldg(quad + 3 * qi)", "quad[3 * qi]"),
+        ("closest_hit.cuh", "__ldg(quad + 3 * qi + 1)", "quad[3 * qi + 1]"),
+        ("closest_hit.cuh", "__ldg(quad + 3 * qi + 2)", "quad[3 * qi + 2]"),
+        ("persistent_kernel.cu", "  const int lane = blockIdx.x * blockDim.x + threadIdx.x;\n",
+         """  extern __shared__ float4 staged[];
+  if (!kCull) {
+    for (int i = threadIdx.x; i < ns + 3 * nq; i += blockDim.x) {
+      staged[i] = i < ns ? __ldg(sph + i) : __ldg(quad + (i - ns));
+    }
+    __syncthreads();
+    sph = staged;
+    quad = staged + ns;
+  }
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+"""),
+        ("persistent_kernel.cu", 'extern "C" int rt_render_persistent(\n',
+         _STAGE_HELPER + 'extern "C" int rt_render_persistent(\n'),
+        ("persistent_kernel.cu", "persistent_kernel<false, false, false>);\n  " + _LAUNCH,
+         "persistent_kernel<false, false, false>);\n  " + _LAUNCH.replace(
+             "0,", "stage_bytes((const void*)kernel, ns, nq, clusters != nullptr),")),
+        ("persistent_kernel.cu", "/ threads;\n  " + _LAUNCH, "/ threads;\n  " + _LAUNCH.replace(
+            "0,", "stage_bytes((const void*)kernel, ns, nq, false),")),
+    ],
+}
+
+
+def _time(fn, reps: int, spin: bool = False) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if spin:  # a kernel shorter than its wrapper's host time: queue behind a spin
+        torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _persistent_cell(name, spp, max_depth, seed=0, lanes=1 << 18, clustered=False, **scene_kw):
+    """Kernel 2 on `name` (clustered as the render clusters it: the culled
+    instantiation)."""
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.geometry.intersect import quad_derived
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.materials.packed import texture_tables
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    from raytracer_tpu_torch.render.driver import cluster_for_render
+
+    scene, cam, st = get_scene(name, spp=spp, max_depth=max_depth, **scene_kw)
+    clusters = None
+    if clustered:
+        scene, cs = cluster_for_render(scene, cam)
+        clusters = pk.pack_cluster_table(cs, "cuda")
+    sc = scene.to("cuda")
+    w, h = st.width, st.height
+    n, num_slots, jump = wf.strided_schedule(w * h, spp, lanes)
+    args = (*pk.pack_persistent_tables(sc),
+            pk.pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).cuda(), seed,
+            *wf.schedule_arrays(n, w * h, spp, w, device="cuda"))
+    cfg = dict(width=w, height=h, jump_px=jump % w, jump_py=jump // w, num_slots=num_slots,
+               max_depth=max_depth, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+               sky_gradient=st.sky_gradient, textures=texture_tables(sc, quad_derived(sc)),
+               clusters=clusters)
+    return (lambda: pk.render_persistent(*args, **cfg)), dict(
+        ns=sc.num_spheres, nq=sc.num_quads, size=[w, h], spp=spp, max_depth=max_depth,
+        lanes=n)
+
+
+def _tape_cell(name, **scene_kw):
+    """Kernel 3 at the training shape (400x225, 8 spp, depth 50, seed 1234;
+    image scenes through the 4-tap); timed behind a spin kernel, as short
+    kernels must be. Its call takes `thread_segments`, passed on where the
+    checkout's wrapper has it (only the measuring call asks)."""
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.geometry.intersect import quad_derived
+    from raytracer_tpu_torch.materials.packed import texture_tables
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene, cam, st = get_scene(name, width=400, spp=8, max_depth=50, **scene_kw)
+    sc = scene.to("cuda")
+    w, h = st.width, st.height
+    tables = pk.pack_persistent_tables(sc)
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).cuda()
+    n = w * h * 8
+    kw = dict(width=w, height=h, max_depth=50, sky_gradient=st.sky_gradient,
+              textures=texture_tables(sc, quad_derived(sc), stochastic=False))
+    queue = "thread_segments" in inspect.signature(pk.render_persistent_tape).parameters
+
+    def call(thread_segments=False):
+        extra = dict(thread_segments=True) if thread_segments and queue else {}
+        return pk.render_persistent_tape(*tables, cam_s, 1234, n, **kw, **extra)
+
+    return (call, 5, True,
+            dict(ns=sc.num_spheres, nq=sc.num_quads, lanes=n, size=[w, h], spp=8, max_depth=50))
+
+
+def cells():
+    """{cell: (call, reps, spin, info)}; each call returns its outputs."""
+    import torch
+
+    from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
+    from raytracer_tpu_torch.geometry.intersect import scene_tables
+    from raytracer_tpu_torch.ops import ctr_rng
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    out = {}
+    k2, info = _persistent_cell("rand_spheres", 500, 50)
+    out["k2_rand_spheres"] = (k2, 3, False, info)
+    k2, info = _persistent_cell("cornell", 16, 50, width=400)
+    out["k2_cornell"] = (k2, 3, False, info)
+    k2, info = _persistent_cell("quad_field", 16, 8, n_spheres=1534)
+    out["k2_quads_1536"] = (k2, 3, False, info)
+    k2, info = _persistent_cell("perlin", 100, 50)
+    out["k2_perlin"] = (k2, 3, False, info)
+    k2, info = _persistent_cell("rand_spheres_large", 64, 8, clustered=True)
+    out["k2_culled_large"] = (k2, 3, False, info)
+
+    for cell, name, kw in (("k3_train", "rand_spheres", {}),
+                           ("k3_earth", "earth", {"bilinear": True}), ("k3_perlin", "perlin", {})):
+        out[cell] = _tape_cell(name, **kw)
+    scene, cam, st = get_scene("rand_spheres", width=400, spp=8, max_depth=50)
+    sc = scene.to("cuda")
+    w, h = st.width, st.height
+    frame = camera_frame(cam, w, h)
+    n = w * h * 8
+    sid = torch.arange(n, device="cuda")
+    pix = sid % (w * h)
+    o, d = camera_rays(frame.to("cuda"), pix % w, pix // w, ctr_rng.camera_uniforms(101, sid))
+    o, d = o.contiguous(), d.contiguous()
+    sph, quad = scene_tables(sc)
+    out["k1_train"] = ((lambda: ik.intersect(sph, quad, o, d)), 20, True,
+                       dict(rays=n, ns=sc.num_spheres, nq=sc.num_quads))
+    return out
+
+
+def _apply(variant: dict, defaults: dict):
+    """Set a variant's launch settings and select its library; `defaults`
+    holds the checkout's own settings."""
+    from raytracer_tpu_torch.ops import build
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+
+    pk.THREADS = int(variant.get("threads", defaults["threads"]))
+    ik.THREADS = int(variant.get("k1_threads", defaults["k1_threads"]))
+    if hasattr(pk, "TAPE_GRID_DIVISOR"):
+        pk.TAPE_GRID_DIVISOR = int(variant.get("tape_grid", defaults["tape_grid"]))
+    build.CSRC_DIR = defaults["csrc"]
+    patches = [p for p in variant.get("patch", "").split("+") if p]
+    if patches:
+        csrc = build.BUILD_DIR / "variants" / "+".join(patches)
+        shutil.rmtree(csrc, ignore_errors=True)
+        shutil.copytree(defaults["csrc"], csrc)
+        for name in patches:
+            for fname, old, new in PATCHES[name]:
+                f = csrc / fname
+                text = f.read_text()
+                if old not in text:
+                    raise SystemExit(f"time_kernels: patch {name} finds no anchor in {fname}")
+                f.write_text(text.replace(old, new))
+        build.CSRC_DIR = csrc
+    build.load_kernels.cache_clear()
+    build.load_kernels()
+
+
+def _parse_variant(text: str) -> tuple[str, dict]:
+    name, _, rest = text.partition(":")
+    return name, dict(kv.split("=", 1) for kv in rest.split(",") if kv)
+
+
+def _outputs_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def main(argv=None) -> dict:
+    import torch
+
+    from raytracer_tpu_torch.ops import build
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.utils.metrics import warp_slots
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=0, help="override each cell's repetitions")
+    ap.add_argument("--cells", default="", help="comma-separated cells (default: all)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: needs a CUDA device")
+    defaults = dict(threads=pk.THREADS, k1_threads=ik.THREADS,
+                    tape_grid=getattr(pk, "TAPE_GRID_DIVISOR", 1), csrc=build.CSRC_DIR)
+    variants = dict(_parse_variant(v) for v in args.variant) or {"default": {}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    for v in variants.values():  # build every library before any timing
+        _apply(v, defaults)
+    table = cells()
+    if args.cells:
+        table = {k: table[k] for k in args.cells.split(",")}
+    first: dict = {}
+    times: dict = {name: {cell: [] for cell in table} for name in variants}
+    extra: dict = {name: {} for name in variants}
+    order = list(variants)
+    for r in range(args.rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            _apply(variants[name], defaults)
+            line = dict(round=r, variant=name, settings=variants[name])
+            for cell, (fn, reps, spin, _) in table.items():
+                if cell.startswith("k3"):  # per-thread segments, else one sample a thread
+                    out = fn(thread_segments=True)
+                    threads = out[3] if len(out) == 4 else out[2]
+                    extra[name][f"{cell}_warp_occupancy"] = int(out[2].sum()) / warp_slots(threads)
+                    extra[name][f"{cell}_threads"] = int((threads > 0).sum())
+                    out = out[:3]
+                else:
+                    out = fn()
+                torch.cuda.synchronize()
+                if cell not in first:
+                    first[cell] = out
+                elif not _outputs_equal(out, first[cell]):
+                    raise SystemExit(f"time_kernels: {cell} under {name} differs from "
+                                     f"{order[0]}'s outputs")
+                del out
+                ms = _time(fn, args.reps or reps, spin)
+                times[name][cell].append(ms)
+                line[cell] = ms
+            line.update(extra[name])
+            print(json.dumps(line), flush=True)
+    summary = dict(
+        nvidia_smi=smi, torch=torch.__version__, cells={c: t[3] for c, t in table.items()},
+        median_ms={name: {c: statistics.median(v) for c, v in cs.items()}
+                   for name, cs in times.items()},
+        extra=extra, outputs_equal_across_variants=True)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

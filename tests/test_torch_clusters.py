@@ -5,6 +5,8 @@ package's (array-equal), and the clustered plain twin
 twin bit for bit on the scenes of tests/test_persistent_kernel.py:339-488,
 against an independent culling walk, and against JAX `trace`."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,16 +162,94 @@ def test_front_to_back_and_cluster_for_render_equal_jax(name, kw):
                                       err_msg=f)
 
 
-def test_cluster_for_render_caches_per_scene():
-    """A second render of the same scene object reuses its clustering."""
+def counting_cluster_order(monkeypatch):
+    """The number of host clusterings render/driver.py runs, as a one-entry
+    list."""
+    calls = [0]
+    real = pdriver.cluster_order
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pdriver, "cluster_order", counted)
+    pdriver._CLUSTER_CACHE.clear()
+    return calls
+
+
+def test_cluster_for_render_caches_per_scene(monkeypatch):
+    """A second render of the same scene object reuses its clustering (one
+    host clustering, the same permuted tables); a scene of new tensors is
+    clustered anew, to the same rows."""
+    calls = counting_cluster_order(monkeypatch)
     psc, cam, _ = pbuilders.rand_spheres_large(width=8, n_spheres=2000)
     first = pdriver.cluster_for_render(psc, cam)
     again = pdriver.cluster_for_render(psc, cam)
-    assert again[0].sph_center is first[0].sph_center
+    assert calls[0] == 1
+    for f in pscene.TENSOR_FIELDS:
+        assert torch.equal(getattr(again[0], f), getattr(first[0], f)), f
     other = pdriver.cluster_for_render(pbuilders.rand_spheres_large(width=8, n_spheres=2000)[0],
                                        cam)
-    assert other[0].sph_center is not first[0].sph_center
+    assert calls[0] == 2
     np.testing.assert_array_equal(other[1].sph, first[1].sph)
+
+
+def cache_scene():
+    """rand_spheres_large cut to 2,000 spheres (past CLUSTERED_SCENE_PRIMS),
+    8 px wide, 2 spp, depth 3."""
+    scene, cam, st = pbuilders.rand_spheres_large(width=8, spp=2, max_depth=3, n_spheres=2000)
+    assert scene.num_prims > ppk.CLUSTERED_SCENE_PRIMS
+    return scene, cam, st
+
+
+def render_and_cluster(scene, cam, st):
+    """(cluster_for_render's permuted scene and ClusterSet, render_image's
+    image) on the CPU."""
+    return (pdriver.cluster_for_render(scene, cam),
+            pdriver.render_image(scene, cam, st, device="cpu", seed=4))
+
+
+def assert_same_clustered_render(got, want):
+    (g_scene, g_cs), g_img = got
+    (w_scene, w_cs), w_img = want
+    for f in pscene.TENSOR_FIELDS:
+        assert torch.equal(getattr(g_scene, f), getattr(w_scene, f)), f
+    for f in ("sph", "sph_super", "quad", "quad_super"):
+        np.testing.assert_array_equal(getattr(g_cs, f), getattr(w_cs, f), err_msg=f)
+    assert torch.equal(g_img, w_img)
+
+
+def test_cluster_cache_follows_an_in_place_geometry_update():
+    """Sphere centers moved in place (as torch.optim moves trainable leaves)
+    between two renders: the second render equals one with a cleared cache
+    bit for bit, and differs from the first."""
+    scene, cam, st = cache_scene()
+    pdriver._CLUSTER_CACHE.clear()
+    before = render_and_cluster(scene, cam, st)
+    with torch.no_grad():
+        scene.sph_center[:, 0] += 5
+    got = render_and_cluster(scene, cam, st)
+    pdriver._CLUSTER_CACHE.clear()
+    assert_same_clustered_render(got, render_and_cluster(scene, cam, st))
+    assert not torch.equal(got[1], before[1])
+
+
+def test_cluster_cache_follows_a_replaced_scene():
+    """dataclasses.replace keeping the geometry tensors but zeroing the
+    texture colors and albedos (as diff/grad.py:split_scene's rebuild
+    replaces leaves): the render equals one with a cleared cache bit for
+    bit, and differs from the first scene's."""
+    scene, cam, st = cache_scene()
+    pdriver._CLUSTER_CACHE.clear()
+    before = render_and_cluster(scene, cam, st)
+    dark = dataclasses.replace(scene, tex_c0=torch.zeros_like(scene.tex_c0),
+                               tex_c1=torch.zeros_like(scene.tex_c1),
+                               mat_albedo=torch.zeros_like(scene.mat_albedo))
+    assert dark.sph_center is scene.sph_center
+    got = render_and_cluster(dark, cam, st)
+    pdriver._CLUSTER_CACHE.clear()
+    assert_same_clustered_render(got, render_and_cluster(dark, cam, st))
+    assert not torch.equal(got[1], before[1])
 
 
 # ---- the clustered twin ----

@@ -167,6 +167,134 @@ def test_intersect_kernel_matches_plain(cuda, name, lo, hi):
     assert bool((torch.isinf(t_k[same]) == torch.isinf(t_p[same])).all())
 
 
+def adversarial_rays():
+    """(sphere table (S, 4), origins (N, 3), directions (N, 3)) float32, rays
+    built to reach every branch of the sphere candidate: rays leaving a
+    sphere's surface (entering it again just past T_MIN), tangent rays whose
+    discriminant is exactly 0 (integer coordinates, |d| 1 and 2) or one
+    float32 step either side of it, a dummy row (1e30), directions of
+    length ~1e-20, rays inside the r = 1000 ground sphere, and huge rays
+    whose discriminant is inf - inf = NaN."""
+    f32 = np.float32
+    rng = np.random.default_rng(11)
+    centers = np.array([[0, -1000, 0], [0, 0, 0], [4, 0, 0], [0, 0, 7], [0, 0, 0]], f32)
+    radii = np.array([1000, 1, 2, 1, 0], f32)  # the last row is a dummy
+    sph = ik.pack_sphere_table(torch.from_numpy(centers), torch.from_numpy(radii)).numpy()
+    o, d = [], []
+    for c, r in zip(centers[1:4], radii[1:4]):  # tangent: |o_perp - c| = r exactly
+        for k in (3, 5, 9):
+            for scale in (1, 2):
+                for axis, off in ((0, 1), (2, 1)):
+                    dv = np.zeros(3, f32)
+                    dv[axis] = scale
+                    ov = c.copy()
+                    ov[axis] -= k
+                    ov[1] += r
+                    o.append(ov)
+                    d.append(dv)
+                    o.append(np.nextafter(ov, ov + off).astype(f32))  # a step either side
+                    d.append(dv)
+                    o.append(np.nextafter(ov, ov - off).astype(f32))
+                    d.append(dv)
+    for _ in range(200):  # leaving (or just short of) the unit sphere's surface
+        n = rng.normal(size=3)
+        n /= np.linalg.norm(n)
+        step = rng.choice([9e-4, 1e-3, 1.0001e-3, 1.1e-3, 0.0])
+        o.append((n - n * step).astype(f32))
+        d.append((n * rng.uniform(0.5, 2)).astype(f32))
+        o.append((n + n * step).astype(f32))
+        d.append((-n * rng.uniform(0.5, 2)).astype(f32))
+    for _ in range(100):  # tiny directions, inside the ground, huge
+        o.append(rng.uniform(-3, 3, 3).astype(f32))
+        d.append((rng.normal(size=3) * 1e-20).astype(f32))
+        o.append(np.array([rng.uniform(-50, 50), rng.uniform(-900, -1), rng.uniform(-50, 50)],
+                          f32))
+        d.append(rng.normal(size=3).astype(f32))
+        o.append((rng.normal(size=3) * 1e10).astype(f32))
+        d.append((rng.normal(size=3) * 1e10).astype(f32))
+    return sph, np.stack(o).astype(f32), np.stack(d).astype(f32)
+
+
+def masked_sphere_candidates(sph, o, d, root=np.sqrt):
+    """NumPy float32 reference of csrc/closest_hit.cuh:sphere_candidate, term
+    by term in the kernel's order: the root of 1.0 and a +inf candidate
+    where the discriminant is not >= 0. `root` is the square root."""
+    f32 = np.float32
+    with np.errstate(all="ignore"):
+        ox, oy, oz = (o[:, i:i + 1] for i in range(3))
+        dx, dy, dz = (d[:, i:i + 1] for i in range(3))
+        a = dx * dx + dy * dy + dz * dz
+        d_dot_o = dx * ox + dy * oy + dz * oz
+        o_sq = ox * ox + oy * oy + oz * oz
+        tmin_a = f32(ik.T_MIN) * a
+        cx, cy, cz, c2r2 = (sph[None, :, i] for i in range(4))
+        half_b = d_dot_o - (dx * cx + dy * cy + dz * cz)
+        c = o_sq - f32(2.0) * (ox * cx + oy * cy + oz * cz) + c2r2
+        disc = half_b * half_b - a * c
+        real = disc >= 0
+        sq = root(np.where(real, disc, f32(1.0)))
+        t0s, t1s = -half_b - sq, -half_b + sq
+        t = np.where(t0s > tmin_a, t0s, np.where(t1s > tmin_a, t1s, f32(np.inf)))
+        return np.where(real, t, f32(np.inf)).astype(f32), disc
+
+
+def test_masked_sphere_candidates_equal_the_twin():
+    """The kernel's masked sphere candidate (a NumPy float32 reference of
+    closest_hit.cuh) against the twin's unmasked one
+    (candidates_scaled: torch.sqrt of a negative discriminant, NaN compares
+    falling through): every scaled t bit-equal on adversarial rays that
+    reach discriminants of exactly 0, one step either side, NaN, and
+    candidates just past T_MIN. The reference takes the twin's own root:
+    torch's float32 sqrt on the CPU is not always correctly rounded (it is
+    one step off NumPy's on a few of these discriminants), while on the
+    card torch.sqrt and the kernel's sqrtf both are."""
+    sph, o, d = adversarial_rays()
+    want, disc = masked_sphere_candidates(
+        sph, o, d, root=lambda x: torch.sqrt(torch.from_numpy(x)).numpy())
+    got, _ = ik.candidates_scaled(torch.from_numpy(sph), torch.zeros(0, 12),
+                                  torch.from_numpy(o), torch.from_numpy(d))
+    assert np.array_equal(got.numpy(), want)
+    assert (disc == 0).sum() >= 30 and np.isnan(disc).sum() >= 50 and (disc < 0).sum() > 0
+    a = (d * d).sum(1, keepdims=True)
+    near = np.isfinite(want) & (want < 2e-3 * a)
+    assert near.sum() >= 50 and (np.isfinite(want) & (want == 0)).sum() == 0
+
+
+@pytest.mark.cuda
+def test_intersect_kernel_tangent_rays_match_plain(cuda):
+    """Kernel 1 on adversarial_rays' table and rays (exact-zero and NaN
+    discriminants, hits just past T_MIN): t and prim bit-equal to the
+    twin."""
+    sph, o, d = (torch.from_numpy(x).to(cuda) for x in adversarial_rays())
+    quad = torch.zeros(1, 12, device=cuda)
+    t_k, p_k = ik.intersect(sph, quad, o, d)
+    t_p, p_p = ik.intersect_plain(sph, quad, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p) and torch.equal(t_k.isnan(), t_p.isnan())
+    assert torch.equal(torch.nan_to_num(t_k), torch.nan_to_num(t_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("rand_spheres", {}), ("cornell", {}),
+                                     ("quad_field", {"n_spheres": 1534})])
+def test_persistent_kernel_dense_matches_plain_bit_for_bit(cuda, name, kw):
+    """Kernel 2's dense instantiation (the grouped sphere loop) on spheres
+    only, on quads only (cornell) and at 1,536 primitives (quad_field cut to
+    1,534 tiles, the most a dense render serves): log and segments
+    bit-equal to the twin."""
+    args, cfg = persistent_inputs(name, 48, 4, 2000, cuda, max_depth=10, **kw)
+    assert args[0].shape[0] + args[1].shape[0] <= pk.CLUSTERED_SCENE_PRIMS
+    log_k, segs_k = pk.render_persistent(*args, **cfg)
+    log_p, segs_p = wf.regen_plain(
+        *args, **cfg, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+        max_iters=pk.max_iters_for(cfg["num_slots"], cfg["max_depth"]),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(log_k, log_p) and torch.equal(segs_k, segs_p), equal_report(
+        [("log", log_k, log_p), ("segs", segs_k, segs_p)])
+    assert float(log_k.sum()) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["rand_spheres", "cornell", "one_weekend_final"])
 def test_persistent_kernel_matches_plain(cuda, name):
@@ -198,22 +326,31 @@ def tape_inputs(name, width, device, **scene_kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,width,spp,depth", [("rand_spheres", 96, 2, 50),
-                                                  ("cornell", 48, 2, 12)])
-def test_tape_kernel_matches_plain(cuda, name, width, spp, depth):
-    """Kernel 3 against its twin on the same CUDA tables and seed: tape
-    equal on every entry, radiance and segments equal on every lane."""
+@pytest.mark.parametrize("name,width,spp,depth,n", [
+    ("rand_spheres", 96, 2, 50, None),
+    ("cornell", 48, 2, 12, None),
+    ("rand_spheres", 96, 2, 50, 1),  # one sample: one thread of one block
+    ("rand_spheres", 96, 2, 50, 1001),  # below one resident grid, not a multiple of THREADS
+    ("rand_spheres", 400, 2, 50, None),  # 180,000 samples: more than one resident grid
+])
+def test_tape_kernel_matches_plain(cuda, name, width, spp, depth, n):
+    """Kernel 3 (samples from its queue) against its twin on the same CUDA
+    tables and seed: tape equal on every entry, radiance and segments equal
+    on every sample; the per-thread segments sum to the samples'."""
     tables, st, _ = tape_inputs(name, width, cuda)
-    n = st.width * st.height * spp
+    n = n or st.width * st.height * spp
     cfg = dict(width=st.width, height=st.height, max_depth=depth, sky_gradient=st.sky_gradient)
     before = pk.LAUNCHES_TAPE
-    rad_k, tape_k, segs_k = pk.render_persistent_tape(*tables, 9, n, **cfg)
+    rad_k, tape_k, segs_k, per_thread = pk.render_persistent_tape(*tables, 9, n, **cfg,
+                                                                  thread_segments=True)
     assert pk.LAUNCHES_TAPE == before + 1
     rad_p, tape_p, segs_p = wf.trace_tape_plain(*tables, 9, n, **cfg)
     torch.cuda.synchronize()
     assert torch.equal(tape_k, tape_p)
     torch.testing.assert_close(rad_k, rad_p, rtol=0, atol=0)
     assert torch.equal(segs_k, segs_p)
+    assert int(per_thread.sum()) == int(segs_k.sum())
+    assert per_thread.shape[0] % pk.THREADS == 0 and per_thread.shape[0] >= min(n, pk.THREADS)
 
 
 def equal_report(pairs):
@@ -250,14 +387,17 @@ def test_persistent_kernel_textured_matches_plain(cuda, name, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,kw", [("perlin", {}), ("earth", {}), ("earth", {"bilinear": True}),
-                                     ("textured_quads", {"bilinear": True})])
-def test_tape_kernel_textured_matches_plain(cuda, name, kw):
+@pytest.mark.parametrize("name,kw,n", [("perlin", {}, None), ("earth", {}, None),
+                                       ("earth", {"bilinear": True}, None),
+                                       ("earth", {"bilinear": True}, 1001),
+                                       ("textured_quads", {"bilinear": True}, None)])
+def test_tape_kernel_textured_matches_plain(cuda, name, kw, n):
     """Kernel 3's textured instantiation against its twin: tape, radiance
-    and segments bit-equal, at depth 20 over 2 samples per pixel."""
+    and segments bit-equal, at depth 20 over 2 samples per pixel (or the n
+    given)."""
     tables, st, textures = tape_inputs(name, 48, cuda, **kw)
     assert textures is not None
-    n = st.width * st.height * 2
+    n = n or st.width * st.height * 2
     cfg = dict(width=st.width, height=st.height, max_depth=20, sky_gradient=st.sky_gradient,
                textures=textures)
     before = pk.LAUNCHES_TAPE
@@ -341,6 +481,9 @@ def test_cpu_tape_call_takes_the_twin_and_counts_nothing():
     assert int(tape.max()) < tables[2].shape[0] and int(segs.min()) >= 1
     with pytest.raises(ValueError, match="max_depth"):
         pk.render_persistent_tape(*tables, 4, n, width=st.width, height=st.height, max_depth=0)
+    with pytest.raises(ValueError, match="thread_segments"):
+        pk.render_persistent_tape(*tables, 4, n, width=st.width, height=st.height, max_depth=5,
+                                  thread_segments=True)
 
 
 def test_cpu_textured_calls_take_the_twin_and_count_nothing():
