@@ -32,25 +32,28 @@ counters reset just before and read just after:
   400x225, 100 spp, depth 50, each one launch of kernel 2's textured
   instantiation, timed by CUDA events.
 
-Phase 3 also holds kernel 2's textured instantiation against its twin bit
-for bit (perlin, earth nearest, stochastic and 4-tap, simple_light) at
-96x54, 8 spp, depth 10 and at phase 10's own kernel calls (400x225, 100
-spp, depth 50, the CLI's seed and lanes), phase 3c holds kernel 2's
-culled instantiation against its twin bit for bit (log and segments) on
-rand_spheres_large, quad_field and the JAX package's two-level and
-image-quad culling scenes at 96x54, 8 spp, depth 8, and at phase 10's
-three large renders' own kernel calls (400x225, depth 8, the render's
-2^18 lanes, seed 0 and clustered tables): whole at 4 spp, and the 64-spp
-call on every sample the 4-spp schedule holds, phase 4 checks renders of every golden scene the
-card can reproduce (and earth with a 512x1024 texture), all through kernel
-2, phase 6 holds the tape kernel against its twin at the training path's
-shape (rand_spheres, and textured: earth with the 4-tap and perlin) and
-prints its warp occupancy under the sample queue,
-phase 7a the whole gradient step on the card against the step on the CPU,
-phase 7 kernel 1 against its twin on the scan step's own rays, phase 8
-kernel 5 against its twin at perlin's path shape (and the wavefront-step
-path against kernel 2 on rand_spheres and on perlin with its textures),
-and phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
+Phase 2 also holds kernel 1 bit for bit on rays built for every branch of
+the quad test (tests/adversarial_quads.py). Phase 3 also holds kernel 2's
+textured instantiation against its twin bit for bit (perlin, earth
+nearest, stochastic and 4-tap, simple_light) at 96x54, 8 spp, depth 10 and
+at phase 10's own kernel calls (400x225, 100 spp, depth 50, the CLI's seed
+and lanes), phase 3c holds kernel 2's culled instantiation against its
+twin bit for bit (log and segments) on rand_spheres_large, quad_field and
+the JAX package's two-level and image-quad culling scenes at 96x54, 8 spp,
+depth 8, and at phase 10's three large renders' own kernel calls (400x225,
+depth 8, the render's 2^18 lanes, seed 0 and clustered tables): whole at 4
+spp, and the 64-spp call on every sample the 4-spp schedule holds,
+printing each call's bounds per lane and per warp
+(utils/bounds.py:culled_bounds), phase 4 checks renders of every golden
+scene the card can reproduce (and earth with a 512x1024 texture), all
+through kernel 2, phase 6 holds the tape kernel against its twin at the
+training path's shape (rand_spheres, and textured: earth with the 4-tap
+and perlin) and prints its warp occupancy under the sample queue, phase 7a
+the whole gradient step on the card against the step on the CPU, phase 7
+kernel 1 against its twin on the scan step's own rays, phase 8 kernel 5
+against its twin at perlin's path shape (and the wavefront-step path
+against kernel 2 on rand_spheres and on perlin with its textures), and
+phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
 camera rays. Every phase prints one line; any failure raises and exits
 non-zero.
 The second-to-last line is the per-kernel JSON record, the last line
@@ -72,6 +75,18 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
+sys.path.insert(0, str(REPO))
+from raytracer_tpu_torch.utils.bounds import (  # noqa: E402
+    QUAD_OPS,
+    RAY_OPS,
+    SLAB_OPS,
+    SPHERE_OPS,
+    bound,
+    culled_bounds,
+    culled_bytes,
+    hit_ops,
+)
+
 GOLDEN_CFG = dict(width=96, spp=24, max_depth=10)
 GOLDEN_SEED = 12345
 # Scenes whose golden statistics a different RNG stream can reproduce at
@@ -127,16 +142,8 @@ OUT_DIR = REPO / "chiprun_out"
 TRAIN_CFG = dict(width=400, spp=8, max_depth=50)
 TRAIN_SEEDS = (101, 102, 103, 104, 105)
 
-# Least time bounds: NVIDIA's published H100
-# SXM peaks at 700 W, FP32 outside the tensor cores and HBM bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 arithmetic of one closest-hit candidate in csrc/closest_hit.cuh
-# (compares and selects not counted), and of the per-ray terms. Shading adds
-# about 1% per segment at rand_spheres' 490 rows and is not counted.
-SPHERE_OPS = 21
-QUAD_OPS = 40
-RAY_OPS = 15
+# Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
+# 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
 
 
 def fail(msg: str):
@@ -293,19 +300,6 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
-
-
-def hit_ops(segments, ns, nq):
-    """Closest-hit FP32 operations of `segments` rays over ns spheres and nq
-    quads."""
-    return float(segments) * (ns * SPHERE_OPS + nq * QUAD_OPS + RAY_OPS)
-
-
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the FP32 peak and
-    bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def tape_pair(name, seed, **scene_kw):
@@ -577,9 +571,6 @@ def check_pair(label, kernel_out, plain_out, fold, exact=False):
                 segments=sk, plain_segments=sp, cells_bit_equal=cells_equal)
 
 
-# FP32 operations of one cluster slab test in csrc/culled_kernel.cu (six
-# subtracts, six multiplies, ten min/max, the running-best rescale).
-SLAB_OPS = 23
 # Bytes kernel 5 moves per lane: origin, direction, active, remaining, px,
 # py, sample_k and depth read (45); t, prim, origin, direction, grant,
 # remaining, px, py, sample_k and four uniforms written (65).
@@ -825,9 +816,10 @@ def held_culled(label, name, kw):
     and cluster_for_render's permuted tables.
 
     At HELD_SPP the kernel against its twin, log and segments bit-equal;
-    the twin's per-lane work counts give the bound, and the dense
-    instantiation on the same permuted tables is timed beside the culled
-    one (it must be slower: the witness that the kernel skips clusters).
+    the twin's work counts give the bounds (per lane and per warp,
+    utils/bounds.py:culled_bounds), and the dense instantiation on the
+    same permuted tables is timed beside the culled one (it must be
+    slower: the witness that the kernel skips clusters).
     Then the render's own 64-spp call: a sample's path depends on its
     sample id alone, so its log must equal the twin's on every (slot,
     lane) cell the HELD_SPP schedule holds; its segments are what phase
@@ -844,7 +836,7 @@ def held_culled(label, name, kw):
     kernel, plain, fold = persistent_pair(scene_cl, cam, st, DEFAULT_WAVEFRONT, seed=0,
                                           clusters=cs, work=True)
     kernel_out = kernel()
-    (log_p, segs_p, work), plain_ms = timed(plain)
+    (log_p, segs_p, work, warp_work), plain_ms = timed(plain)
     rec = check_pair(f"culled {label} at the render's call", kernel_out, (log_p, segs_p), fold,
                      exact=True)
     del kernel_out
@@ -866,27 +858,22 @@ def held_culled(label, name, kw):
         fail(f"kernel 2 culled {label} at 64 spp: {float((prefix == log_p).float().mean()):.6f} "
              f"of the {HELD_SPP}-spp twin's log cells bit-equal")
     segments = int(segs_p.sum())
-    w_sum = work.sum(1).tolist()
+    w_sum = work.long().sum(1).tolist()
+    rows = [len(x) for x in cs[:4]]
+    b = culled_bounds(segments, w_sum, warp_work.tolist(), culled_bytes(
+        log_p.numel() * 4, n, rows, scene_cl.num_spheres, scene_cl.num_quads))
     return dict(rec, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, size=[w, h], spp=HELD_SPP,
                 max_depth=st.max_depth, lanes=n, slots=num_slots,
                 warp_occupancy=segments / warp_slots(segs_p), log_bytes=log_p.numel() * 4,
                 slab_tests=w_sum[0], sphere_tests=w_sum[1], quad_tests=w_sum[2],
+                sphere_roots=w_sum[3], quad_divisions=w_sum[4], quad_in_quad=w_sum[5],
+                warp_union_tests=warp_work.tolist(), bound_ms=b["per_lane"][0],
+                bound_by=b["per_lane"][1], warp_bound_ms=b["warp_union"][0],
+                simt_efficiency=b["simt_efficiency"],
                 ns=scene_cl.num_spheres, nq=scene_cl.num_quads,
-                cluster_rows=[len(x) for x in cs[:4]], render_call=dict(
+                cluster_rows=rows, render_call=dict(
                     spp=64, slots=int(log64.shape[1]), segments=int(segs64.sum()),
                     prefix_cells_equal=True, ms=time_cuda(kernel64, reps=3)))
-
-
-def culled_bound(h):
-    """(bound_ms, bound_by) of a culled call from its twin's work counts
-    (perfect per-lane culling): the per-segment ray terms and inverse
-    direction, every slab test, sphere test and quad test; bytes the log,
-    the schedule and segments, the cluster rows and the primitive tables."""
-    ops = (h["segments"] * (RAY_OPS + 3) + h["slab_tests"] * SLAB_OPS
-           + h["sphere_tests"] * SPHERE_OPS + h["quad_tests"] * QUAD_OPS)
-    nbytes = (h["log_bytes"] + 16 * h["lanes"] + 32 * sum(h["cluster_rows"])
-              + (16 + 64) * h["ns"] + (48 + 64) * h["nq"])
-    return bound(ops, nbytes)
 
 
 def png_linear_mean(path):
@@ -951,7 +938,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; needs one CUDA device",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
     import numpy as np
 
     from raytracer_tpu_torch import cli
@@ -996,8 +982,18 @@ def main() -> int:
         sph, quad = scene_tables(scene.to("cuda"))
         o, d = (x.cuda() for x in random_rays(1 << 20, lo, hi, seed=7))
         k1[name] = check_hit(f"kernel 1 {name}", sph, quad, o, d)
+    # The quad test on rays built for its every branch (origins on a plane,
+    # |d.n| at QUAD_DENOM_EPS, t at T_MIN, back faces, in-quad coordinates
+    # 0 and 1, NaN directions, ties; tests/adversarial_quads.py).
+    sys.path.insert(0, str(REPO / "tests"))
+    from adversarial_quads import adversarial_quad_rays
+
+    table, o, d = (torch.from_numpy(x).cuda() for x in adversarial_quad_rays())
+    dummy_sph = ik.pack_sphere_table(torch.zeros(1, 3), torch.zeros(1)).cuda()
+    k1["adversarial_quads"] = check_hit("kernel 1 adversarial quads", dummy_sph, table, o, d)
     record["intersect"] = k1
-    print(f"phase 2 kernel 1 vs plain, 2^20 rays: {json.dumps(k1)}", flush=True)
+    print(f"phase 2 kernel 1 vs plain, 2^20 rays, and {k1['adversarial_quads']['rays']} "
+          f"adversarial quad rays: {json.dumps(k1)}", flush=True)
 
     # ---- phase 3: kernel 2 vs its plain twin, same seed and schedule ----
     # Small scenes with several samples per lane, then the main path's own
@@ -1051,6 +1047,11 @@ def main() -> int:
           f"lanes: {json.dumps(k2_cull)}; at the large renders' 400x225 depth 8 with "
           f"{DEFAULT_WAVEFRONT} lanes, {HELD_SPP} spp whole and the 64-spp call on the "
           f"{HELD_SPP}-spp samples: {json.dumps(k2_held)}; {smi}", flush=True)
+    for label, h in k2_held.items():
+        print(f"phase 3c {label} at {HELD_SPP} spp: kernel {h['ms']:.4f} ms, bound per lane "
+              f"{h['bound_ms']:.4f} ms, warp-union {h['warp_bound_ms']:.4f} ms, warp-union SIMT "
+              f"efficiency {h['simt_efficiency']:.4f}; 64 spp {h['render_call']['ms']:.3f} ms",
+              flush=True)
 
     # ---- phase 4: render_image on CUDA against the golden statistics ----
     golden = json.loads((REPO / "tests" / "golden_stats.json").read_text())
@@ -1474,19 +1475,21 @@ def main() -> int:
                                "warp_occupancy", "textured_hits")},
             bound_ms=b[0], bound_by=b[1],
             launches_in_training=train_t.get(label, {}).get("tape_launches"))
-    # Kernel 2 culled, at each large render: ms, twin ms and bound at
-    # phase 3c's call of the render's shape at HELD_SPP (the bound from the
-    # twin's work counts there), the dense loops' ms on the same call, and
-    # the render's own launches, kernel ms by CUDA events and wall.
+    # Kernel 2 culled, at each large render: ms, twin ms and bounds at
+    # phase 3c's call of the render's shape at HELD_SPP (per lane and per
+    # warp, from the twin's work counts there), the dense loops' ms on the
+    # same call, and the render's own launches, kernel ms by CUDA events
+    # and wall.
     k2_culled = {}
     for label, t in large.items():
         h = k2_held[label]
-        b = culled_bound(h)
         k2_culled[label] = dict(
             shape=f"400x225@{h['spp']}spp depth 8, {h['lanes']} lanes, {h['ns']} spheres, "
                   f"{h['nq']} quads, cluster rows {h['cluster_rows']}",
-            ms=h["ms"], plain_ms=h["plain_ms"], dense_ms=h["dense_ms"], bound_ms=b[0],
-            bound_by=b[1], segments=h["segments"], warp_occupancy=h["warp_occupancy"],
+            ms=h["ms"], plain_ms=h["plain_ms"], dense_ms=h["dense_ms"], bound_ms=h["bound_ms"],
+            bound_by=h["bound_by"], warp_bound_ms=h["warp_bound_ms"],
+            simt_efficiency=h["simt_efficiency"], segments=h["segments"],
+            warp_occupancy=h["warp_occupancy"],
             slab_tests=h["slab_tests"], sphere_tests=h["sphere_tests"],
             quad_tests=h["quad_tests"], launches=t["launches"]["persistent_render"],
             render_shape="400x225@64spp depth 8", render_ms=t["kernel_ms"],

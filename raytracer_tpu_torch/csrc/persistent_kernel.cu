@@ -77,8 +77,11 @@
 // super slab test (23 FP32 operations), the fine slab tests of the supers
 // it enters, and 21 operations per sphere (40 per quad) of the fine
 // clusters it enters. Bounce rays are incoherent, so a warp pays for the
-// union of its lanes' clusters. Staging the cluster table in shared
-// memory is later work.
+// union of its lanes' clusters: the twin counts both the per-lane and the
+// warp-union work (ClusterVisit.hit_work). A primitive far wider than the
+// supers (a ground sphere or quad) has a fine row and a super of its own
+// (geometry/bvh.py:isolate_oversized), so a bounce ray that leaves it
+// does not walk the rest of a cluster stretched over the whole scene.
 //
 // Plain twin (and spec): raytracer_tpu_torch/integrator/wavefront.py:
 // regen_plain. Shading math follows persistent_kernel.py:860-989 line by line;

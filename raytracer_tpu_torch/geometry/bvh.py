@@ -18,7 +18,10 @@ NumPy: the build is host work, and ops/culled_kernel.py:build_clusters and
 
 `cluster_order` cuts the tree into fine clusters and super-clusters for
 kernel 2's in-kernel culling (ops/persistent_kernel.py:pack_cluster_table),
-and `permute_scene` puts a scene's primitives in that order.
+`isolate_oversized` gives each primitive far wider than its kind's
+supers (a ground sphere or ground quad) a fine row and a super of its own
+(a port-side step; JAX has none), and `permute_scene` puts a scene's
+primitives in that order.
 """
 
 from __future__ import annotations
@@ -220,37 +223,37 @@ def _cluster_kind(bvh: FlatBVH, bmin, bmax, keep, max_leaf: int, super_fan: int,
     sub_hi = first_leaf[skip]
     counts = kept_before[sub_hi] - kept_before[sub_lo]
 
-    def subtree_prims(node):
-        ids = order[sub_lo[node] : sub_hi[node]]
-        return ids[keep[ids]].tolist()
-
-    def row(ids, start, count):
-        return np.concatenate([bmin[ids].min(axis=0), bmax[ids].max(axis=0),
-                               [float(start), float(count)]])
-
-    perm: list[int] = []
-    fine_rows: list[np.ndarray] = []
-    super_rows: list[np.ndarray] = []
+    # The cut: fine subtree roots, and each super's span of them.
+    fine_nodes: list[int] = []
+    spans: list[tuple[int, int]] = []
     for cnode in _cut_walk(skip, leaf_start, leaf_count, order, counts, max_leaf * super_fan):
-        fine_lo = len(fine_rows)
-        for fnode in _cut_walk(skip, leaf_start, leaf_count, order, counts, max_leaf,
-                               lo=cnode, hi=skip[cnode]):
-            ids = subtree_prims(fnode)
-            if not ids:
-                continue
-            fine_rows.append(row(ids, len(perm), len(ids)))
-            perm.extend(ids)
-        if len(fine_rows) > fine_lo:
-            sub = np.stack(fine_rows[fine_lo:])
-            super_rows.append(np.concatenate(
-                [sub[:, 0:3].min(axis=0), sub[:, 3:6].max(axis=0),
-                 [float(fine_lo), float(len(fine_rows) - fine_lo)]]))
-    fine = np.stack(fine_rows).astype(np.float32) if fine_rows else _empty_rows()
-    if len(fine_rows) < min_fine_for_super:
-        sup = _empty_rows()
-    else:
-        sup = np.stack(super_rows).astype(np.float32)
-    return perm, fine, sup
+        lo = len(fine_nodes)
+        fine_nodes += [f for f in _cut_walk(skip, leaf_start, leaf_count, order, counts,
+                                            max_leaf, lo=cnode, hi=skip[cnode]) if counts[f]]
+        if len(fine_nodes) > lo:
+            spans.append((lo, len(fine_nodes)))
+    if not fine_nodes:
+        return [], _empty_rows(), _empty_rows()
+    # Each fine root's subtree is one run of `order`; its kind's primitives,
+    # in order, make the row.
+    f = np.asarray(fine_nodes, np.int64)
+    lens = sub_hi[f] - sub_lo[f]
+    run_start = np.repeat(sub_lo[f] - np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    ids = order[run_start + np.arange(int(lens.sum()))]
+    perm = ids[keep[ids]]
+    count = counts[f]
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    fine = np.concatenate([np.minimum.reduceat(bmin[perm], start, axis=0),
+                           np.maximum.reduceat(bmax[perm], start, axis=0),
+                           start[:, None], count[:, None]], axis=1).astype(np.float32)
+    if len(fine_nodes) < min_fine_for_super:
+        return perm.tolist(), fine, _empty_rows()
+    s_lo = np.asarray([lo for lo, _ in spans], np.int64)
+    s_n = np.asarray([hi - lo for lo, hi in spans], np.int64)
+    sup = np.concatenate([np.minimum.reduceat(fine[:, 0:3], s_lo, axis=0),
+                          np.maximum.reduceat(fine[:, 3:6], s_lo, axis=0),
+                          s_lo[:, None], s_n[:, None]], axis=1).astype(np.float32)
+    return perm.tolist(), fine, sup
 
 
 class ClusterOrder(NamedTuple):
@@ -269,7 +272,8 @@ class ClusterOrder(NamedTuple):
 
 
 def cluster_order(scene, max_leaf: int = 128, super_fan: int = 16,
-                  min_fine_for_super: int = 24, use_native: bool = True) -> ClusterOrder:
+                  min_fine_for_super: int = 24, use_native: bool = True,
+                  quad_grain: tuple[int, int] | None = None) -> ClusterOrder:
     """Cluster-order the scene's primitives along BVH subtree cuts (host)
     for kernel 2's in-kernel culling; `permute_scene` applies the result.
 
@@ -281,7 +285,9 @@ def cluster_order(scene, max_leaf: int = 128, super_fan: int = 16,
     tree so each super's fine rows are contiguous, lets one coarse slab
     miss skip up to super_fan fine slab tests; below min_fine_for_super
     fine clusters that level is dropped. Spheres and quads get their own
-    tables (the kernel intersects them in separate loops).
+    tables (the kernel intersects them in separate loops); `quad_grain`
+    (max_leaf, super_fan) cuts the quads at their own granularity (None:
+    the spheres').
 
     It reads the geometry alone (sph_center, sph_radius, quad_q, quad_u,
     quad_v; `primitive_bounds`). Dummy primitives are dropped since they
@@ -295,7 +301,8 @@ def cluster_order(scene, max_leaf: int = 128, super_fan: int = 16,
 
     s_perm, s_fine, s_super = _cluster_kind(bvh, bmin, bmax, ids < ns, max_leaf, super_fan,
                                             min_fine_for_super)
-    q_perm, q_fine, q_super = _cluster_kind(bvh, bmin, bmax, ids >= ns, max_leaf, super_fan,
+    q_leaf, q_fan = quad_grain or (max_leaf, super_fan)
+    q_perm, q_fine, q_super = _cluster_kind(bvh, bmin, bmax, ids >= ns, q_leaf, q_fan,
                                             min_fine_for_super)
     if not s_perm:  # no real sphere: one dummy so the shapes stay valid
         s_perm = [0]
@@ -308,6 +315,87 @@ def cluster_order(scene, max_leaf: int = 128, super_fan: int = 16,
         q_fine, q_super = _empty_rows(), _empty_rows()
     return ClusterOrder(torch.as_tensor(s_perm, dtype=torch.int64), q, ClusterSet(
         sph=s_fine, sph_super=s_super, quad=q_fine, quad_super=q_super, builder=builder))
+
+
+# A primitive is oversized when its box's largest extent passes this
+# multiple of the median largest extent of its kind's supers: one so wide
+# stretches its fine row and its super over the scene, so nearly every
+# bounce ray starts inside both and tests all of that row's primitives
+# (rand_spheres_large's r = 1000 ground, 2000 wide, against supers of
+# 25-45).
+OVERSIZE_FACTOR = 4.0
+
+
+def _split_kind(perm: np.ndarray, fine: np.ndarray, sup: np.ndarray, pmin: np.ndarray,
+                pmax: np.ndarray, factor: float):
+    """One kind's rows with its oversized primitives moved out (see
+    `isolate_oversized`). `perm` is the kind's cluster order, `pmin` /
+    `pmax` its primitives' boxes in that order. Returns (perm, fine, sup)."""
+    if sup.shape[0] == 0:
+        return perm, fine, sup
+    extent = np.sort((sup[:, 3:6] - sup[:, 0:3]).max(axis=1))
+    big = (pmax - pmin).max(axis=1) > factor * extent[len(extent) // 2]  # the (upper) median
+    if not big.any():
+        return perm, fine, sup
+    big_before = np.concatenate([[0], np.cumsum(big)])  # oversized among perm[:k]
+    start, count = fine[:, 6].astype(np.int64), fine[:, 7].astype(np.int64)
+    lost = big_before[start + count] - big_before[start]
+    left = count - lost > 0
+    rows = fine[left].copy()
+    rows[:, 6] = (start - big_before[start])[left]
+    rows[:, 7] = (count - lost)[left]
+    kept_pos = np.flatnonzero(~big)
+    for r in np.flatnonzero(lost[left] > 0):  # re-box the rows that lost one
+        ids = kept_pos[int(rows[r, 6]) : int(rows[r, 6] + rows[r, 7])]
+        rows[r, 0:3], rows[r, 3:6] = pmin[ids].min(axis=0), pmax[ids].max(axis=0)
+    # Supers over the fine rows left: a super's rows stay contiguous.
+    left_before = np.concatenate([[0], np.cumsum(left)])
+    s_start, s_count = sup[:, 6].astype(np.int64), sup[:, 7].astype(np.int64)
+    s_left = left_before[s_start + s_count] - left_before[s_start]
+    keep_sup = s_left > 0
+    supers = sup[keep_sup].copy()
+    supers[:, 6] = left_before[s_start][keep_sup]
+    supers[:, 7] = s_left[keep_sup]
+    lost_before = np.concatenate([[0], np.cumsum(lost > 0)])
+    touched = (lost_before[s_start + s_count] - lost_before[s_start])[keep_sup] > 0
+    for j in np.flatnonzero(touched):
+        block = rows[int(supers[j, 6]) : int(supers[j, 6] + supers[j, 7])]
+        supers[j, 0:3], supers[j, 3:6] = block[:, 0:3].min(axis=0), block[:, 3:6].max(axis=0)
+    # Each oversized primitive: a fine row and a super of its own, appended.
+    pos = np.flatnonzero(big)
+    boxes = np.concatenate([pmin[pos], pmax[pos]], axis=1)
+    n_left = len(kept_pos)
+    own_fine = np.concatenate([boxes, (n_left + np.arange(len(pos)))[:, None],
+                               np.ones((len(pos), 1))], axis=1)
+    own_sup = np.concatenate([boxes, (len(rows) + np.arange(len(pos)))[:, None],
+                              np.ones((len(pos), 1))], axis=1)
+    return (np.concatenate([perm[~big], perm[big]]),
+            np.concatenate([rows, own_fine]).astype(np.float32),
+            np.concatenate([supers, own_sup]).astype(np.float32))
+
+
+def isolate_oversized(scene, order: ClusterOrder,
+                      factor: float = OVERSIZE_FACTOR) -> ClusterOrder:
+    """`order` with each oversized primitive (OVERSIZE_FACTOR) in a fine row
+    of count 1 under a super of its own, appended to its kind's rows; the
+    primitive moves to the end of its kind's permuted table, and the fine
+    row and super it left are re-boxed over what remains (a row left empty
+    is dropped). A kind without a super level walks its few fine rows
+    directly and is left as it is. Kernel 2's walk and its twin follow
+    whatever table they are given, so they stay equal; render/driver.py:
+    order_clusters then sorts the new rows front to back like the others."""
+    bmin, bmax = primitive_bounds(scene)
+    cs = order.clusters
+    sph, s_fine, s_sup = _split_kind(order.sph.numpy(), cs.sph, cs.sph_super,
+                                     bmin[order.sph.numpy()], bmax[order.sph.numpy()], factor)
+    quad, q_fine, q_sup = order.quad, cs.quad, cs.quad_super
+    if quad is not None:
+        gid = quad.numpy() + scene.num_spheres
+        q_np, q_fine, q_sup = _split_kind(quad.numpy(), cs.quad, cs.quad_super, bmin[gid],
+                                          bmax[gid], factor)
+        quad = torch.from_numpy(q_np)
+    return ClusterOrder(torch.from_numpy(sph), quad, cs._replace(
+        sph=s_fine, sph_super=s_sup, quad=q_fine, quad_super=q_sup))
 
 
 def permute_scene(scene, order: ClusterOrder):

@@ -46,6 +46,7 @@ from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops import persistent_kernel as pk
 from raytracer_tpu_torch.ops.intersect_kernel import (
     INF,
+    QUAD_DENOM_EPS,
     T_MIN,
     candidates_scaled,
     intersect,
@@ -55,6 +56,7 @@ from raytracer_tpu_torch.ops.intersect_kernel import (
     slab_inv,
 )
 from raytracer_tpu_torch.ops.wavefront_kernel import advance_pixels, wavefront_step
+from raytracer_tpu_torch.utils.metrics import WARP
 
 # Russian-roulette survival cap of the wavefront-step path: the JAX
 # driver's value for its non-persistent paths (driver.py:602); the
@@ -263,7 +265,11 @@ class ClusterVisit(NamedTuple):
     hold a strictly closer hit, and the first minimal candidate wins, so
     this is the kernel's result bit for bit, ties included. `hit_work`
     also counts per ray the slab tests, sphere tests and quad tests that
-    the kernel's per-lane culling makes."""
+    the kernel's per-lane culling makes and, given each ray's warp, what
+    the warps pay: a warp runs a loop while any of its lanes is in it, so
+    it pays every super test, the fine tests of each super any of its
+    lanes enters, and the primitive tests of each fine row any of its
+    lanes enters."""
 
     prim_of: torch.Tensor  # (Ps + Pq,) int64 prim id of each visited row
     sph_rows: torch.Tensor  # (Ps, 4) sphere table rows in visit order
@@ -295,19 +301,51 @@ class ClusterVisit(NamedTuple):
         t, p = intersect_plain(self.sph_rows, self.quad_rows, o, d)
         return t, self._to_table_rows(p)
 
-    def hit_work(self, o, d):
-        """(t, prim, work (3, L) int64: slab, sphere and quad tests)."""
+    def hit_work(self, o, d, warp=None):
+        """(t, prim, work (WORK_ROWS, L) int64 per ray) and, given `warp`
+        (L,) int64, each ray's warp in ascending order, also warp_work
+        (WORK_ROWS + 1,) int64: each count of the rows of `work` that the
+        warps pay (counted once per warp: one issue of a warp's instruction
+        stands for its 32 lanes), then the number of warps.
+
+        The rows of `work` (WORK_ROWS): slab tests, sphere tests, quad
+        tests, and the data-dependent parts of csrc/closest_hit.cuh's loops
+        among those tests: spheres whose discriminant is >= 0 (a root),
+        quads whose plane faces the ray (a division), and quads whose t can
+        still win there (the in-quad test)."""
         n = o.shape[0]
         dev = o.device
         t = torch.empty(n, dtype=torch.float32, device=dev)
         prim = torch.empty(n, dtype=torch.int32, device=dev)
-        work = torch.zeros(3, n, dtype=torch.int64, device=dev)
+        work = torch.zeros(WORK_ROWS, n, dtype=torch.int64, device=dev)
+        warp_work = torch.zeros(WORK_ROWS + 1, dtype=torch.int64, device=dev)
         cols = max(1, self.sph_rows.shape[0] + self.quad_rows.shape[0])
         step = max(1, WORK_CELLS // cols)
-        for s in range(0, n, step):
+        s = 0
+        while s < n:
             e = min(n, s + step)
+            if warp is not None:  # a block ends at a warp's end
+                e = int(torch.searchsorted(warp, warp[e - 1], right=True))
             ob, db = o[s:e], d[s:e]
-            cands, a = candidates_scaled(self.sph_rows, self.quad_rows, ob, db)
+            wid = None
+            if warp is not None:
+                wid = torch.unique_consecutive(warp[s:e], return_inverse=True)[1]
+                warp_work[WORK_ROWS] += int(wid[-1]) + 1
+
+            def count(row, mask, weight=None):
+                """Add a (rays, K) bool mask's entries (times `weight` (K,))
+                to work row `row`, and its union over each warp's rays to
+                warp_work."""
+                work[row, s:e] += mask.sum(1) if weight is None else (mask * weight).sum(1)
+                if wid is not None:
+                    acc = torch.zeros(int(wid[-1]) + 1, mask.shape[1], dtype=torch.int32,
+                                      device=dev)
+                    any_lane = acc.index_add_(0, wid, mask.to(torch.int32)) > 0
+                    warp_work[row] += (any_lane.sum() if weight is None
+                                       else (any_lane * weight).sum())
+
+            cands, a, (disc, d_n, num, t_q) = candidates_scaled(
+                self.sph_rows, self.quad_rows, ob, db, terms=True)
             t_best, i = cands.min(dim=1)
             t[s:e] = t_best * (1.0 / a)
             prim[s:e] = self._to_table_rows(torch.where(t_best < INF, i, -1))
@@ -316,21 +354,46 @@ class ClusterVisit(NamedTuple):
             before = torch.cat([torch.full_like(cands[:, :1], INF),
                                 torch.cummin(cands, dim=1).values[:, :-1]], dim=1)
             inv = slab_inv(db)
+            ones = lambda k: torch.ones(e - s, k, dtype=torch.bool, device=dev)  # noqa: E731
             for k, kind in enumerate(self.kinds):
                 if kind.dense:
-                    work[1 + k, s:e] += kind.size
-                    continue
-                enter = _slab_enters(kind.fine_box, ob, inv, a,
-                                     before[:, kind.col0 + kind.fine_col])
-                if kind.super_box is None:
-                    work[0, s:e] += kind.fine_box.shape[0]
+                    tested = ones(kind.size)
                 else:
-                    sup = _slab_enters(kind.super_box, ob, inv, a,
-                                       before[:, kind.col0 + kind.super_col])
-                    work[0, s:e] += kind.super_box.shape[0] + (sup.long() * kind.super_fine).sum(1)
-                    enter = enter & sup[:, kind.fine_super]
-                work[1 + k, s:e] += (enter.long() * kind.fine_count).sum(1)
+                    enter = _slab_enters(kind.fine_box, ob, inv, a,
+                                         before[:, kind.col0 + kind.fine_col])
+                    if kind.super_box is None:
+                        count(0, ones(kind.fine_box.shape[0]))
+                    else:
+                        sup = _slab_enters(kind.super_box, ob, inv, a,
+                                           before[:, kind.col0 + kind.super_col])
+                        count(0, ones(kind.super_box.shape[0]))
+                        count(0, sup, kind.super_fine)
+                        enter = enter & sup[:, kind.fine_super]
+                    tested = torch.repeat_interleave(enter, kind.fine_count, dim=1)
+                count(1 + k, tested)
+                if kind.size == 0:
+                    continue
+                if k == 0:
+                    count(3, tested & (disc >= 0.0))
+                else:
+                    # The early-out form of the quad test (its plane faces
+                    # the ray; then its t can still win), the work the
+                    # culled bounds count as needed.
+                    faces = tested & (d_n.abs() >= QUAD_DENOM_EPS) & (
+                        ((num > 0) & (d_n > 0)) | ((num < 0) & (d_n < 0)))
+                    count(4, faces)
+                    wins = faces & (t_q > T_MIN) & (
+                        t_q * a[:, None] < before[:, kind.col0 : kind.col0 + kind.size])
+                    count(5, wins)
+            s = e
+        if warp is not None:
+            return t, prim, work, warp_work
         return t, prim, work
+
+
+# Rows of ClusterVisit.hit_work's per-ray counts: slab, sphere and quad
+# tests, sphere roots, quad divisions and quad in-quad tests.
+WORK_ROWS = 6
 
 
 def _kind_visit(rows, base: int, n_super: int, n_fine: int, size: int, col0: int, dev):
@@ -413,10 +476,14 @@ def regen_plain(
     the stochastic bilinear tap draws its uniforms at ops.ctr_rng.tap_ctr.
     `clusters` (ops.persistent_kernel.ClusterTable) gives the culled
     instantiation's closest hit (ClusterVisit). Returns (log, segments per
-    lane) and, with `return_work` (clusters only), (3, N) int32 per-lane
+    lane) and, with `return_work` (clusters only), (6, N) int32 per-lane
     counts of the cluster slab tests, sphere tests and quad tests that the
     kernel's per-lane culling makes (the TPU kernel's clusters_entered, per
-    lane; the work of its bound)."""
+    lane; the work of its bound) and of the roots, divisions and in-quad
+    tests among them, and (7,) int64 warp-union counts: those six counts
+    over the union of what the lanes of each kernel warp (32 consecutive
+    lanes) run in each iteration, and the (warp, iteration) steps with a
+    lane in flight (ClusterVisit.hit_work)."""
     if return_work and clusters is None:
         raise ValueError("return_work counts the culled loops: pass clusters")
     dev = rem0.device
@@ -440,7 +507,8 @@ def regen_plain(
     rad = torch.zeros(n, 3, dtype=torch.float32, device=dev)
     log = torch.zeros(3, num_slots, n, dtype=torch.float32, device=dev)
     segs = torch.zeros(n, dtype=torch.int32, device=dev)
-    work = torch.zeros(3, n, dtype=torch.int64, device=dev) if return_work else None
+    work = torch.zeros(WORK_ROWS, n, dtype=torch.int64, device=dev) if return_work else None
+    warp_work = torch.zeros(WORK_ROWS + 1, dtype=torch.int64, device=dev) if return_work else None
     visit = None if clusters is None else ClusterVisit.build(clusters, sph_table, quad_table)
 
     for _ in range(max_iters):
@@ -469,8 +537,9 @@ def regen_plain(
         sid = lane_ids[a] + sk_a * n
         bounce = depth[a]
         if return_work:
-            t, prim, w = visit.hit_work(o, d)
+            t, prim, w, ww = visit.hit_work(o, d, warp=a // WARP)
             work[:, a] += w
+            warp_work += ww
         elif visit is not None:
             t, prim = visit.hit(o, d)
         else:
@@ -486,7 +555,7 @@ def regen_plain(
             (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
             rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient, tap=tap,
         )
-    return (log, segs, work.to(torch.int32)) if return_work else (log, segs)
+    return (log, segs, work.to(torch.int32), warp_work) if return_work else (log, segs)
 
 
 def _bounce_and_retire(

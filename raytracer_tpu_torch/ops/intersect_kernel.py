@@ -67,13 +67,16 @@ def closest_hit_scaled(sph_table, quad_table, origin, direction):
     return t_best, prim, a
 
 
-def candidates_scaled(sph_table, quad_table, origin, direction):
+def candidates_scaled(sph_table, quad_table, origin, direction, terms: bool = False):
     """((rays, spheres + quads) scaled-t candidates, +inf where a primitive
-    is missed; |d|^2 per ray)."""
+    is missed; |d|^2 per ray) and, with `terms`, the intermediate terms
+    (rays, spheres) disc and (rays, quads) d.n, n.Q - o.n and t (None for a
+    kind without rows)."""
     (ox, oy, oz), (dx, dy, dz), a, d_dot_o, o_sq = _ray_terms(origin, direction)
     tmin_a = (T_MIN * a)[:, None]
     col = lambda v: v[:, None]  # noqa: E731 — per-ray column
     cands = []
+    disc = d_n = num = t = None
     if sph_table.shape[0]:
         cx, cy, cz, c2r2 = sph_table.unbind(1)
         d_dot_c = col(dx) * cx + col(dy) * cy + col(dz) * cz
@@ -93,7 +96,8 @@ def candidates_scaled(sph_table, quad_table, origin, direction):
         d_n = col(dx) * nx + col(dy) * ny + col(dz) * nz
         o_n = col(ox) * nx + col(oy) * ny + col(oz) * nz
         denom_ok = d_n.abs() >= QUAD_DENOM_EPS
-        t = (dplane - o_n) / torch.where(denom_ok, d_n, torch.ones_like(d_n))
+        num = dplane - o_n
+        t = num / torch.where(denom_ok, d_n, torch.ones_like(d_n))
         avx, avy, avz, bvx, bvy, bvz, qav, qbv = q[4:12]
         alpha = (
             (col(ox) * avx + col(oy) * avy + col(oz) * avz)
@@ -114,6 +118,8 @@ def candidates_scaled(sph_table, quad_table, origin, direction):
             & (beta <= 1.0)
         )
         cands.append(torch.where(ok, t * col(a), torch.full_like(t, INF)))
+    if terms:
+        return torch.cat(cands, dim=1), a, (disc, d_n, num, t)
     return torch.cat(cands, dim=1), a
 
 

@@ -10,9 +10,11 @@ scenes).
   every sample of the chunk (ops/persistent_kernel.py); the retirement log
   then folds into the framebuffer (integrator/wavefront.py:_fold_log).
   Scenes of more than CLUSTERED_SCENE_PRIMS primitives are first permuted
-  into BVH-cluster order (`cluster_for_render`; the clustering is cached per
-  geometry, the permutation applied on every render),
-  and kernel 2 culls clusters inside its loop.
+  into BVH-cluster order (`cluster_for_render`: JAX's cut at the H100's
+  CLUSTER_GRAIN, with each oversized primitive such as a ground sphere or
+  quad in a cluster of its own; the clustering is cached per geometry,
+  the permutation applied on every render), and kernel 2 culls clusters
+  inside its loop.
 * "large_scene": scenes it does not serve (noise from rng-filled Perlin
   tables) with more than LARGE_SCENE_PRIMS primitives: passes of k samples
   per pixel, camera rays through the cluster-culled kernel 4 and bounces
@@ -39,7 +41,13 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame, camera_rays
-from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_order, permute_scene
+from raytracer_tpu_torch.geometry.bvh import (
+    OVERSIZE_FACTOR,
+    ClusterSet,
+    cluster_order,
+    isolate_oversized,
+    permute_scene,
+)
 from raytracer_tpu_torch.geometry.intersect import (
     build_large_scene_tables,
     intersect_scene_culled,
@@ -83,11 +91,19 @@ STEP_WAVEFRONT_MAX = 1 << 21
 # Rays per pass of the large-scene path (the JAX driver's
 # DEFAULT_TARGET_RAYS_PER_PASS).
 TARGET_RAYS_PER_PASS = 1 << 19
-# Cluster granularity of large scenes on the persistent path (the JAX
-# driver's, swept on its TPU): fine clusters of <= CLUSTER_LEAF primitives,
-# supers of <= CLUSTER_LEAF * CLUSTER_FAN.
-CLUSTER_LEAF = 64
-CLUSTER_FAN = 16
+# Cluster granularity of large scenes on the persistent path, per kind:
+# fine clusters of <= leaf primitives, supers of <= leaf * fan. These are
+# the H100's, swept on the card with kernel 2's per-lane culled walk
+# (PERF.md, section 6), not the JAX driver's 64 / 16, which were swept on
+# its TPU, where the whole 8x128 tile voted on one cluster. Spheres keep
+# 64 / 16: 32 / 16 ran rand_spheres_large 11% faster but its 50,001-sphere
+# variant 8% slower (a finer cut means more supers, all tested by every
+# segment). Quads take 16 / 16: quad_field 42% faster.
+CLUSTER_GRAIN = {"sph": (64, 16), "quad": (16, 16)}
+# Oversized primitives (geometry/bvh.py:isolate_oversized) get clusters of
+# their own past this multiple of their kind's median super extent; inf
+# keeps JAX's tables.
+CLUSTER_OVERSIZE = OVERSIZE_FACTOR
 
 
 def log_bytes(n_pixels: int, spp: int, wavefront: int) -> int:
@@ -130,9 +146,10 @@ _CLUSTER_CACHE: dict[tuple, tuple] = {}
 
 
 def _cluster_order_cached(scene: Scene):
-    """geometry.bvh.cluster_order(scene) at CLUSTER_LEAF / CLUSTER_FAN, from
-    the cache when the same geometry tensors, at the same version, were
-    clustered before.
+    """geometry.bvh.cluster_order(scene) at CLUSTER_GRAIN with its oversized
+    primitives isolated (geometry.bvh.isolate_oversized at
+    CLUSTER_OVERSIZE), from the cache when the same geometry tensors, at
+    the same version, were clustered before at the same settings.
 
     An entry holds the tensors it was built from (so their ids cannot be
     reused) and their version counters, which every in-place update bumps
@@ -145,12 +162,14 @@ def _cluster_order_cached(scene: Scene):
     the sphere-center array alone, which renders a replaced scene's old
     radii and materials; the port fixes this rather than match it."""
     tensors = tuple(getattr(scene, f) for f in CLUSTER_GEOMETRY)
-    key = tuple(id(t) for t in tensors)
+    settings = (tuple(CLUSTER_GRAIN["sph"]), tuple(CLUSTER_GRAIN["quad"]), CLUSTER_OVERSIZE)
+    key = tuple(id(t) for t in tensors) + settings
     versions = tuple(t._version for t in tensors)
     hit = _CLUSTER_CACHE.get(key)
     if hit is None or hit[1] != versions or any(a is not b for a, b in zip(hit[0], tensors)):
-        hit = (tensors, versions, cluster_order(scene, max_leaf=CLUSTER_LEAF,
-                                                super_fan=CLUSTER_FAN))
+        (leaf, fan), quad_grain = CLUSTER_GRAIN["sph"], CLUSTER_GRAIN["quad"]
+        order = cluster_order(scene, max_leaf=leaf, super_fan=fan, quad_grain=quad_grain)
+        hit = (tensors, versions, isolate_oversized(scene, order, CLUSTER_OVERSIZE))
         _CLUSTER_CACHE.pop(key, None)
         if len(_CLUSTER_CACHE) >= 8:
             _CLUSTER_CACHE.pop(next(iter(_CLUSTER_CACHE)))

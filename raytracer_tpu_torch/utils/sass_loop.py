@@ -1,20 +1,25 @@
-"""Count the SASS instructions of the sphere-candidate loops in the kernel
-library.
+"""Count the SASS instructions of the sphere- and quad-candidate loops in
+the kernel library.
 
-    python -m raytracer_tpu_torch.utils.sass_loop [--out out/sass]
+    python -m raytracer_tpu_torch.utils.sass_loop [--out out/sass] [--csrc DIR]
 
 Builds the library as ops/build.py does (or reuses it), disassembles it with
 `cuobjdump -sass`, and in every kernel finds the innermost loops that test
-sphere candidates: a backward branch whose body holds a table load (LDG or
-LDS) and MUFU.RSQ, the reciprocal-root step of the IEEE square root, once
-per candidate. For each such loop it reports its static instructions, the
-candidates per trip (its MUFU.RSQ count), instructions per candidate, the
-subroutine calls and convergence barriers (BSSY/BSYNC) inside it, and each
-branch that leaves it with the length of the out-of-line block it reaches
-(the square root's slow path sits in such a block or in a called
-subroutine). Static counts: a path the data never takes costs nothing, so
-the slow path is reported beside the loop, not in it. Prints one JSON line;
-with --out also writes each kernel's SASS there.
+candidates: a backward branch whose body holds a table load (LDG or LDS)
+and, in the body or in an out-of-line block a branch of the body reaches,
+MUFU.RSQ (the reciprocal-root step of the IEEE square root, once per sphere
+candidate: a "sphere" loop) or MUFU.RCP (the reciprocal step of the IEEE
+division, once per quad candidate: a "quad" loop). For each such loop it
+reports its static instructions, the candidates per trip (those MUFU
+counts), instructions per candidate, the subroutine calls and convergence
+barriers (BSSY/BSYNC) inside it, each branch that leaves it with the
+length of the out-of-line block it reaches (the slow paths of the root and
+the division sit in such blocks or in called subroutines), and the
+instructions a trip issues when its group skips everything it can: the
+shortest way through the body that takes one forward branch within it
+(`skip_path`). Static counts: a path the data never takes costs nothing,
+so the slow paths are reported beside the loop, not in it. Prints one JSON
+line; with --out also writes each kernel's SASS there.
 """
 
 from __future__ import annotations
@@ -77,8 +82,8 @@ def _opcode(text: str) -> str:
 
 def _block(instrs, labels, start: int) -> dict:
     """The out-of-line block at `start`, up to the first unconditional BRA,
-    RET or EXIT: its instructions, and the length of each subroutine it
-    calls (up to its RET)."""
+    RET or EXIT: its instructions, the length of each subroutine it calls
+    (up to its RET), and its MUFU reciprocal and root counts."""
     end = len(instrs) - 1
     for i in range(start, len(instrs)):
         text = instrs[i][1]
@@ -87,15 +92,35 @@ def _block(instrs, labels, start: int) -> dict:
             end = i
             break
     calls = {}
+    ops = [_opcode(text) for _, text in instrs[start : end + 1]]
     for _, text in instrs[start : end + 1]:
         tgt = _target(text)
         if _opcode(text).startswith("CALL") and tgt in labels:
             calls[tgt] = _block(instrs, labels, labels[tgt])["instructions"]
-    return dict(instructions=end - start + 1, calls=calls)
+    return dict(instructions=end - start + 1, calls=calls,
+                rsq=sum(op.startswith("MUFU.RSQ") for op in ops),
+                rcp=sum(op.startswith("MUFU.RCP") for op in ops))
+
+
+def _skip_path(instrs, labels, start: int, end: int) -> int:
+    """Instructions issued by the shortest way from `start` to the back
+    branch at `end` that takes one forward branch inside [start, end] (the
+    whole body when there is none); NOPs not counted."""
+    def real(lo, hi):
+        return sum(_opcode(t) != "NOP" for _, t in instrs[lo : hi + 1])
+
+    best = real(start, end)
+    for i in range(start, end):
+        text = instrs[i][1]
+        j = labels.get(_target(text))
+        if _opcode(text).startswith("BRA") and j is not None and i < j <= end:
+            best = min(best, real(start, i) + real(j, end))
+    return best
 
 
 def candidate_loops(instrs, labels) -> list[dict]:
-    """The innermost loops holding a table load and MUFU.RSQ."""
+    """The innermost loops holding a table load and MUFU.RSQ (sphere loops)
+    or MUFU.RCP (quad loops) in the body or its out-of-line blocks."""
     loops = []
     for end, (_, text) in enumerate(instrs):
         tgt = _target(text)
@@ -106,8 +131,7 @@ def candidate_loops(instrs, labels) -> list[dict]:
             continue
         body = [t for _, t in instrs[start : end + 1]]
         ops = [_opcode(t) for t in body]
-        rsq = sum(op.startswith("MUFU.RSQ") for op in ops)
-        if not rsq or not any(op.startswith(("LDG", "LDS", "LD.")) for op in ops):
+        if not any(op.startswith(("LDG", "LDS", "LD.")) for op in ops):
             continue
         exits, called = [], {}
         for t in body:
@@ -119,10 +143,16 @@ def candidate_loops(instrs, labels) -> list[dict]:
                 called[tgt] = blk["instructions"]
             else:
                 exits.append(dict(op=_opcode(t), target=tgt, **blk))
+        rsq = sum(op.startswith("MUFU.RSQ") for op in ops) + sum(e["rsq"] for e in exits)
+        rcp = sum(op.startswith("MUFU.RCP") for op in ops) + sum(e["rcp"] for e in exits)
+        if not rsq and not rcp:
+            continue
         real = [op for op in ops if op != "NOP"]
+        per_trip = rsq or rcp
         loops.append(dict(
-            instructions=len(real), candidates_per_trip=rsq,
-            instructions_per_candidate=len(real) / rsq,
+            kind="sphere" if rsq else "quad", instructions=len(real),
+            candidates_per_trip=per_trip, instructions_per_candidate=len(real) / per_trip,
+            skip_path=_skip_path(instrs, labels, start, end),
             calls=sum(op.startswith("CALL") for op in ops), called=called,
             convergence=sum(op.startswith(("BSSY", "BSYNC")) for op in ops),
             loads=sorted({op for op in ops if op.startswith(("LDG", "LDS", "LD."))}),
@@ -173,7 +203,7 @@ def main(argv=None) -> dict:
     for mangled, (instrs, labels) in sorted(funcs.items()):
         loops = candidate_loops(instrs, labels)
         if loops:
-            report[names[mangled]] = dict(instructions=len(instrs), sphere_loops=loops)
+            report[names[mangled]] = dict(instructions=len(instrs), candidate_loops=loops)
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

@@ -11,10 +11,11 @@ Cells (each through its public wrapper, so a parent checkout runs it too):
 * `k2_cornell` (quads only) and `k2_quads_1536` (quad_field cut to 1,534
   tiles, its ground quad and its dummy sphere: 1,536 primitives, the most
   a dense render serves), both 400 wide, 16 spp, depth 50 and 8, on 2^18
-  lanes; `k2_perlin` (textured, 400x225@100spp depth 50) and
-  `k2_culled_large` (rand_spheres_large clustered as the render clusters
-  it, 400x225@64spp depth 8: the culled instantiation), the CLI renders'
-  kernel calls;
+  lanes; `k2_perlin` (textured, 400x225@100spp depth 50), and
+  `k2_culled_large`, `k2_culled_50k` and `k2_culled_quad_field`
+  (rand_spheres_large, its 50,001-sphere variant and quad_field clustered
+  as the render clusters them, 400x225@64spp depth 8: the culled
+  instantiation), the renders' kernel calls;
 * `k3_train`: kernel 3 at rand_spheres 400x225@8spp depth 50, 720,000
   lanes, seed 1234 (the bucketed training step's forward), with its warp
   occupancy (segments / the sum over warps of the busiest thread's
@@ -25,15 +26,21 @@ Cells (each through its public wrapper, so a parent checkout runs it too):
 
 A variant sets `threads` (kernel 2 and 3's block size), `k1_threads`
 (kernel 1's), `tape_grid` (ops/persistent_kernel.py:TAPE_GRID_DIVISOR,
-where the checkout has it) and `patch`: names from PATCHES joined by '+',
-source edits applied to a copy of csrc/ that builds into a library of its
-own (e.g. `--variant g8:patch=group8` or `--variant grid1:tape_grid=1`). PATCHES
-holds the loop variants measured against this source and not kept; each
-edit must find its anchor, or the script fails. Without --variant the
-checkout's own settings run as "default". Rounds run the variants in turns
-(forwards, then backwards). Every variant's outputs must equal the first
-variant's bit for bit, or the script fails. Prints one JSON line per
-(round, variant) and a summary line of medians.
+where the checkout has it), the culled cells' clustering where the
+checkout's render/driver.py has these settings (`sph` and `quad`:
+CLUSTER_GRAIN's leaf/fan of each kind, e.g. `sph=32/16`; `oversize`:
+CLUSTER_OVERSIZE, `inf` for JAX's tables) and `patch`: names from PATCHES
+joined by '+', source edits applied to a copy of csrc/ that builds into a
+library of its own (e.g. `--variant g8:patch=group8` or `--variant
+grid1:tape_grid=1`). PATCHES holds the loop variants measured against this
+source and not kept; each edit must find its anchor, or the script fails.
+Without --variant the checkout's own settings run as "default". Rounds run
+the variants in turns (forwards, then backwards). Every variant's outputs
+must equal the first variant's bit for bit, or the script fails; a culled
+cell under other clustering settings than the first variant's (whose
+permuted tables may break a tie in t the other way) is compared and the
+result printed (`<cell>_equal`). Prints one JSON line per (round,
+variant) and a summary line of medians.
 """
 
 from __future__ import annotations
@@ -60,7 +67,106 @@ static size_t stage_bytes(const void* kernel, int ns, int nq, bool culled) {
 }
 
 """
+# The early-out quad loop (measured and not kept: PERF.md, section 6):
+# rows in groups of four, each row's plane terms first, and its division,
+# t compare and in-quad loads only where its plane faces the ray.
+_QUAD_LOOP = """static __device__ __forceinline__ void quad_candidates_range(
+    const float4* __restrict__ quad, int begin, int end, int prim_offset, const RayTerms& r,
+    float& t_best, int& p_best) {
+  for (int qi = begin; qi < end; ++qi) {
+    const float4 q0 = __ldg(quad + 3 * qi);
+    const float4 q1 = __ldg(quad + 3 * qi + 1);
+    const float4 q2 = __ldg(quad + 3 * qi + 2);
+    const float d_n = r.dx * q0.x + r.dy * q0.y + r.dz * q0.z;
+    const float o_n = r.ox * q0.x + r.oy * q0.y + r.oz * q0.z;
+    const bool denom_ok = fabsf(d_n) >= QUAD_DENOM_EPS;
+    const float t = (q0.w - o_n) / (denom_ok ? d_n : 1.0f);
+    // av = (q1.x, q1.y, q1.z), bv = (q1.w, q2.x, q2.y)
+    const float alpha = (r.ox * q1.x + r.oy * q1.y + r.oz * q1.z) +
+                        t * (r.dx * q1.x + r.dy * q1.y + r.dz * q1.z) - q2.z;
+    const float beta = (r.ox * q1.w + r.oy * q2.x + r.oz * q2.y) +
+                       t * (r.dx * q1.w + r.dy * q2.x + r.dz * q2.y) - q2.w;
+    const bool ok = denom_ok && (t > T_MIN) && (alpha >= 0.0f) && (alpha <= 1.0f) &&
+                    (beta >= 0.0f) && (beta <= 1.0f);
+    const float t_cand = ok ? t * r.a : INFINITY;
+    if (t_cand < t_best) {
+      t_best = t_cand;
+      p_best = prim_offset + qi;
+    }
+  }
+}
+
+"""
+_QUAD_EARLY_OUT = """// Quad rows per group of quad_candidates_range.
+constexpr int QUAD_GROUP = 4;
+
+// The plane terms of one quad row: num = n.Q - o.n and d.n, the numerator
+// and denominator of its t. Whether the row can give a candidate past
+// T_MIN: |d.n| >= QUAD_DENOM_EPS, and num and d.n nonzero and of one sign
+// (the sign of an IEEE quotient is the XOR of its operands' signs, so any
+// other row has t <= 0 or NaN, which `t > T_MIN` rejects). NaN fails every
+// compare.
+static __device__ __forceinline__ bool quad_plane(const float4 q0, const RayTerms& r,
+                                                  float& num, float& d_n) {
+  d_n = r.dx * q0.x + r.dy * q0.y + r.dz * q0.z;
+  const float o_n = r.ox * q0.x + r.oy * q0.y + r.oz * q0.z;
+  num = q0.w - o_n;
+  return fabsf(d_n) >= QUAD_DENOM_EPS && ((num > 0.0f) ? (d_n > 0.0f) : (num < 0.0f && d_n < 0.0f));
+}
+
+// The rest of one quad row's test once its plane faces the ray: t, then,
+// only while t * a can win the strict `<` against t_best, the in-quad
+// coordinates (the row's other two float4) and the compare.
+static __device__ __forceinline__ void quad_finish(const float4* __restrict__ quad, int qi,
+                                                   float num, float d_n, int prim_offset,
+                                                   const RayTerms& r, float& t_best,
+                                                   int& p_best) {
+  const float t = num / d_n;
+  const float t_cand = t * r.a;
+  if (!(t > T_MIN) || !(t_cand < t_best)) return;
+  const float4 q1 = __ldg(quad + 3 * qi + 1);
+  const float4 q2 = __ldg(quad + 3 * qi + 2);
+  // av = (q1.x, q1.y, q1.z), bv = (q1.w, q2.x, q2.y)
+  const float alpha = (r.ox * q1.x + r.oy * q1.y + r.oz * q1.z) +
+                      t * (r.dx * q1.x + r.dy * q1.y + r.dz * q1.z) - q2.z;
+  const float beta = (r.ox * q1.w + r.oy * q2.x + r.oz * q2.y) +
+                     t * (r.dx * q1.w + r.dy * q2.x + r.dz * q2.y) - q2.w;
+  if ((alpha >= 0.0f) && (alpha <= 1.0f) && (beta >= 0.0f) && (beta <= 1.0f)) {
+    t_best = t_cand;
+    p_best = prim_offset + qi;
+  }
+}
+
+static __device__ __forceinline__ void quad_candidates_range(
+    const float4* __restrict__ quad, int begin, int end, int prim_offset, const RayTerms& r,
+    float& t_best, int& p_best) {
+  int qi = begin;
+  for (; qi + QUAD_GROUP <= end; qi += QUAD_GROUP) {
+    float num[QUAD_GROUP], d_n[QUAD_GROUP];
+    bool faces[QUAD_GROUP];
+    bool any_faces = false;
+#pragma unroll
+    for (int k = 0; k < QUAD_GROUP; ++k) {
+      faces[k] = quad_plane(__ldg(quad + 3 * (qi + k)), r, num[k], d_n[k]);
+      any_faces |= faces[k];
+    }
+    if (!any_faces) continue;  // no row of the group faces the ray: no division
+#pragma unroll
+    for (int k = 0; k < QUAD_GROUP; ++k) {
+      if (faces[k]) quad_finish(quad, qi + k, num[k], d_n[k], prim_offset, r, t_best, p_best);
+    }
+  }
+  for (; qi < end; ++qi) {
+    float num, d_n;
+    if (quad_plane(__ldg(quad + 3 * qi), r, num, d_n)) {
+      quad_finish(quad, qi, num, d_n, prim_offset, r, t_best, p_best);
+    }
+  }
+}
+
+"""
 PATCHES = {
+    "quadearly": [("closest_hit.cuh", _QUAD_LOOP, _QUAD_EARLY_OUT)],
     # Every row's root, misses masked (no group branch).
     "select": [("closest_hit.cuh", _SKIP, "")],
     # The parent's loop: every row's root, NaN for misses.
@@ -150,6 +256,32 @@ def _persistent_cell(name, spp, max_depth, seed=0, lanes=1 << 18, clustered=Fals
         lanes=n)
 
 
+def _cluster_settings():
+    """The checkout's render/driver.py clustering settings (None where it
+    has none)."""
+    from raytracer_tpu_torch.render import driver
+
+    grain = getattr(driver, "CLUSTER_GRAIN", None)
+    return (tuple(map(tuple, grain.values())) if grain else None,
+            getattr(driver, "CLUSTER_OVERSIZE", None))
+
+
+def _culled_cell(name, **scene_kw):
+    """Kernel 2 culled on `name` at 400x225@64spp depth 8, clustered as the
+    render clusters it under the clustering settings current at its call:
+    each settings' kernel call is built at its first call (untimed) and
+    kept."""
+    calls = {}
+
+    def call():
+        key = _cluster_settings()
+        if key not in calls:
+            calls[key] = _persistent_cell(name, 64, 8, clustered=True, **scene_kw)[0]
+        return calls[key]()
+
+    return call
+
+
 def _tape_cell(name, **scene_kw):
     """Kernel 3 at the training shape (400x225, 8 spp, depth 50, seed 1234;
     image scenes through the 4-tap); timed behind a spin kernel, as short
@@ -199,8 +331,11 @@ def cells():
     out["k2_quads_1536"] = (k2, 3, False, info)
     k2, info = _persistent_cell("perlin", 100, 50)
     out["k2_perlin"] = (k2, 3, False, info)
-    k2, info = _persistent_cell("rand_spheres_large", 64, 8, clustered=True)
-    out["k2_culled_large"] = (k2, 3, False, info)
+    for cell, name, kw in (("k2_culled_large", "rand_spheres_large", {}),
+                           ("k2_culled_50k", "rand_spheres_large", {"n_spheres": 50000}),
+                           ("k2_culled_quad_field", "quad_field", {})):
+        out[cell] = (_culled_cell(name, **kw), 3, False,
+                     dict(scene=name, **kw, size=[400, 225], spp=64, max_depth=8))
 
     for cell, name, kw in (("k3_train", "rand_spheres", {}),
                            ("k3_earth", "earth", {"bilinear": True}), ("k3_perlin", "perlin", {})):
@@ -231,6 +366,15 @@ def _apply(variant: dict, defaults: dict):
     ik.THREADS = int(variant.get("k1_threads", defaults["k1_threads"]))
     if hasattr(pk, "TAPE_GRID_DIVISOR"):
         pk.TAPE_GRID_DIVISOR = int(variant.get("tape_grid", defaults["tape_grid"]))
+    from raytracer_tpu_torch.render import driver
+
+    if hasattr(driver, "CLUSTER_GRAIN"):
+        driver.CLUSTER_GRAIN = {kind: tuple(int(x) for x in variant[kind].split("/"))
+                                if kind in variant else defaults["grain"][kind]
+                                for kind in ("sph", "quad")}
+        driver.CLUSTER_OVERSIZE = float(variant.get("oversize", defaults["oversize"]))
+    elif any(k in variant for k in ("sph", "quad", "oversize")):
+        raise SystemExit("time_kernels: this checkout's render driver has no clustering settings")
     build.CSRC_DIR = defaults["csrc"]
     patches = [p for p in variant.get("patch", "").split("+") if p]
     if patches:
@@ -276,8 +420,12 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
+    from raytracer_tpu_torch.render import driver
+
     defaults = dict(threads=pk.THREADS, k1_threads=ik.THREADS,
-                    tape_grid=getattr(pk, "TAPE_GRID_DIVISOR", 1), csrc=build.CSRC_DIR)
+                    tape_grid=getattr(pk, "TAPE_GRID_DIVISOR", 1), csrc=build.CSRC_DIR,
+                    grain=dict(getattr(driver, "CLUSTER_GRAIN", {})),
+                    oversize=getattr(driver, "CLUSTER_OVERSIZE", None))
     variants = dict(_parse_variant(v) for v in args.variant) or {"default": {}}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -287,12 +435,15 @@ def main(argv=None) -> dict:
     if args.cells:
         table = {k: table[k] for k in args.cells.split(",")}
     first: dict = {}
+    first_settings = None
     times: dict = {name: {cell: [] for cell in table} for name in variants}
     extra: dict = {name: {} for name in variants}
     order = list(variants)
     for r in range(args.rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             _apply(variants[name], defaults)
+            settings = _cluster_settings()
+            first_settings = first_settings or settings
             line = dict(round=r, variant=name, settings=variants[name])
             for cell, (fn, reps, spin, _) in table.items():
                 if cell.startswith("k3"):  # per-thread segments, else one sample a thread
@@ -306,6 +457,8 @@ def main(argv=None) -> dict:
                 torch.cuda.synchronize()
                 if cell not in first:
                     first[cell] = out
+                elif cell.startswith("k2_culled") and settings != first_settings:
+                    line[f"{cell}_equal"] = _outputs_equal(out, first[cell])
                 elif not _outputs_equal(out, first[cell]):
                     raise SystemExit(f"time_kernels: {cell} under {name} differs from "
                                      f"{order[0]}'s outputs")

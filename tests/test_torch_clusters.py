@@ -6,6 +6,7 @@ twin bit for bit on the scenes of tests/test_persistent_kernel.py:339-488,
 against an independent culling walk, and against JAX `trace`."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -133,11 +134,22 @@ def test_cluster_scene_equals_jax(name, kw):
     assert pscl.num_prims <= psc.num_prims
 
 
+def jax_granularity(monkeypatch):
+    """The port's render driver set to cluster as the JAX one: its leaf and
+    fan for both kinds, and no oversized primitive isolated."""
+    grain = (jdriver.CLUSTER_LEAF, jdriver.CLUSTER_FAN)
+    monkeypatch.setattr(pdriver, "CLUSTER_GRAIN", {"sph": grain, "quad": grain})
+    monkeypatch.setattr(pdriver, "CLUSTER_OVERSIZE", math.inf)
+
+
 @pytest.mark.parametrize("name,kw", CLUSTER_CASES)
-def test_front_to_back_and_cluster_for_render_equal_jax(name, kw):
+def test_front_to_back_and_cluster_for_render_equal_jax(name, kw, monkeypatch):
     """_order_front_to_back on the case's tables, and cluster_for_render at
-    the driver's granularity, are array-equal to the JAX driver's; a super
-    level still tiles the fine rows."""
+    the JAX driver's granularity (the port's own constants and its
+    oversized-primitive split are held by the tests further down), are
+    array-equal to the JAX driver's; a super level still tiles the fine
+    rows."""
+    jax_granularity(monkeypatch)
     jsc, psc, jc, pc = both_scenes(name)
     _, jcs = jbvh.cluster_scene(jsc, **kw)
     _, pcs = pbvh.cluster_scene(psc, **kw)
@@ -160,6 +172,89 @@ def test_front_to_back_and_cluster_for_render_equal_jax(name, kw):
     for f in pscene.TENSOR_FIELDS:
         np.testing.assert_array_equal(getattr(pscl, f).numpy(), np.asarray(getattr(jscl, f)),
                                       err_msg=f)
+
+
+# The large scenes of the persistent path, host-clustered at the render driver's
+# granularity (no render), and the kind that holds their ground primitive.
+SPLIT_CASES = [("rand_spheres_large", {}, "sph"), ("quad_field", {}, "quad"),
+               ("rand_spheres_large", {"n_spheres": 50000}, "sph")]
+
+
+def driver_order(scene):
+    """cluster_order at the render driver's granularity, before and after
+    isolate_oversized."""
+    (leaf, fan), quad_grain = pdriver.CLUSTER_GRAIN["sph"], pdriver.CLUSTER_GRAIN["quad"]
+    order = pbvh.cluster_order(scene, max_leaf=leaf, super_fan=fan, quad_grain=quad_grain)
+    return order, pbvh.isolate_oversized(scene, order, pdriver.CLUSTER_OVERSIZE)
+
+
+def kind_rows(order, kind):
+    """(permutation (numpy), fine rows, super rows) of one kind."""
+    perm = order.sph if kind == "sph" else order.quad
+    return perm.numpy(), getattr(order.clusters, kind), getattr(order.clusters, kind + "_super")
+
+
+@pytest.mark.parametrize("name,kw,kind", SPLIT_CASES)
+def test_isolated_rows_cover_every_primitive_once_and_bound_it(name, kw, kind):
+    """After isolate_oversized the fine rows tile the kind's permuted table
+    and the supers tile the fine rows, each exactly once and in order; the
+    permutation holds the same primitives as cluster_order's; every fine
+    box equals the hull of its primitives' boxes and every super box the
+    hull of its fine rows."""
+    scene, _, _ = getattr(pbuilders, name)(width=32, **kw)
+    before, after = driver_order(scene)
+    perm0, _, _ = kind_rows(before, kind)
+    perm, fine, sup = kind_rows(after, kind)
+    assert sorted(perm.tolist()) == sorted(perm0.tolist())
+    np.testing.assert_array_equal(fine[:, 6], np.concatenate([[0], np.cumsum(fine[:-1, 7])]))
+    assert int(fine[:, 7].sum()) == len(perm) and (fine[:, 7] > 0).all()
+    np.testing.assert_array_equal(sup[:, 6], np.concatenate([[0], np.cumsum(sup[:-1, 7])]))
+    assert int(sup[:, 7].sum()) == len(fine) and (sup[:, 7] > 0).all()
+    bmin, bmax = pbvh.primitive_bounds(scene)
+    gid = perm + (scene.num_spheres if kind == "quad" else 0)
+    for row in fine:
+        ids = gid[int(row[6]) : int(row[6] + row[7])]
+        np.testing.assert_array_equal(row[:3], bmin[ids].min(axis=0))
+        np.testing.assert_array_equal(row[3:6], bmax[ids].max(axis=0))
+    for row in sup:
+        block = fine[int(row[6]) : int(row[6] + row[7])]
+        np.testing.assert_array_equal(row[:3], block[:, :3].min(axis=0))
+        np.testing.assert_array_equal(row[3:6], block[:, 3:6].max(axis=0))
+
+
+@pytest.mark.parametrize("name,kw,kind", SPLIT_CASES)
+def test_isolate_oversized_moves_exactly_the_ground(name, kw, kind):
+    """Each large scene's one oversized primitive is its 2000-wide ground
+    (row 0 of its kind): it ends the permuted table, in a fine row of its
+    own (the last) under a super of its own (the last); every other row
+    keeps its primitives, and no other row is a quarter as wide."""
+    scene, _, _ = getattr(pbuilders, name)(width=32, **kw)
+    before, after = driver_order(scene)
+    perm0, fine0, sup0 = kind_rows(before, kind)
+    perm, fine, sup = kind_rows(after, kind)
+    assert perm[-1] == 0 and len(perm) == len(perm0)
+    assert fine[-1, 6:].tolist() == [len(perm) - 1, 1]
+    assert sup[-1, 6:].tolist() == [len(fine) - 1, 1]
+    assert (fine[-1, 3:6] - fine[-1, :3]).max() == 2000
+    assert len(fine) == len(fine0) + 1 and len(sup) == len(sup0) + 1
+    width = lambda rows: (rows[:, 3:6] - rows[:, :3]).max(axis=1)  # noqa: E731
+    assert width(fine0).max() >= 2000 and width(sup0).max() >= 2000
+    assert width(fine[:-1]).max() < 500 and width(sup[:-1]).max() < 500
+    ground = int(np.flatnonzero(perm0 == 0)[0])
+    np.testing.assert_array_equal(np.delete(perm0, ground), perm[:-1])
+
+
+@pytest.mark.parametrize("name,kw", [case[:2] for case in TWIN_CASES[1:]])
+def test_isolate_oversized_leaves_other_scenes_unchanged(name, kw):
+    """A scene with no oversized primitive (the JAX culling scenes with a
+    super level, and grid_6x6's single ground quad, which has none) keeps
+    its ClusterOrder array for array."""
+    scene, _, _ = port_scene(name)
+    order = pbvh.cluster_order(scene, **kw)
+    got = pbvh.isolate_oversized(scene, order)
+    assert torch.equal(got.sph, order.sph) and torch.equal(got.quad, order.quad)
+    for f in ("sph", "sph_super", "quad", "quad_super"):
+        np.testing.assert_array_equal(getattr(got.clusters, f), getattr(order.clusters, f))
 
 
 def counting_cluster_order(monkeypatch):
@@ -255,45 +350,80 @@ def test_cluster_cache_follows_a_replaced_scene():
 # ---- the clustered twin ----
 
 
-@pytest.mark.parametrize("name,kw,front_to_back", TWIN_CASES)
+def small_large_scene(name, width=16, spp=2):
+    """rand_spheres_large or quad_field cut to 3,000 primitives (at least
+    three supers at the render driver's granularity), `width` wide, depth 8."""
+    return getattr(pbuilders, name)(width=width, spp=spp, n_spheres=3000)
+
+
+# TWIN_CASES, and the large scenes cut to size with the render driver's own
+# clustering (cluster_for_render: its granularity, the ground isolated).
+CLUSTERED_TWIN_CASES = TWIN_CASES + [("rand_spheres_large", None, True),
+                                     ("quad_field", None, True)]
+
+
+@pytest.mark.parametrize("name,kw,front_to_back", CLUSTERED_TWIN_CASES)
 def test_clustered_twin_equals_dense_twin(name, kw, front_to_back):
     """tests/test_persistent_kernel.py:339-488 for the port: the twin with
     the cluster table on the permuted scene equals the dense twin on the
     original scene bit for bit (log and segments), with and without the
     twin's work counts; clusters of both kinds (and a super level where
-    asked) are really walked."""
-    scene, cam, st = port_scene(name)
+    asked) are really walked. The large scenes take the render driver's tables,
+    their ground primitive in a super of its own; the warp-union counts
+    are never below the per-lane ones."""
+    if kw is None:
+        scene, cam, st = small_large_scene(name)
+        scene_cl, cs = pdriver.cluster_for_render(scene, cam)
+        fine = cs.sph if name == "rand_spheres_large" else cs.quad
+        assert int(((fine[:, 3] - fine[:, 0] >= 1000) & (fine[:, 7] == 1)).sum()) == 1
+    else:
+        scene, cam, st = port_scene(name)
+        scene_cl, cs = pbvh.cluster_scene(scene, **kw)
+        if front_to_back:
+            cs = pdriver.order_clusters(cs, cam.look_from.numpy())
     log_d, segs_d = twin(scene, cam, st)
-    scene_cl, cs = pbvh.cluster_scene(scene, **kw)
-    if front_to_back:
-        cs = pdriver.order_clusters(cs, cam.look_from.numpy())
     table = ppk.pack_cluster_table(cs)
-    assert table.n_quad >= 1 and (table.n_sph > 1 or name == "image_quad_field")
-    if kw.get("min_fine_for_super", 24) <= 8:
+    if kw is None:
+        assert (table.n_sph_super if name == "rand_spheres_large" else table.n_quad_super) > 1
+    else:
+        assert table.n_quad >= 1 and (table.n_sph > 1 or name == "image_quad_field")
+    if kw is not None and kw.get("min_fine_for_super", 24) <= 8:
         assert table.n_quad_super > 1
     log_c, segs_c = twin(scene_cl, cam, st, table)
     assert torch.equal(log_d, log_c) and torch.equal(segs_d, segs_c)
-    log_w, segs_w, work = twin(scene_cl, cam, st, table, return_work=True)
+    log_w, segs_w, work, warp_work = twin(scene_cl, cam, st, table, return_work=True)
     assert torch.equal(log_d, log_w) and torch.equal(segs_d, segs_w)
-    assert work.shape == (3, segs_w.shape[0]) and work.dtype == torch.int32
+    assert work.shape == (6, segs_w.shape[0]) and work.dtype == torch.int32
+    assert warp_work.shape == (7,) and warp_work.dtype == torch.int64
+    assert (warp_work[:6] * 32 >= work.long().sum(1)).all()
     segments = int(segs_w.sum())
+    assert 0 < int(warp_work[6]) <= segments
+    assert (work[3] <= work[1]).all() and (work[5] <= work[4]).all() and (work[4] <= work[2]).all()
     sphere_tests = int(work[1].sum())
-    if name != "image_quad_field":  # its dummy sphere's box is a point no ray enters
+    if name not in ("image_quad_field", "quad_field"):  # a dummy sphere no ray enters
         assert sphere_tests > 0
     assert sphere_tests <= segments * scene_cl.num_spheres
     assert 0 < int(work[2].sum()) <= segments * scene_cl.num_quads
     assert int(work[0].sum()) >= segments * (table.n_sph_super or table.n_sph)
 
 
-def walk_culled(table, sph, quad, o, d):
+def walk_culled(table, sph, quad, o, d, warp=None):
     """Kernel 2's culled closest hit as the kernel runs it: cluster by
     cluster in visit order, each ray testing a cluster's primitives only
     when its slab test against its own running best enters (vectorized
-    over rays, sequential over clusters). Returns (t, prim, work (3, N))."""
+    over rays, sequential over clusters). Returns (t, prim, work (3, N))
+    and, given each ray's warp `warp` (N,), also the (3,) tests that the
+    warps pay: a warp runs each test any of its rays runs."""
     n = o.shape[0]
     t_best = torch.full((n,), float("inf"))
     p_best = torch.full((n,), -1, dtype=torch.int64)
     work = torch.zeros(3, n, dtype=torch.int64)
+    warp_work = torch.zeros(3, dtype=torch.int64)
+
+    def warps_in(mask):  # warps with a ray in `mask`
+        if warp is None:
+            return 0
+        return int(torch.zeros(int(warp.max()) + 1).index_add_(0, warp, mask.float()).gt(0).sum())
     a = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
     inv = pik.slab_inv(d)
     rows = table.rows
@@ -311,6 +441,7 @@ def walk_culled(table, sph, quad, o, d):
         t_best = torch.where(better, t_c, t_best)
         p_best = torch.where(better, begin + p_c.long() + (ns if kind else 0), p_best)
         work[1 + kind] += mask.long() * (end - begin)
+        warp_work[1 + kind] += warps_in(mask) * (end - begin)
 
     for kind, base, n_sup, n_fine, size in ((0, 0, s_super, s_fine, ns),
                                             (1, s_super + s_fine, q_super, q_fine,
@@ -324,16 +455,19 @@ def walk_culled(table, sph, quad, o, d):
             fines = range(n_fine)
             if si is not None:
                 work[0] += 1
+                warp_work[0] += warps_in(torch.ones(n, dtype=torch.bool))
                 live = enters(base + si)
                 s0, c0 = int(rows[base + si, 6]), int(rows[base + si, 7])
                 fines = range(s0, s0 + c0)
             for fi in fines:
                 r = base + n_sup + fi
                 work[0] += live.long()
+                warp_work[0] += warps_in(live)
                 m = live & enters(r)
                 test_range(kind, int(rows[r, 6]), int(rows[r, 6] + rows[r, 7]), m)
     t = t_best * (1.0 / a)
-    return t, torch.where(t_best < float("inf"), p_best, -1).to(torch.int32), work
+    prim = torch.where(t_best < float("inf"), p_best, -1).to(torch.int32)
+    return (t, prim, work) if warp is None else (t, prim, work, warp_work)
 
 
 @pytest.mark.parametrize("name,kw,front_to_back", TWIN_CASES)
@@ -357,10 +491,39 @@ def test_visit_twin_equals_culling_walk(name, kw, front_to_back):
     t_v, p_v, w_v = visit.hit_work(o, d)
     t_w, p_w, w_w = walk_culled(table, sph, quad, o, d)
     assert torch.equal(t_v, t_w) and torch.equal(p_v, p_w)
-    assert torch.equal(w_v, w_w)
+    assert torch.equal(w_v[:3], w_w)
     t_h, p_h = visit.hit(o, d)
     assert torch.equal(t_h, t_v) and torch.equal(p_h, p_v)
     assert int((p_v >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("name,kw,front_to_back", TWIN_CASES[1:3])
+def test_warp_union_work_equals_the_culling_walk(name, kw, front_to_back):
+    """ClusterVisit.hit_work's warp-union counts against walk_culled's
+    (which counts, cluster by cluster, the warps with a ray in each test):
+    equal with 32 consecutive rays a warp; with one ray a warp they are the
+    per-ray counts (x 32 in lane slots: each lane pays a whole warp), and
+    never below them with 32."""
+    scene, cam, st = port_scene(name)
+    scene_cl, cs = pbvh.cluster_scene(scene, **kw)
+    if front_to_back:
+        cs = pdriver.order_clusters(cs, cam.look_from.numpy())
+    table = ppk.pack_cluster_table(cs)
+    sph, quad, _ = ppk.pack_persistent_tables(scene_cl)
+    rng = np.random.default_rng(9)
+    o = torch.from_numpy(rng.uniform(-9, 9, (2000, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(-9, 9, (2000, 3)).astype(np.float32)) - o
+    visit = pwf.ClusterVisit.build(table, sph, quad)
+    lanes = torch.arange(2000)
+    _, _, per_ray = visit.hit_work(o, d)
+    _, _, per_ray_1, one = visit.hit_work(o, d, warp=lanes)
+    assert torch.equal(per_ray_1, per_ray)
+    assert one.tolist() == per_ray.sum(1).tolist() + [2000]
+    _, _, _, union = visit.hit_work(o, d, warp=lanes // 32)
+    assert union[6] == 63 and (union[:6] * 32 >= per_ray.sum(1)).all()
+    assert (union[:3] < per_ray[:3].sum(1)).all()  # warps share clusters
+    _, _, walk_work, walk_union = walk_culled(table, sph, quad, o, d, warp=lanes // 32)
+    assert torch.equal(walk_work, per_ray[:3]) and torch.equal(walk_union, union[:3])
 
 
 def test_clustered_twin_matches_jax_trace():
@@ -436,8 +599,9 @@ def test_large_scene_renders_clustered_on_the_persistent_path(name, kw):
 
 
 # Bounce rays of the large renders' kernel calls (400x225, 2^18 lanes,
-# seed 0) on which the unpadded slab test of kernel 2's cull parts from the
-# dense search: each leaves the top of a sphere (or the ground) and the
+# seed 0, clustered at the JAX driver's granularity) on which the
+# unpadded slab test of kernel 2's cull parts from the dense search: each
+# leaves the top of a sphere (or the ground) and the
 # expanded-form sphere test re-hits that surface just past T_MIN, at a
 # point outside the sphere's own cluster box. (scene overrides, origin,
 # direction, the dense winner.)
@@ -452,10 +616,14 @@ SELF_REHIT_RAYS = [
 
 
 @pytest.mark.parametrize("scene_kw,origin,direction,winner", SELF_REHIT_RAYS)
-def test_slab_pad_keeps_the_dense_winner_of_a_self_rehit(scene_kw, origin, direction, winner):
-    """utils/cull_divergence.py on one such ray: the unpadded cull drops
-    the dense winner, kernel 2's pad (CLUSTER_SLAB_PAD) keeps it."""
+def test_slab_pad_keeps_the_dense_winner_of_a_self_rehit(scene_kw, origin, direction, winner,
+                                                         monkeypatch):
+    """utils/cull_divergence.py on one such ray, on the tables it was found
+    on (the JAX driver's granularity): the unpadded cull drops the dense
+    winner, kernel 2's pad (CLUSTER_SLAB_PAD) keeps it."""
     from raytracer_tpu_torch.utils.cull_divergence import divergent_rays
+
+    jax_granularity(monkeypatch)
 
     scene, cam, _ = pbuilders.rand_spheres_large(width=32, **scene_kw)
     scene_cl, cs = pdriver.cluster_for_render(scene, cam)

@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from adversarial_quads import adversarial_quad_rays, early_out_quad_hits
 from cluster_scenes import SCENES as CLUSTER_SCENES
 from cluster_scenes import TWIN_CASES
 from raytracer_tpu_torch.core.camera import camera_frame, camera_rays, make_camera
-from raytracer_tpu_torch.geometry.bvh import cluster_scene
+from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_scene
 from raytracer_tpu_torch.geometry.intersect import (
     build_large_scene_tables,
     quad_derived,
@@ -272,6 +273,62 @@ def test_intersect_kernel_tangent_rays_match_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(p_k, p_p) and torch.equal(t_k.isnan(), t_p.isnan())
     assert torch.equal(torch.nan_to_num(t_k), torch.nan_to_num(t_p))
+
+
+def test_quad_early_out_equals_the_twin():
+    """The quad test in early-out form (tests/adversarial_quads.py's NumPy
+    float32 reference: no division for a plane that does not face the ray,
+    no in-quad test for a t that cannot win; the work the culled bounds
+    count as needed) against the twin's full test (intersect_plain): t
+    bit-equal (NaN where the twin's is) and the same winner on rays that
+    reach num = +-0, |d.n| at and below QUAD_DENOM_EPS, t at T_MIN,
+    back-facing planes, in-quad coordinates of 0 and 1, NaN directions and
+    ties: the skipped work changes no result."""
+    table, o, d = adversarial_quad_rays()
+    want_t, want_p, _, _ = early_out_quad_hits(table, o, d)
+    got_t, got_p = ik.intersect_plain(torch.zeros(0, 4), torch.from_numpy(table),
+                                      torch.from_numpy(o), torch.from_numpy(d))
+    assert np.array_equal(got_p.numpy(), want_p)
+    assert np.array_equal(got_t.numpy(), want_t, equal_nan=True)
+    cands, _ = ik.candidates_scaled(torch.zeros(0, 4), torch.from_numpy(table),
+                                    torch.from_numpy(o), torch.from_numpy(d))
+    c = cands.numpy()
+    tied = ((c == c.min(axis=1, keepdims=True)) & np.isfinite(c)).sum(axis=1) >= 2
+    assert tied.sum() >= 10 and (want_p >= 0).sum() >= 100 and np.isnan(want_t).sum() >= 2
+
+
+def test_twin_counts_the_early_out_quad_work():
+    """The culled twin's data-dependent quad counts (ClusterVisit.hit_work:
+    divisions and in-quad tests, the work of kernel 2's culled bound) with
+    no cluster rows (both kinds dense) equal, ray by ray, the rows that
+    reach each step of the early-out loop (tests/adversarial_quads.py's
+    NumPy reference)."""
+    table, o, d = adversarial_quad_rays()
+    _, want_p, divisions, in_quad = early_out_quad_hits(table, o, d)
+    sph = torch.zeros(0, 4)
+    quad = torch.from_numpy(table)
+    dense = pk.pack_cluster_table(ClusterSet(*(np.zeros((0, 8), np.float32),) * 4))
+    visit = wf.ClusterVisit.build(dense, sph, quad)
+    _, p, work = visit.hit_work(torch.from_numpy(o), torch.from_numpy(d))
+    assert np.array_equal(p.numpy(), want_p)
+    assert np.array_equal(work[2].numpy(), np.full(len(o), len(table)))
+    assert np.array_equal(work[4].numpy(), divisions)
+    assert np.array_equal(work[5].numpy(), in_quad)
+    assert 0 < in_quad.sum() < divisions.sum() < work[2].sum()
+
+
+@pytest.mark.cuda
+def test_intersect_kernel_adversarial_quads_match_plain(cuda):
+    """Kernel 1 on tests/adversarial_quads.py's table and rays, behind one
+    dummy sphere row: t and prim bit-equal to the twin."""
+    table, o, d = (torch.from_numpy(x).to(cuda) for x in adversarial_quad_rays())
+    sph = ik.pack_sphere_table(torch.zeros(1, 3), torch.zeros(1)).to(cuda)
+    t_k, p_k = ik.intersect(sph, table, o, d)
+    t_p, p_p = ik.intersect_plain(sph, table, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p) and torch.equal(t_k.isnan(), t_p.isnan())
+    assert torch.equal(torch.nan_to_num(t_k), torch.nan_to_num(t_p))
+    assert int((p_k >= 1).sum()) >= 100
 
 
 @pytest.mark.cuda
