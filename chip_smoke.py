@@ -32,12 +32,19 @@ counters reset just before and read just after:
   400x225, 100 spp, depth 50, each one launch of kernel 2's textured
   instantiation, timed by CUDA events.
 
+The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
+the marble's Perlin tables from the block's shared memory
+(csrc/textures.cuh); the image ones (earth) hold no tables; every
+instantiation traces one segment a loop iteration.
+
 Phase 2 also holds kernel 1 bit for bit on rays built for every branch of
 the quad test (tests/adversarial_quads.py). Phase 3 also holds kernel 2's
 textured instantiation against its twin bit for bit (perlin, earth
 nearest, stochastic and 4-tap, simple_light) at 96x54, 8 spp, depth 10 and
 at phase 10's own kernel calls (400x225, 100 spp, depth 50, the CLI's seed
-and lanes), phase 3c holds kernel 2's culled instantiation against its
+and lanes), where the twin also counts the call's marbles and image
+lookups per lane and per warp (the textured rows' bounds and SIMT
+efficiency), phase 3c holds kernel 2's culled instantiation against its
 twin bit for bit (log and segments) on rand_spheres_large, quad_field and
 the JAX package's two-level and image-quad culling scenes at 96x54, 8 spp,
 depth 8, and at phase 10's three large renders' own kernel calls (400x225,
@@ -50,7 +57,9 @@ through kernel 2, phase 6 holds the tape kernel against its twin at the
 training path's shape (rand_spheres, and textured: earth with the 4-tap
 and perlin) and prints its warp occupancy under the sample queue, phase 7a
 the whole gradient step on the card against the step on the CPU, phase 7
-kernel 1 against its twin on the scan step's own rays, phase 8 kernel 5
+kernel 1 against its twin on the scan step's own rays and times it at
+each of the step's launches at its own ray count (as phase 10 does for
+`_render_large_scene`'s bounce launches), phase 8 kernel 5
 against its twin at perlin's path shape (and the wavefront-step path
 against kernel 2 on rand_spheres and on perlin with its textures), and
 phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
@@ -248,14 +257,15 @@ def clustered(scene, cam, cluster_kw):
 
 
 def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False, clusters=None,
-                    work=False):
+                    work=False, tex_work=False):
     """Kernel 2 and its plain twin on the same CUDA tables (with the
     scene's texture tables), schedule and seed: (kernel, plain, fold) —
     zero-argument calls each returning (log, segments), and the fold of a
     log into per-pixel mean radiance. With `clusters` (a ClusterSet of the
     already permuted `scene`) both run the culled closest hit, and with
     `work` the twin also returns its per-lane work counts (slab, sphere
-    and quad tests of per-lane culling)."""
+    and quad tests of per-lane culling); with `tex_work` its texture
+    evaluations (integrator/wavefront.py:TextureWork), last."""
     from raytracer_tpu_torch.core.camera import camera_frame
     from raytracer_tpu_torch.integrator import wavefront as wf
     from raytracer_tpu_torch.ops import persistent_kernel as pk
@@ -279,13 +289,28 @@ def persistent_pair(scene, cam, settings, wavefront, seed, stochastic=False, clu
         return pk.render_persistent(*args, **cfg)
 
     def plain():
-        return wf.regen_plain(*args, **cfg, return_work=work,
+        return wf.regen_plain(*args, **cfg, return_work=work, return_texture_work=tex_work,
                               max_iters=pk.max_iters_for(num_slots, settings.max_depth))
 
     def fold(log):
         return wf._fold_log(log, num_slots, n, n_pix, jump) / spp
 
     return kernel, plain, fold
+
+
+def texture_counts(work):
+    """The record's fields of a TextureWork (integrator/wavefront.py): the
+    call's marbles and image lookups, their warp-union counts and SIMT
+    efficiency under kernel 2's loop (one segment an iteration) and under
+    the retrace loop measured and not kept (PERF.md, section 6), and the
+    closest hits a warp runs under each."""
+    eff, eff_re = ([None if math.isnan(x) else x for x in work.simt_efficiency(schedule)]
+                   for schedule in ("one_segment", "retrace"))
+    return dict(marble_hits=int(work.per_lane[0].sum()), image_lookups=int(work.per_lane[1].sum()),
+                warp_union=work.one_segment.tolist(), warp_union_retrace=work.retrace.tolist(),
+                marble_simt_efficiency=eff[0], marble_simt_efficiency_retrace=eff_re[0],
+                image_simt_efficiency=eff[1], image_simt_efficiency_retrace=eff_re[1],
+                warp_trips=int(work.warp_trips[0]), warp_trips_retrace=int(work.warp_trips[1]))
 
 
 def timed(fn):
@@ -519,13 +544,27 @@ def check_hit(label, sph, quad, o, d):
 
 class HitRecorder:
     """Stands in for ops.intersect_kernel.intersect while a path runs and
-    passes every call on to it: keeps each call's ray count, and copies of
-    the inputs of the first call and of the first later call whose ray
-    count leaves the kernel's last block partial."""
+    passes every call on to it: keeps each call's ray count and inputs
+    (`calls`; a call's sphere and quad tables are one copy shared with the
+    call before it when they are equal), and marks the first call and the
+    first later call whose ray count leaves the kernel's last block partial
+    (`kept`)."""
 
     def __init__(self, ik):
         self.ik, self.real = ik, ik.intersect
-        self.counts, self.kept = [], {}
+        self.counts, self.calls, self.kept = [], [], []
+        self.tables = (None, None)
+
+    def _table(self, k, x):
+        """Table k (0 spheres, 1 quads) of a call: the last copy kept when
+        it holds the same values, else a new copy."""
+        import torch
+
+        last = self.tables[k]
+        if last is None or last.shape != x.shape or not torch.equal(last, x):
+            last = x.detach().clone()
+            self.tables = (last, self.tables[1]) if k == 0 else (self.tables[0], last)
+        return last
 
     def __enter__(self):
         self.ik.intersect = self
@@ -537,9 +576,30 @@ class HitRecorder:
     def __call__(self, sph, quad, o, d):
         i, n = len(self.counts), o.shape[0]
         self.counts.append(n)
+        self.calls.append((self._table(0, sph), self._table(1, quad), o.detach().clone(),
+                           d.detach().clone()))
         if i == 0 or (len(self.kept) == 1 and n % self.ik.THREADS):
-            self.kept[i] = tuple(x.clone() for x in (sph, quad, o, d))
+            self.kept.append(i)
         return self.real(sph, quad, o, d)
+
+    def timed_sum(self, plain=True):
+        """Kernel 1 timed at every recorded call's own inputs (device time
+        behind a spin kernel), with its bound and, with `plain`, its twin's
+        time: {launches, rays, ms, plain_ms, bound_ms, bound_by} summed
+        over the calls ("operations" when the operations bound most of
+        them)."""
+        ms = plain_ms = bound_ms = 0.0
+        by = {"operations": 0, "bytes": 0}
+        for sph, quad, o, d in self.calls:
+            ms += time_device(lambda: self.ik.intersect(sph, quad, o, d), reps=10, warm=2)
+            if plain:
+                plain_ms += time_cuda(lambda: self.ik.intersect_plain(sph, quad, o, d), reps=1)
+            b = bound(hit_ops(o.shape[0], sph.shape[0], quad.shape[0]), o.shape[0] * (24 + 8))
+            bound_ms += b[0]
+            by[b[1]] += 1
+        return dict(launches=len(self.calls), rays=sum(self.counts), ms=ms,
+                    plain_ms=plain_ms if plain else None, bound_ms=bound_ms,
+                    bound_by=max(by, key=by.get))
 
 
 def check_pair(label, kernel_out, plain_out, fold, exact=False):
@@ -885,16 +945,19 @@ def png_linear_mean(path):
 
 
 # Operations of one marble in csrc/textures.cuh, counted from the source
-# as the closest hit's are: 552 per Perlin octave (3 floors, 3 fractions, 3
-# conversions and masks, 6 lattice hashes of 9 and their 3 wraps, 3
-# smoothsteps of 4, 8 corners of 55 (2 hash XORs, 3 gradient components of
-# 15, a 3-term dot product of 8), 7 lerps of 4), 6 a turbulence step, 7
-# octaves, and 32 for the scaling and sin (libdevice sinf as 24). About
-# half are integer operations, which an H100 SM issues at half its FP32
-# rate, so the bound at the FP32 peak is a floor. An image lookup: sphere
-# UV (acosf and atan2f as ~25 each, clamps, offsets) and the clamped
-# texel index, ~80; the 4-tap filter ~150.
-MARBLE_OPS = 3938
+# as the closest hit's are (a table load counts one): 149 per Perlin octave
+# from the shared tables (3 floors, 3 fractions, 3 conversions and masks,
+# 3 permutation-pair loads and their 6 extracts, 3 smoothsteps of 4, 8
+# corners of 11 (2 hash XORs, one gradient load, a 3-term dot product of
+# 8), 7 lerps of 4), 6 a turbulence step, 7 octaves, and 32 for the
+# scaling and sin (libdevice sinf as 24). The parent's hash recomputed
+# the tables: 552 an octave (6 lattice hashes of 9 and their 3 wraps
+# instead of the pair loads, and corners of 55, each with 3 gradient
+# components of 15), 3,938 a marble. An image lookup: sphere UV (acosf
+# and atan2f as ~25 each, clamps, offsets) and the clamped texel index,
+# ~80; the 4-tap filter ~150.
+MARBLE_OPS_HASH = 3938
+MARBLE_OPS = 1117
 IMAGE_OPS = {"nearest": 80, "stochastic": 90, "bilinear": 150}
 
 
@@ -1007,20 +1070,25 @@ def main() -> int:
     # The textured instantiation, every texture kind and image filter, at
     # the same shape and then at phase 10's CLI render shape, seed and
     # lanes (400x225, 100 spp, depth 50, seed 0): the very kernel call that
-    # phase 10 makes. Log and segments bit-equal to the twin's.
+    # phase 10 makes. Log and segments bit-equal to the twin's. There the
+    # twin also counts the marbles and image lookups per lane and per warp
+    # under both loop schedules (texture_counts), the work of the bounds.
     k2_tex, k2_tex_cli = {}, {}
     for label, name, kw, stochastic, _ in TEXTURED_CASES:
         for out, shape, lanes, seed in ((k2_tex, dict(width=96, spp=8, max_depth=10), 8192, 11),
                                         (k2_tex_cli, {}, DEFAULT_WAVEFRONT, 0)):
             scene, cam, settings = get_scene(name, **{**kw, **shape})
+            counts = out is k2_tex_cli
             kernel, plain, fold = persistent_pair(scene, cam, settings, lanes, seed=seed,
-                                                  stochastic=stochastic)
+                                                  stochastic=stochastic, tex_work=counts)
             kernel_out, ms = timed(kernel)
             plain_out, plain_ms = timed(plain)
-            out[label] = dict(check_pair(label, kernel_out, plain_out, fold, exact=True), ms=ms,
-                              plain_ms=plain_ms, size=[settings.width, settings.height],
+            out[label] = dict(check_pair(label, kernel_out, plain_out[:2], fold, exact=True),
+                              ms=ms, plain_ms=plain_ms, size=[settings.width, settings.height],
                               spp=settings.samples_per_pixel, max_depth=settings.max_depth,
                               lanes=lanes)
+            if counts:
+                out[label].update(texture_counts(plain_out[2]))
             del kernel_out, plain_out
     print(f"phase 3t kernel 2 (textured) vs plain, 96x54@8spp depth 10 with 8192 lanes: "
           f"{json.dumps(k2_tex)}; at the CLI renders' 400x225@100spp depth 50 with "
@@ -1215,18 +1283,22 @@ def main() -> int:
     if len(hits.kept) < 2:
         fail(f"scan step: no bounce after the first left a partial block ({hits.counts})")
     k1_path = {}
-    for i, (sph, quad, o, d) in hits.kept.items():
-        k1_path[f"bounce_{i}"] = check_hit(f"kernel 1 on the scan step's bounce {i}", sph, quad, o, d)
-    del hits.kept
+    for i in hits.kept:
+        k1_path[f"bounce_{i}"] = check_hit(f"kernel 1 on the scan step's bounce {i}",
+                                           *hits.calls[i])
+    # Every launch of the step at its own (compacted) ray count.
+    k1_scan = hits.timed_sum()
+    del hits.calls
     train = dict(steps=steps, launches=launches_train, peak_gb=peak_gb, scan_loss=scan_loss,
                  scan_timings=scan_t, scan_closest_hit_launches=launches_scan,
-                 scan_rays_per_bounce=hits.counts, closest_hit_on_path=k1_path)
+                 scan_rays_per_bounce=hits.counts, closest_hit_on_path=k1_path,
+                 closest_hit_scan_step=k1_scan)
     record["train"] = train
     print(f"phase 7 training path: 5 bucketed steps at 400x225@8spp depth 50, launches "
           f"{json.dumps(launches_train)}, peak {peak_gb:.2f} GiB; scan step {json.dumps(scan_t)}, "
           f"loss {scan_loss:.6g} (bucketed {steps[0]['loss']:.6g}), closest-hit launches "
-          f"{launches_scan}; kernel 1 vs plain on the step's own rays {json.dumps(k1_path)}",
-          flush=True)
+          f"{launches_scan}; kernel 1 vs plain on the step's own rays {json.dumps(k1_path)}; "
+          f"kernel 1 at each launch's own rays, summed {json.dumps(k1_scan)}", flush=True)
 
     # ---- phase 7t: the training path on textured scenes, counted ----
     # Five bucketed steps on earth (4-tap bilinear) from a sphere 5% too
@@ -1384,9 +1456,14 @@ def main() -> int:
     scene, cam, st = get_scene("rand_spheres_large", spp=64)
     metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=st.width * st.height)
     t0 = time.perf_counter()
-    img, counts = counted(lambda: _render_large_scene(scene.to("cuda"), cam, st, seed=0,
-                                                      metrics=metrics))
+    with HitRecorder(ik) as large_hits:
+        img, counts = counted(lambda: _render_large_scene(scene.to("cuda"), cam, st, seed=0,
+                                                          metrics=metrics))
     wall = time.perf_counter() - t0
+    # Kernel 1's bounce launches at their own ray counts (the twin's dense
+    # search over 10,001 spheres is not timed at these sizes).
+    k1_large = large_hits.timed_sum(plain=False)
+    del large_hits.calls
     check_launches("large-scene path", counts, ("culled", "closest_hit"))
     lin_mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
     want = np.asarray(large["rand_spheres_large"]["linear_mean"])
@@ -1394,7 +1471,7 @@ def main() -> int:
         fail(f"large-scene path: mean {lin_mean} vs the persistent render's {want}")
     paths["large_scene"] = dict(report=dict(metrics.snapshot(), wall_s=wall), launches=counts,
                                 linear_mean=lin_mean.round(4).tolist(),
-                                persistent_mean=want.tolist())
+                                persistent_mean=want.tolist(), closest_hit=k1_large)
     print(f"phase 10 large_scene path, _render_large_scene on rand_spheres_large 400x225@64spp "
           f"depth 8: {json.dumps(paths['large_scene'])}", flush=True)
 
@@ -1427,7 +1504,6 @@ def main() -> int:
     record["paths"] = paths
 
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
-    b1 = bound(hit_ops(k1r["rays"], k1r["ns"], k1r["nq"]), k1r["rays"] * (24 + 8))
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
     b3 = bound(hit_ops(k3t["segments"], scene3.num_spheres, scene3.num_quads),
@@ -1439,41 +1515,51 @@ def main() -> int:
     k5s = k5["iteration_0"]
     b5 = bound(hit_ops(k5s["live"], k5["ns"], k5["nq"]), k5s["lanes"] * STEP_LANE_BYTES)
     # Kernel 2 textured, at each CLI render: the closest hit of every
-    # segment, and a marble or an image lookup at every hit. A miss ends a
-    # path, so hits >= segments - samples; every primitive of perlin and
-    # earth is textured. simple_light's hits split between marble, a solid
-    # sphere and the light in proportions no count of this run gives, so
-    # its bound counts the closest hit alone.
+    # segment, and the marbles and image lookups that the twin counted on
+    # the same call (phase 3t); each bound at the kept marble's operations
+    # (MARBLE_OPS) and at the parent's hash (MARBLE_OPS_HASH).
     k2_textured = {}
     for label, t in textured.items():
-        rep_t = t["report"]
+        rep_t, held_t = t["report"], k2_tex_cli[label]
         sc = get_scene(label.split("_bilinear")[0])[0]
-        hits = max(rep_t["traced_segments"] - 400 * 225 * rep_t["spp"], 0)
-        per_hit = {"perlin": MARBLE_OPS, "earth": IMAGE_OPS["nearest"],
-                   "earth_bilinear": IMAGE_OPS["stochastic"],
-                   "earth_bilinear_exact": IMAGE_OPS["bilinear"]}.get(label, 0)
-        b = bound(hit_ops(rep_t["traced_segments"], sc.num_spheres, sc.num_quads)
-                  + hits * per_hit,
-                  rep_t["retirement_log_mb"] * 2**20 + 16 * rep_t["wavefront_lanes"]
+        per_lookup = IMAGE_OPS[{"earth": "nearest", "earth_bilinear": "stochastic"}.get(
+            label, "bilinear")]
+        nbytes = (rep_t["retirement_log_mb"] * 2**20 + 16 * rep_t["wavefront_lanes"]
                   + sc.images.numel() * 4)
+        b, b_hash = (bound(hit_ops(rep_t["traced_segments"], sc.num_spheres, sc.num_quads)
+                           + held_t["marble_hits"] * ops + held_t["image_lookups"] * per_lookup,
+                           nbytes) for ops in (MARBLE_OPS, MARBLE_OPS_HASH))
         k2_textured[label] = dict(launches=t["launches"]["persistent_render"],
-                                  ms=t["kernel_ms"], plain_ms=k2_tex_cli[label]["plain_ms"],
+                                  ms=t["kernel_ms"], plain_ms=held_t["plain_ms"],
                                   wall_s=rep_t["wall_s"],
                                   segments=rep_t["traced_segments"],
                                   warp_occupancy=rep_t["warp_occupancy"], bound_ms=b[0],
-                                  bound_by=b[1], bound_counts=(
-                                      "closest hit only" if not per_hit else
-                                      f"closest hit + {per_hit} ops x {hits} hits"))
-    # Kernel 3 textured: the tape's hit entries count the textured hits.
+                                  bound_by=b[1], bound_ms_hash_marble=b_hash[0],
+                                  **{k: held_t[k] for k in (
+                                      "marble_hits", "image_lookups", "marble_simt_efficiency",
+                                      "marble_simt_efficiency_retrace", "image_simt_efficiency",
+                                      "image_simt_efficiency_retrace", "warp_trips",
+                                      "warp_trips_retrace")},
+                                  bound_counts=(
+                                      f"closest hit + {MARBLE_OPS} ops x marbles + {per_lookup} "
+                                      "ops x image lookups, counted by the twin on this call"))
+    # Kernel 3 textured: the tape's hit entries count the textured hits
+    # (every primitive of both scenes is textured). Its threads take samples
+    # from a queue in an order the run does not record, so no warp-union
+    # count is made.
     k3_textured = {}
     for label, t in k3_tex.items():
-        per_hit = MARBLE_OPS if label == "perlin" else IMAGE_OPS["bilinear"]
-        b = bound(hit_ops(t["segments"], t["ns"], t["nq"]) + t["textured_hits"] * per_hit,
-                  t["lanes"] * (12 + 4 * TRAIN_CFG["max_depth"] + 4))
+        marbles = t["textured_hits"] if label == "perlin" else 0
+        lookups = t["textured_hits"] - marbles
+        b, b_hash = (bound(hit_ops(t["segments"], t["ns"], t["nq"]) + marbles * ops
+                           + lookups * IMAGE_OPS["bilinear"],
+                           t["lanes"] * (12 + 4 * TRAIN_CFG["max_depth"] + 4))
+                     for ops in (MARBLE_OPS, MARBLE_OPS_HASH))
         k3_textured[label] = dict(
             {k: t[k] for k in ("ms", "plain_ms", "tape_equal", "lanes_equal", "segments",
                                "warp_occupancy", "textured_hits")},
-            bound_ms=b[0], bound_by=b[1],
+            marble_hits=marbles, image_lookups=lookups, marble_simt_efficiency=None,
+            bound_ms=b[0], bound_by=b[1], bound_ms_hash_marble=b_hash[0],
             launches_in_training=train_t.get(label, {}).get("tape_launches"))
     # Kernel 2 culled, at each large render: ms, twin ms and bounds at
     # phase 3c's call of the render's shape at HELD_SPP (per lane and per
@@ -1506,14 +1592,18 @@ def main() -> int:
             "on_main_path": True,
             "path": "training, scan backend (one step, phase 7)",
             "max_abs_err": max(v["t_max_abs"] for v in (*k1.values(), *k1_path.values())),
-            "ms": k1r["ms"],
-            "plain_ms": k1r["plain_ms"],
-            "bound_ms": b1[0],
-            "bound_by": b1[1],
+            "ms": k1_scan["ms"],
+            "plain_ms": k1_scan["plain_ms"],
+            "bound_ms": k1_scan["bound_ms"],
+            "bound_by": k1_scan["bound_by"],
             "library_ms": None,
-            "shape": f"scan step bounce 0, {k1r['rays']} camera rays x rand_spheres "
-                     f"({k1r['ns']} spheres, {k1r['nq']} quad)",
+            "shape": f"the scan step's {k1_scan['launches']} launches at their own ray counts "
+                     f"({k1_scan['rays']} rays in all, {k1r['rays']} camera rays at bounce 0) x "
+                     f"rand_spheres ({k1r['ns']} spheres, {k1r['nq']} quad); ms, plain_ms and "
+                     "bound_ms summed over the launches",
+            "bounce_0": {k: k1r[k] for k in ("rays", "ms", "plain_ms")},
             "launches_large_scene_path": paths["large_scene"]["launches"]["closest_hit"],
+            "large_scene_path": paths["large_scene"]["closest_hit"],
         },
         {
             "name": "persistent_render",

@@ -7,27 +7,32 @@
 // dielectric scatter, depth budget, russian roulette, and retirement into
 // the (3, K, N) per-(slot, lane) log.
 //
-// Textures are a compile-time parameter (kTex). Without it the kernel
-// shades solid and checker textures from the (P, 16) row table only; with
-// it, a winner whose texture-table row (materials/packed.py:texture_tables)
-// is noise or image is shaded by csrc/textures.cuh: the 7-octave procedural
-// Perlin marble, or the image at the sphere's or quad's UV through the
-// nearest, 4-tap or stochastic single-tap filter (`filter`, uniform over a
-// launch). Scenes without noise or image textures launch the kTex = false
-// instantiation, which compiles to the code it had before textures.
+// Textures are a compile-time parameter (kTex). The plain instantiation
+// shades solid and checker textures from the (P, 16) row table only; in
+// the others a winner whose texture-table row (materials/packed.py:
+// texture_tables) is noise or image is shaded by csrc/textures.cuh: the
+// 7-octave procedural Perlin marble, or the image at the sphere's or
+// quad's UV through the nearest, 4-tap or stochastic single-tap filter
+// (`filter`, uniform over a launch). Scenes without noise or image
+// textures launch the plain instantiation, which holds no texture code;
+// scenes with images and no noise the image one, which holds no Perlin
+// tables.
 //
 // What bounds it on an H100: the closest-hit loop, ~20 FP32 operations per
 // primitive per path segment (488 rows on rand_spheres), each its own
 // instruction with contraction off (--fmad=false, ops/build.py), so the
 // instruction issue rate sets its floor; SIMT divergence costs little (a
 // warp runs until its longest lane queue drains: warp occupancy 0.947). On
-// noise scenes the marble adds ~3,800 integer and FP32 operations per noise
-// hit (perlin's two spheres make the closest hit cheap), so there the marble
-// bounds it.
+// noise scenes (two to four spheres: a cheap closest hit) the marble
+// bounds it: ~1,100 operations per noise hit from the block's shared
+// Perlin tables (csrc/textures.cuh), evaluated by a warp whenever any of
+// its lanes hits noise.
 //
-// Design: one thread per wavefront lane, each running its
-// lane's whole strided sample queue in a loop until it owes no sample and has
-// no path in flight. This replaces the TPU tile's while_loop and its max
+// Design: one thread per wavefront lane, each running its lane's whole
+// strided sample queue in a loop, one path segment an iteration, until it
+// owes no sample and has no path in flight; the noise instantiations first
+// fill the block's shared Perlin tables and sync the block, before any
+// thread leaves. This replaces the TPU tile's while_loop and its max
 // reduces. All path state lives in registers; nothing touches device memory
 // per bounce except the broadcast table reads (csrc/closest_hit.cuh), the
 // winner's material row, read directly by index from the (P, 16) table
@@ -144,9 +149,9 @@ constexpr int DIFFUSE_LIGHT = 3;
 // g = sphere center | quad unit normal; g3 = signed radius | 0;
 // prm = metal fuzz | ior; its = 1/checker scale (0 = solid).
 
-// Texture inputs of the kTex instantiations: the (P, 12) texture table as
-// three float4 a row, the (I, img_h, img_w, 3) float32 texels, their (I, 2)
-// int32 true dims, and the image filter.
+// Texture inputs of the image and noise instantiations: the (P, 12)
+// texture table as three float4 a row, the (I, img_h, img_w, 3) float32
+// texels, their (I, 2) int32 true dims, and the image filter.
 struct TexArgs {
   const float4* rows;
   const float* images;
@@ -233,7 +238,15 @@ static __device__ __forceinline__ int take_sample(int* next) {
   return g.shfl(base, 0) + (int)g.thread_rank();
 }
 
-template <bool kTape, bool kTex, bool kCull>
+// The texture instantiations (kTex): solid and checker textures only;
+// image textures too; and the Perlin marble, whose tables each block fills
+// into its shared memory. A scene without noise never pays for the tables
+// (their shared memory, their fill, the registers of the marble's loads).
+constexpr int TEXTURES_PLAIN = 0;
+constexpr int TEXTURES_IMAGE = 1;
+constexpr int TEXTURES_NOISE = 2;
+
+template <bool kTape, int kTex, bool kCull>
 __global__ void persistent_kernel(
     const float4* __restrict__ sph, int ns, const float4* __restrict__ quad, int nq,
     const float4* __restrict__ res, const float* __restrict__ cam, uint32_t seed,
@@ -243,6 +256,15 @@ __global__ void persistent_kernel(
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
     int sky_gradient, int max_iters, int* __restrict__ tape, int* __restrict__ next_sample,
     int* __restrict__ thread_segs, TexArgs tex, CullArgs cull) {
+  // The noise instantiations' Perlin tables, filled by the whole block
+  // before any of its threads leaves (the return below, kTape's queue break).
+  const rt::PerlinTables* perlin = nullptr;
+  if constexpr (kTex == TEXTURES_NOISE) {
+    __shared__ rt::PerlinTables perlin_tables;
+    rt::fill_perlin_tables(perlin_tables);
+    __syncthreads();
+    perlin = &perlin_tables;
+  }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (!kTape && lane >= n) return;
 
@@ -390,11 +412,11 @@ __global__ void persistent_kernel(
           texb = m2.w;
         }
       }
-      if (kTex) {  // ---- noise or image texture (csrc/textures.cuh) ----
+      if (kTex != TEXTURES_PLAIN) {  // ---- noise or image texture (csrc/textures.cuh) ----
         const float4 t0 = __ldg(tex.rows + 3 * prim);  // [type scale image 0]
         const int ttype = (int)t0.x;
-        if (ttype == rt::TEX_NOISE) {
-          texr = texg = texb = rt::marble(ptx, pty, ptz, t0.y);
+        if (kTex == TEXTURES_NOISE && ttype == rt::TEX_NOISE) {
+          texr = texg = texb = rt::marble(*perlin, ptx, pty, ptz, t0.y);
         } else if (ttype == rt::TEX_IMAGE) {
           float u, v;
           if (is_quad) {  // quad_uv from the row's alpha and beta basis
@@ -537,12 +559,17 @@ __global__ void persistent_kernel(
 
 }  // namespace
 
-// Texture arguments of an entry point; a null table selects the kTex = false
-// instantiation.
+// Texture arguments of an entry point.
 static TexArgs tex_args(const void* tex_rows, const void* images, const void* dims,
                         int img_h, int img_w, int filter) {
   return TexArgs{(const float4*)tex_rows, (const float*)images, (const int*)dims, img_h,
                  img_w, filter};
+}
+
+// The texture instantiation of a launch: a null texture table selects the
+// plain one; `noise` (the scene has noise textures) the marble's.
+static int textures_of(const void* tex_rows, int noise) {
+  return !tex_rows ? TEXTURES_PLAIN : (noise ? TEXTURES_NOISE : TEXTURES_IMAGE);
 }
 
 // Kernel 2. A null cluster table selects the dense (kCull = false)
@@ -554,15 +581,21 @@ extern "C" int rt_render_persistent(
     void* segs, int width, int height, int jump_px, int jump_py, int num_slots,
     int max_depth, int rr_start, float rr_lo, float rr_hi, int sky_gradient,
     int max_iters, const void* tex_rows, const void* images, const void* dims, int img_h,
-    int img_w, int filter, const void* clusters, int s_super, int s_fine, int q_super,
-    int q_fine, int threads, void* stream) {
+    int img_w, int filter, int noise, const void* clusters, int s_super, int s_fine,
+    int q_super, int q_fine, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
   const CullArgs cull{(const float4*)clusters, s_super, s_fine, q_super, q_fine};
-  auto kernel = tex_rows ? (clusters ? persistent_kernel<false, true, true>
-                                     : persistent_kernel<false, true, false>)
-                         : (clusters ? persistent_kernel<false, false, true>
-                                     : persistent_kernel<false, false, false>);
+  const int textures = textures_of(tex_rows, noise);
+  auto kernel =
+      textures == TEXTURES_NOISE
+          ? (clusters ? persistent_kernel<false, TEXTURES_NOISE, true>
+                      : persistent_kernel<false, TEXTURES_NOISE, false>)
+      : textures == TEXTURES_IMAGE
+          ? (clusters ? persistent_kernel<false, TEXTURES_IMAGE, true>
+                      : persistent_kernel<false, TEXTURES_IMAGE, false>)
+          : (clusters ? persistent_kernel<false, TEXTURES_PLAIN, true>
+                      : persistent_kernel<false, TEXTURES_PLAIN, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)sph, ns, (const float4*)quad, nq, (const float4*)res,
       (const float*)cam, (uint32_t)seed, (const int*)rem0, (const int*)px0,
@@ -585,11 +618,13 @@ extern "C" int rt_render_persistent_tape(
     const void* sph, int ns, const void* quad, int nq, const void* res, const void* cam,
     int seed, int n, void* radiance, void* tape, void* segs, int width, int height,
     int max_depth, int sky_gradient, const void* tex_rows, const void* images,
-    const void* dims, int img_h, int img_w, int filter, void* next_sample,
+    const void* dims, int img_h, int img_w, int filter, int noise, void* next_sample,
     void* thread_segs, int grid_divisor, int threads, void* stream) {
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
-  auto kernel =
-      tex_rows ? persistent_kernel<true, true, false> : persistent_kernel<true, false, false>;
+  const int textures = textures_of(tex_rows, noise);
+  auto kernel = textures == TEXTURES_NOISE   ? persistent_kernel<true, TEXTURES_NOISE, false>
+                : textures == TEXTURES_IMAGE ? persistent_kernel<true, TEXTURES_IMAGE, false>
+                                             : persistent_kernel<true, TEXTURES_PLAIN, false>;
   int device = 0, sms = 0, per_sm = 0, err = 0;
   if ((err = (int)cudaGetDevice(&device))) return err;
   if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) {

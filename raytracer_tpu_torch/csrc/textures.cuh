@@ -4,11 +4,26 @@
 // (_persistent_kernel): the procedural Perlin marble (:670-678), sphere and
 // quad UV, and the nearest (:679-731), stochastic single-tap (:732-765) and
 // 4-tap bilinear (:792-840) image lookups. The TPU kernel's workarounds are
-// not carried over: the int32 re-expression of the hash (:144-218) becomes
-// plain uint32_t arithmetic of materials/perlin_hash.py; ops/invtrig.py
-// becomes acosf/atan2f; the f32-mantissa texel packing and the chunk-band
-// texel scans become direct reads of the scene's float32 (I, H, W, 3)
-// texels, the same tensor the plain twin indexes.
+// not carried over: it recomputed the Perlin tables' entries with an int32
+// hash at every lattice corner (:144-218, materials/perlin_hash.py), since
+// gathers from tiny tables were slow on the TPU; here the textured kernels
+// gather them from the block's shared memory (PerlinTables, filled from the
+// same hash); ops/invtrig.py becomes acosf/atan2f; the f32-mantissa texel
+// packing and the chunk-band texel scans become direct reads of the
+// scene's float32 (I, H, W, 3) texels, the same tensor the plain twin
+// indexes.
+//
+// What bounds the marble on an H100: instruction issue over 7 octaves of 8
+// lattice corners. The hash took ~53 SASS instructions a corner, most of
+// them integer, which an SM issues at half its FP32 rate; from the tables
+// a corner is one LDS.128 of its gradient, two XORs and the dot product
+// (~18 instructions, utils/sass_loop.py --marble). It is still the largest
+// part of a noise scene's call. A warp evaluates a marble when any of its
+// lanes hits noise, so on perlin about half its lanes idle through each
+// one (SIMT efficiency ~0.5, integrator/wavefront.py:TextureWork); tracing
+// a missed path's next camera ray inside the iteration raised that to
+// ~0.8 but cost more in added closest hits than it saved, and was dropped
+// (PERF.md, section 6).
 //
 // Plain twin (and spec): raytracer_tpu_torch/materials/textures.py
 // (perlin_noise with perlin=None, marble, image_lookup,
@@ -83,11 +98,53 @@ static __device__ __forceinline__ float grad_component(uint32_t h) {
   return (float)(u & 0xFFFFFFu) * (1.0f / 8388608.0f) - 1.0f;
 }
 
-// Gradient dot product at lattice corner (cx, cy, cz) of hash h.
-static __device__ __forceinline__ float perlin_corner(uint32_t h, float tx, float ty, float tz,
-                                                      float cx, float cy, float cz) {
-  return grad_component<0>(h) * (tx - cx) + grad_component<1>(h) * (ty - cy) +
-         grad_component<2>(h) * (tz - cz);
+// The Perlin tables in the block's shared memory, filled once per block
+// (fill_perlin_tables) from perm_u8 and grad_component themselves, so every
+// entry is the bits the hash computes (materials/perlin_hash.py:
+// build_tables materializes the same arrays). The three gradient components
+// sit in one float4 per entry (one LDS.128 a corner); each axis has one
+// word per lattice coordinate i holding perm(i) | perm((i + 1) & 255) << 8,
+// so an octave's six permutations are three loads.
+constexpr int PERLIN_SIZE = 256;
+
+struct PerlinTables {
+  float4 grad[PERLIN_SIZE];
+  uint32_t pair[3][PERLIN_SIZE];
+};
+
+template <int kAxis>
+static __device__ __forceinline__ uint32_t perm_pair(uint32_t i) {
+  return perm_u8<kAxis>(i) | (perm_u8<kAxis>((i + 1u) & 255u) << 8);
+}
+
+// Every thread of the block takes part; the caller syncs the block after.
+static __device__ void fill_perlin_tables(PerlinTables& tab) {
+  for (int i = threadIdx.x; i < PERLIN_SIZE; i += blockDim.x) {
+    const uint32_t h = (uint32_t)i;
+    tab.grad[i] = make_float4(grad_component<0>(h), grad_component<1>(h),
+                              grad_component<2>(h), 0.0f);
+    tab.pair[0][i] = perm_pair<0>(h);
+    tab.pair[1][i] = perm_pair<1>(h);
+    tab.pair[2][i] = perm_pair<2>(h);
+  }
+}
+
+// perm(i) and perm((i + 1) & 255) of axis kAxis.
+template <int kAxis>
+static __device__ __forceinline__ void lattice_perm(const PerlinTables& tab, uint32_t i,
+                                                    uint32_t& p0, uint32_t& p1) {
+  const uint32_t w = tab.pair[kAxis][i];
+  p0 = w & 255u;
+  p1 = w >> 8;
+}
+
+// Gradient dot product at lattice corner (cx, cy, cz) of hash h, in the
+// twin's order of operations.
+static __device__ __forceinline__ float perlin_corner(const PerlinTables& tab, uint32_t h,
+                                                      float tx, float ty, float tz, float cx,
+                                                      float cy, float cz) {
+  const float4 g = tab.grad[h];
+  return g.x * (tx - cx) + g.y * (ty - cy) + g.z * (tz - cz);
 }
 
 static __device__ __forceinline__ float c_lerp(float t, float a, float b) {
@@ -95,38 +152,41 @@ static __device__ __forceinline__ float c_lerp(float t, float a, float b) {
 }
 
 // textures.perlin_noise with the procedural tables (materials.go:222-249).
-static __device__ __forceinline__ float perlin_noise(float x, float y, float z) {
+static __device__ __forceinline__ float perlin_noise(const PerlinTables& tab, float x, float y,
+                                                     float z) {
   const float pfx = floorf(x), pfy = floorf(y), pfz = floorf(z);
   const float tx = x - pfx, ty = y - pfy, tz = z - pfz;
   const uint32_t ix = (uint32_t)(int)pfx & 255u;
   const uint32_t iy = (uint32_t)(int)pfy & 255u;
   const uint32_t iz = (uint32_t)(int)pfz & 255u;
-  const uint32_t hx0 = perm_u8<0>(ix), hx1 = perm_u8<0>((ix + 1u) & 255u);
-  const uint32_t hy0 = perm_u8<1>(iy), hy1 = perm_u8<1>((iy + 1u) & 255u);
-  const uint32_t hz0 = perm_u8<2>(iz), hz1 = perm_u8<2>((iz + 1u) & 255u);
+  uint32_t hx0, hx1, hy0, hy1, hz0, hz1;
+  lattice_perm<0>(tab, ix, hx0, hx1);
+  lattice_perm<1>(tab, iy, hy0, hy1);
+  lattice_perm<2>(tab, iz, hz0, hz1);
   const float fx = tx * tx * (3.0f - 2.0f * tx);
   const float fy = ty * ty * (3.0f - 2.0f * ty);
   const float fz = tz * tz * (3.0f - 2.0f * tz);
-  const float c00 = c_lerp(fx, perlin_corner(hx0 ^ hy0 ^ hz0, tx, ty, tz, 0.0f, 0.0f, 0.0f),
-                           perlin_corner(hx1 ^ hy0 ^ hz0, tx, ty, tz, 1.0f, 0.0f, 0.0f));
-  const float c10 = c_lerp(fx, perlin_corner(hx0 ^ hy1 ^ hz0, tx, ty, tz, 0.0f, 1.0f, 0.0f),
-                           perlin_corner(hx1 ^ hy1 ^ hz0, tx, ty, tz, 1.0f, 1.0f, 0.0f));
-  const float c01 = c_lerp(fx, perlin_corner(hx0 ^ hy0 ^ hz1, tx, ty, tz, 0.0f, 0.0f, 1.0f),
-                           perlin_corner(hx1 ^ hy0 ^ hz1, tx, ty, tz, 1.0f, 0.0f, 1.0f));
-  const float c11 = c_lerp(fx, perlin_corner(hx0 ^ hy1 ^ hz1, tx, ty, tz, 0.0f, 1.0f, 1.0f),
-                           perlin_corner(hx1 ^ hy1 ^ hz1, tx, ty, tz, 1.0f, 1.0f, 1.0f));
+  const float c00 = c_lerp(fx, perlin_corner(tab, hx0 ^ hy0 ^ hz0, tx, ty, tz, 0.0f, 0.0f, 0.0f),
+                           perlin_corner(tab, hx1 ^ hy0 ^ hz0, tx, ty, tz, 1.0f, 0.0f, 0.0f));
+  const float c10 = c_lerp(fx, perlin_corner(tab, hx0 ^ hy1 ^ hz0, tx, ty, tz, 0.0f, 1.0f, 0.0f),
+                           perlin_corner(tab, hx1 ^ hy1 ^ hz0, tx, ty, tz, 1.0f, 1.0f, 0.0f));
+  const float c01 = c_lerp(fx, perlin_corner(tab, hx0 ^ hy0 ^ hz1, tx, ty, tz, 0.0f, 0.0f, 1.0f),
+                           perlin_corner(tab, hx1 ^ hy0 ^ hz1, tx, ty, tz, 1.0f, 0.0f, 1.0f));
+  const float c11 = c_lerp(fx, perlin_corner(tab, hx0 ^ hy1 ^ hz1, tx, ty, tz, 0.0f, 1.0f, 1.0f),
+                           perlin_corner(tab, hx1 ^ hy1 ^ hz1, tx, ty, tz, 1.0f, 1.0f, 1.0f));
   return c_lerp(fz, c_lerp(fy, c00, c10), c_lerp(fy, c01, c11));
 }
 
 // textures.marble: 0.5 * (1 + sin(sp_z + 10 * |7 halving octaves|)), sp =
 // point * scale (materials.go:251-262, 285-288).
-static __device__ __forceinline__ float marble(float px, float py, float pz, float scale) {
+static __device__ __forceinline__ float marble(const PerlinTables& tab, float px, float py,
+                                               float pz, float scale) {
   const float spx = px * scale, spy = py * scale, spz = pz * scale;
   float x = spx, y = spy, z = spz;
   float total = 0.0f;
   float weight = 1.0f;
   for (int o = 0; o < TURBULENCE_OCTAVES; ++o) {
-    total = total + weight * perlin_noise(x, y, z);
+    total = total + weight * perlin_noise(tab, x, y, z);
     weight *= 0.5f;
     x = x * 2.0f;
     y = y * 2.0f;

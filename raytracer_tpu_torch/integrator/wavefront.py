@@ -443,6 +443,79 @@ def _slab_enters(box, origin, inv, a, t_best, pad=pk.CLUSTER_SLAB_PAD):
     return lo * a < torch.minimum((hi + pad) * a, t_best)
 
 
+class TextureWork(NamedTuple):
+    """Kernel 2's texture evaluations (marbles, image lookups), counted by
+    regen_plain(return_texture_work=True): per lane, and per warp of 32
+    consecutive lanes under two schedules of its loop. A warp evaluates a
+    kind in an iteration when any of its lanes does, so its warp-union
+    count is the (warp, iteration) pairs where one lane did. Under
+    `one_segment` iteration i traces each lane's i-th segment (the kernel's
+    loop); under `retrace` a lane whose segment misses retires and traces
+    its next path in the same iteration, so iteration j shades each lane's
+    j-th hit (a loop of the dense textured instantiations measured and not
+    kept: PERF.md, section 6)."""
+
+    per_lane: torch.Tensor  # (2, N) int32: marbles, image lookups of each lane
+    one_segment: torch.Tensor  # (2,) int64 warp-union marbles, image lookups
+    retrace: torch.Tensor  # (2,) int64 the same under the retrace schedule
+    # (2,) int64 closest hits a warp runs (each iteration as many as its
+    # lane tracing the most segments in it), one_segment and retrace.
+    warp_trips: torch.Tensor
+
+    def simt_efficiency(self, schedule: str) -> list[float]:
+        """Per kind: evaluations over WARP x warp-union evaluations (1 when
+        every lane of every evaluating warp evaluates; NaN for none)."""
+        union = getattr(self, schedule).double() * WARP
+        return (self.per_lane.sum(dim=1).double().cpu() / union.cpu()).tolist()
+
+
+class _TextureCounter:
+    """regen_plain's count of TextureWork, fed each iteration's winners."""
+
+    def __init__(self, textures, n: int, max_iters: int, dev):
+        from raytracer_tpu_torch.geometry.scene import TEX_IMAGE, TEX_NOISE
+        from raytracer_tpu_torch.materials.packed import TCOL_TYPE
+
+        ttype = textures.rows[:, TCOL_TYPE].to(torch.int64)
+        self.kinds = torch.stack([ttype == TEX_NOISE, ttype == TEX_IMAGE])  # (2, P)
+        self.per_lane = torch.zeros(2, n, dtype=torch.int64, device=dev)
+        self.hits = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.one_segment = torch.zeros(2, dtype=torch.int64, device=dev)
+        # (kind, warp, hit index) pairs any lane evaluated, for `retrace`.
+        self.seen = torch.zeros(2, -(-n // WARP), max_iters, dtype=torch.bool, device=dev)
+        # Segments of each lane since its last hit, and per (warp, retrace
+        # iteration) the most any lane traced in it.
+        self.run = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.trips = torch.zeros(-(-n // WARP) * max_iters, dtype=torch.int64, device=dev)
+        self.max_iters = max_iters
+
+    def _close_runs(self, lanes):
+        key = (lanes // WARP) * self.max_iters + self.hits[lanes]
+        self.trips.scatter_reduce_(0, key, self.run[lanes], "amax")
+        self.run[lanes] = 0
+
+    def add(self, a, t, prim):
+        hit = torch.isfinite(t)
+        lanes, p = a[hit], prim[hit].long()
+        warp, j = lanes // WARP, self.hits[lanes]
+        for k in range(2):
+            m = self.kinds[k, p]
+            self.per_lane[k].index_add_(0, lanes[m], torch.ones_like(lanes[m]))
+            self.one_segment[k] += torch.unique(warp[m]).numel()
+            self.seen[k, warp[m], j[m]] = True
+        self.run[a] += 1
+        self._close_runs(lanes)
+        self.hits[lanes] += 1
+
+    def result(self, segs) -> TextureWork:
+        self._close_runs(torch.nonzero(self.run).squeeze(1))  # each lane's last misses
+        n = segs.shape[0]
+        per_warp = torch.nn.functional.pad(segs.long(), (0, -n % WARP)).reshape(-1, WARP)
+        trips = torch.stack([per_warp.max(dim=1).values.sum(), self.trips.sum()])
+        return TextureWork(self.per_lane.to(torch.int32), self.one_segment,
+                           self.seen.sum(dim=(1, 2)), trips)
+
+
 def regen_plain(
     sph_table,
     quad_table,
@@ -467,6 +540,7 @@ def regen_plain(
     textures=None,
     clusters=None,
     return_work: bool = False,
+    return_texture_work: bool = False,
 ):
     """Plain twin of the persistent kernel: the same per-lane semantics
     (strided regeneration, camera ray, closest hit, shade, depth budget,
@@ -510,6 +584,7 @@ def regen_plain(
     work = torch.zeros(WORK_ROWS, n, dtype=torch.int64, device=dev) if return_work else None
     warp_work = torch.zeros(WORK_ROWS + 1, dtype=torch.int64, device=dev) if return_work else None
     visit = None if clusters is None else ClusterVisit.build(clusters, sph_table, quad_table)
+    tex_count = _TextureCounter(textures, n, max_iters, dev) if return_texture_work else None
 
     for _ in range(max_iters):
         # ---- regeneration: idle lanes owing samples start their next one ----
@@ -544,6 +619,8 @@ def regen_plain(
             t, prim = visit.hit(o, d)
         else:
             t, prim = intersect_plain(sph_table, quad_table, o, d)
+        if tex_count is not None:
+            tex_count.add(a, t, prim)
         uni = ctr_rng.uniform(seed, sid[:, None], ctr_rng.shading_ctr(bounce[:, None], j3))
         rru = ctr_rng.uniform(seed, sid, ctr_rng.rr_ctr(bounce, max_depth))
         tap = None
@@ -555,7 +632,8 @@ def regen_plain(
             (origin, direction, tp, rad, depth, active, log), max_depth=max_depth,
             rr_start=rr_start, rr_lo=rr_lo, rr_hi=rr_hi, sky_gradient=sky_gradient, tap=tap,
         )
-    return (log, segs, work.to(torch.int32), warp_work) if return_work else (log, segs)
+    out = (log, segs) + ((work.to(torch.int32), warp_work) if return_work else ())
+    return out + ((tex_count.result(segs),) if return_texture_work else ())
 
 
 def _bounce_and_retire(

@@ -46,20 +46,20 @@ SIGNATURES = {
     # sph, ns, quad, nq, res, cam, seed, rem0, px0, py0, n, log, segs,
     # width, height, jump_px, jump_py, num_slots, max_depth, rr_start,
     # rr_lo, rr_hi, sky_gradient, max_iters, tex_rows, images, image_dims,
-    # img_h, img_w, filter, clusters, n_sph_super, n_sph, n_quad_super,
-    # n_quad, threads, stream
+    # img_h, img_w, filter, noise, clusters, n_sph_super, n_sph,
+    # n_quad_super, n_quad, threads, stream
     "rt_render_persistent": [
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-        _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P,
     ],
     # sph, ns, quad, nq, res, cam, seed, n, radiance, tape, segs,
     # width, height, max_depth, sky_gradient, tex_rows, images, image_dims,
-    # img_h, img_w, filter, next_sample, thread_segs, grid_divisor,
+    # img_h, img_w, filter, noise, next_sample, thread_segs, grid_divisor,
     # threads, stream
     "rt_render_persistent_tape": [
         _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-        _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P,
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P,
     ],
     # sph, ns, quad, nq, cam, seed, origin, direction, active, remaining, px,
     # py, sample_k, depth, n, width, height, jump_px, jump_py, max_depth,

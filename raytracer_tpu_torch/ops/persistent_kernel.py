@@ -9,7 +9,8 @@ cluster table (`pack_cluster_table`, from geometry/bvh.py:cluster_scene),
 the two-level cluster-culled loops of large scenes. The CUDA kernel is
 `csrc/persistent_kernel.cu` (one thread per wavefront lane, each running
 its lane's strided sample queue to the end; noise and images in
-`csrc/textures.cuh`, compiled in only for scenes that have them, and the
+`csrc/textures.cuh`, compiled in only for scenes that have them, the
+marble's shared-memory Perlin tables only for scenes with noise, and the
 culled loops only for calls with a cluster table); its plain PyTorch twin
 and spec is integrator/wavefront.py:regen_plain, which takes the same
 packed tables.
@@ -117,11 +118,13 @@ def pack_persistent_tables(scene):
 
 
 def _texture_launch_args(textures, p: int, dev):
-    """The texture arguments of a kernel entry point (null pointers select
-    the untextured instantiation), after checking the tables of a scene of
-    `p` primitives."""
+    """The texture arguments of a kernel entry point, after checking the
+    tables of a scene of `p` primitives: null pointers select the plain
+    instantiation, the last argument (`has_noise`) the one that fills the
+    Perlin tables for the marble (csrc/persistent_kernel.cu:
+    TEXTURES_NOISE)."""
     if textures is None:
-        return (None, None, None, 0, 0, 0)
+        return (None, None, None, 0, 0, 0, 0)
     check_tensor("textures.rows", textures.rows, torch.float32, (p, TEX_COLS), dev)
     images = textures.images
     check_tensor("textures.images", images, torch.float32, (None, None, None, 3), dev)
@@ -131,7 +134,7 @@ def _texture_launch_args(textures, p: int, dev):
         raise ValueError("the kernel shades the procedural Perlin tables only")
     check_float4_rows(texture_rows=textures.rows)
     return (textures.rows.data_ptr(), images.data_ptr(), textures.image_dims.data_ptr(),
-            images.shape[1], images.shape[2], textures.image_filter)
+            images.shape[1], images.shape[2], textures.image_filter, int(textures.has_noise))
 
 
 class ClusterTable(NamedTuple):

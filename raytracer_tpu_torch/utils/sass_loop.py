@@ -20,6 +20,14 @@ shortest way through the body that takes one forward branch within it
 (`skip_path`). Static counts: a path the data never takes costs nothing,
 so the slow paths are reported beside the loop, not in it. Prints one JSON
 line; with --out also writes each kernel's SASS there.
+
+With --marble it also compiles a probe of csrc/textures.cuh's marble
+(`marble_probe`: one kernel that fills the Perlin tables, syncs its block
+and evaluates one octave of perlin_noise, one that evaluates the whole
+7-octave marble) with the library's flags and counts the SASS instructions
+after the block barrier by class (FP32, integer, conversions, MUFU,
+shared and global loads, other), and per lattice corner (an octave's
+instructions over its 8 corners), with ptxas's registers.
 """
 
 from __future__ import annotations
@@ -167,6 +175,88 @@ def candidate_loops(instrs, labels) -> list[dict]:
     return sorted(inner, key=lambda lp: lp["address"].zfill(16))
 
 
+# The marble probe: the Perlin tables filled and synced as the textured
+# kernels fill them, then one octave of noise or the whole marble per thread.
+_MARBLE_PROBE = r"""
+#include "textures.cuh"
+
+extern "C" __global__ void noise_probe(const float4* __restrict__ p, float* __restrict__ out,
+                                       int n) {
+  __shared__ rt::PerlinTables tab;
+  rt::fill_perlin_tables(tab);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = rt::perlin_noise(tab, p[i].x, p[i].y, p[i].z);
+}
+
+extern "C" __global__ void marble_probe(const float4* __restrict__ p, float* __restrict__ out,
+                                        int n) {
+  __shared__ rt::PerlinTables tab;
+  rt::fill_perlin_tables(tab);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = rt::marble(tab, p[i].x, p[i].y, p[i].z, p[i].w);
+}
+"""
+# SASS opcode classes (by prefix; the first match wins).
+_CLASSES = (
+    ("mufu", ("MUFU",)),
+    ("convert", ("I2F", "F2I", "F2F", "I2I", "FRND")),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FSWZ")),
+    ("int", ("IMAD", "IADD", "LOP", "SHF", "ISETP", "LEA", "IMNMX", "SEL", "PRMT", "IABS",
+             "SGXT", "BMSK", "POPC", "IMUL", "MOV", "FLO", "BREV", "VIADD", "ISCADD", "SHL",
+             "SHR", "UIADD", "UIMAD", "ULOP", "USHF", "UMOV", "ULEA", "USEL")),
+    ("shared_load", ("LDS",)),
+    ("global_load", ("LDG", "LD.", "LDC", "ULDC")),
+)
+
+
+def _opclass(op: str) -> str:
+    for name, prefixes in _CLASSES:
+        if op.startswith(prefixes):
+            return name
+    return "other"
+
+
+def marble_probe(out_dir: Path) -> dict:
+    """Compile the marble probe against build.CSRC_DIR's textures.cuh and
+    count each probe kernel's SASS after its block barrier by class."""
+    from raytracer_tpu_torch.ops import build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = out_dir / "marble_probe.cu", out_dir / "marble_probe.cubin"
+    src.write_text(_MARBLE_PROBE)
+    nvcc = build.find_nvcc()
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    log = subprocess.run([nvcc, *flags, "-I", str(build.CSRC_DIR), "-cubin", "-o", str(cubin),
+                          str(src)], capture_output=True, text=True)
+    if log.returncode != 0:
+        raise RuntimeError(f"marble probe: nvcc failed\n{log.stdout}{log.stderr}")
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    (out_dir / "marble_probe.sass").write_text(sass)
+    regs = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Function properties for (\w+)[\s\S]*?Used (\d+) registers", log.stdout + log.stderr)}
+    report = {}
+    for name, (instrs, labels) in parse_functions(sass).items():
+        ops = [_opcode(t) for _, t in instrs]
+        start = next((i + 1 for i, op in enumerate(ops) if op.startswith("BAR")), 0)
+        body = [op for op in ops[start:] if op != "NOP"]
+        classes: dict = {}
+        for op in body:
+            classes[_opclass(op)] = classes.get(_opclass(op), 0) + 1
+        back = [i for i, (_, t) in enumerate(instrs[start:], start)
+                if _opcode(t).startswith("BRA") and labels.get(_target(t), i + 1) <= i]
+        report[name] = dict(instructions=len(body), classes=classes, backward_branches=len(back),
+                            registers=regs.get(name))
+    if "noise_probe" in report:
+        octave = report["noise_probe"]
+        report["per_corner"] = dict(
+            instructions=octave["instructions"] / 8,
+            **{k: v / 8 for k, v in octave["classes"].items()})
+    return report
+
+
 def _demangle(names: list[str], tool_dir: Path) -> dict[str, str]:
     filt = tool_dir / "cu++filt"
     if not filt.exists():
@@ -186,6 +276,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--csrc", default=None,
                     help="build these sources instead of the package's csrc/ (a variant's "
                          "copy, utils/time_kernels.py)")
+    ap.add_argument("--marble", action="store_true",
+                    help="also count the marble probe's SASS (into --out, default out/sass)")
     args = ap.parse_args(argv)
     if args.csrc:
         build.CSRC_DIR = Path(args.csrc)
@@ -209,6 +301,8 @@ def main(argv=None) -> dict:
         out.mkdir(parents=True, exist_ok=True)
         (out / f"{so.stem}.sass").write_text(sass)
     line = dict(library=so.name, kernels=report)
+    if args.marble:
+        line["marble"] = marble_probe(Path(args.out or "out/sass"))
     print(json.dumps(line), flush=True)
     return line
 

@@ -11,7 +11,8 @@ Cells (each through its public wrapper, so a parent checkout runs it too):
 * `k2_cornell` (quads only) and `k2_quads_1536` (quad_field cut to 1,534
   tiles, its ground quad and its dummy sphere: 1,536 primitives, the most
   a dense render serves), both 400 wide, 16 spp, depth 50 and 8, on 2^18
-  lanes; `k2_perlin` (textured, 400x225@100spp depth 50), and
+  lanes; `k2_perlin`, `k2_simple_light` and `k2_earth` (nearest) (textured,
+  400x225@100spp depth 50), and
   `k2_culled_large`, `k2_culled_50k` and `k2_culled_quad_field`
   (rand_spheres_large, its 50,001-sphere variant and quad_field clustered
   as the render clusters them, 400x225@64spp depth 8: the culled
@@ -165,7 +166,27 @@ static __device__ __forceinline__ void quad_candidates_range(
 }
 
 """
+_TEX = "textures.cuh"
+_PERM_TABLE = """  const uint32_t w = tab.pair[kAxis][i];
+  p0 = w & 255u;
+  p1 = w >> 8;
+"""
+_PERM_HASH = """  p0 = perm_u8<kAxis>(i);
+  p1 = perm_u8<kAxis>((i + 1u) & 255u);
+"""
+_GRAD_HASH = """  const float4 g = make_float4(grad_component<0>(h), grad_component<1>(h),
+                               grad_component<2>(h), 0.0f);
+"""
 PATCHES = {
+    # The marble's Perlin tables (csrc/textures.cuh): `hash` recomputes
+    # every permutation and gradient as the parent kernel did (the tables
+    # are filled and not read), `permhash` the permutations only.
+    "permhash": [(_TEX, _PERM_TABLE, _PERM_HASH)],
+    "hash": [(_TEX, _PERM_TABLE, _PERM_HASH),
+             (_TEX, "  const float4 g = tab.grad[h];\n", _GRAD_HASH)],
+    # At most 64 registers a thread (eight blocks of 128 threads an SM).
+    "regs64": [("persistent_kernel.cu", "__global__ void persistent_kernel(",
+                "__global__ void __launch_bounds__(128, 8) persistent_kernel(")],
     "quadearly": [("closest_hit.cuh", _QUAD_LOOP, _QUAD_EARLY_OUT)],
     # Every row's root, misses masked (no group branch).
     "select": [("closest_hit.cuh", _SKIP, "")],
@@ -198,8 +219,8 @@ PATCHES = {
 """),
         ("persistent_kernel.cu", 'extern "C" int rt_render_persistent(\n',
          _STAGE_HELPER + 'extern "C" int rt_render_persistent(\n'),
-        ("persistent_kernel.cu", "persistent_kernel<false, false, false>);\n  " + _LAUNCH,
-         "persistent_kernel<false, false, false>);\n  " + _LAUNCH.replace(
+        ("persistent_kernel.cu", "persistent_kernel<false, TEXTURES_PLAIN, false>);\n  " + _LAUNCH,
+         "persistent_kernel<false, TEXTURES_PLAIN, false>);\n  " + _LAUNCH.replace(
              "0,", "stage_bytes((const void*)kernel, ns, nq, clusters != nullptr),")),
         ("persistent_kernel.cu", "/ threads;\n  " + _LAUNCH, "/ threads;\n  " + _LAUNCH.replace(
             "0,", "stage_bytes((const void*)kernel, ns, nq, false),")),
@@ -329,8 +350,9 @@ def cells():
     out["k2_cornell"] = (k2, 3, False, info)
     k2, info = _persistent_cell("quad_field", 16, 8, n_spheres=1534)
     out["k2_quads_1536"] = (k2, 3, False, info)
-    k2, info = _persistent_cell("perlin", 100, 50)
-    out["k2_perlin"] = (k2, 3, False, info)
+    for name in ("perlin", "simple_light", "earth"):
+        k2, info = _persistent_cell(name, 100, 50)
+        out[f"k2_{name}"] = (k2, 3, False, info)
     for cell, name, kw in (("k2_culled_large", "rand_spheres_large", {}),
                            ("k2_culled_50k", "rand_spheres_large", {"n_spheres": 50000}),
                            ("k2_culled_quad_field", "quad_field", {})):

@@ -444,6 +444,39 @@ def test_persistent_kernel_textured_matches_plain(cuda, name, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,max_iters", [("perlin", None), ("simple_light", None),
+                                            ("perlin", 9), ("simple_light", 9)])
+def test_textured_kernels_match_their_twins_lane_by_lane(cuda, name, max_iters, monkeypatch):
+    """Kernels 2 and 3 textured (the marble read from the block's shared
+    Perlin tables) against their twins, 55 samples a lane: log and every
+    lane's segments bit-equal, and the tape, radiance and segments of
+    every sample. With `max_iters` the per-lane safety bound cuts kernel
+    2's paths mid-render, and must cut each lane at the segment where the
+    twin's loop cuts it."""
+    if max_iters is not None:
+        monkeypatch.setattr(pk, "max_iters_for", lambda slots, depth: max_iters)
+    args, cfg = persistent_inputs(name, 40, 16, 256, cuda, max_depth=20)
+    log_k, segs_k = pk.render_persistent(*args, **cfg)
+    log_p, segs_p = wf.regen_plain(*args, **cfg, rr_start=5, rr_lo=0.05, rr_hi=0.75,
+                                   max_iters=pk.max_iters_for(cfg["num_slots"], 20))
+    torch.cuda.synchronize()
+    assert torch.equal(segs_k, segs_p) and torch.equal(log_k, log_p), equal_report(
+        [("log", log_k, log_p), ("segs", segs_k, segs_p)])
+    if max_iters is not None:
+        assert int(segs_k.max()) == max_iters
+        return
+    tables, st, textures = tape_inputs(name, 40, cuda)
+    tcfg = dict(width=st.width, height=st.height, max_depth=20, sky_gradient=st.sky_gradient,
+                textures=textures)
+    n = st.width * st.height * 4
+    out_k = pk.render_persistent_tape(*tables, 9, n, **tcfg)
+    out_p = wf.trace_tape_plain(*tables, 9, n, **tcfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out_k, out_p)), equal_report(
+        [(k, a, b) for k, a, b in zip(("radiance", "tape", "segs"), out_k, out_p)])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,kw,n", [("perlin", {}, None), ("earth", {}, None),
                                        ("earth", {"bilinear": True}, None),
                                        ("earth", {"bilinear": True}, 1001),
@@ -689,6 +722,26 @@ def test_library_key_follows_sources(tmp_path, monkeypatch):
     assert len({first, build.library_path()}) == 2
     flags = " ".join(build.NVCC_FLAGS)
     assert "sm_90a" in flags and "fast_math" not in flags and "--fmad=false" in flags
+
+
+@pytest.mark.parametrize("entry", sorted(build.SIGNATURES))
+def test_entry_point_signatures_match_the_sources(entry):
+    """ctypes passes each entry point exactly the parameters its extern "C"
+    definition in csrc/ declares: pointers as c_void_p, ints as c_int,
+    floats as c_float, in order (a missing or extra argument shifts every
+    later one)."""
+    import ctypes
+    import re
+
+    sources = "".join(f.read_text() for f in sorted(build.CSRC_DIR.glob("*.cu")))
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", sources, re.S)
+    assert m, f"{entry} is not defined in csrc/"
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.split()
+        kinds.append(ctypes.c_void_p if "*" in param else
+                     ctypes.c_float if words[0] == "float" else ctypes.c_int)
+    assert kinds == build.SIGNATURES[entry]
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -12,8 +12,12 @@ textured-emitter tests):
 * the tape twin (trace_tape_plain) on tiny earth and perlin against JAX's
   render_persistent_tape in Pallas interpret mode;
 * the bucketed gradient step on a tiny bilinear earth against JAX
-  make_bucketed_grad_fn(forward="kernel") in interpret mode.
+  make_bucketed_grad_fn(forward="kernel") in interpret mode;
+* the twin's counts of marbles and image lookups per lane and per warp
+  (regen_plain's TextureWork) against a brute-force count.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -313,3 +317,82 @@ def test_textured_scene_support():
     sc = b.build(procedural_perlin=False)
     assert "rng-filled" in ppk.unsupported_reason(sc)
     assert ppacked.texture_tables(sc, quad_derived(sc)).perlin is not None
+
+
+def brute_force_texture_work(steps, kinds, n):
+    """Per-lane segment sequences from each regen_plain iteration's (lanes,
+    t, prim), then the TextureWork counts straight from their definitions:
+    per warp of 32 lanes, a (warp, iteration) pair evaluates a kind when
+    any lane does; under one segment an iteration, iteration j is a lane's
+    j-th segment; under retrace, its j-th hit, and its j-th iteration runs
+    the segments from its (j-1)-th hit to its j-th (or to its end)."""
+    seqs = [[] for _ in range(n)]
+    for lanes, t, prim in steps:
+        for lane, tl, pl in zip(lanes.tolist(), t.tolist(), prim.tolist()):
+            seqs[lane].append(kinds[pl] if math.isfinite(tl) else "miss")
+    per_lane = [[sum(k == kind for k in seq) for seq in seqs] for kind in ("marble", "image")]
+    one_seg, retrace = [set(), set()], [set(), set()]
+    trips_one = trips_retrace = 0
+    for w in range(-(-n // 32)):
+        warp_seqs = seqs[32 * w: 32 * w + 32]
+        trips_one += max(len(seq) for seq in warp_seqs)
+        runs = {}  # retrace iteration -> most segments a lane traced in it
+        for seq in warp_seqs:
+            hits = run = 0
+            for j, kind in enumerate(seq):
+                run += 1
+                if kind == "miss":
+                    continue
+                for k, name in enumerate(("marble", "image")):
+                    if kind == name:
+                        one_seg[k].add((w, j))
+                        retrace[k].add((w, hits))
+                runs[hits] = max(runs.get(hits, 0), run)
+                hits, run = hits + 1, 0
+            if run:
+                runs[hits] = max(runs.get(hits, 0), run)
+        trips_retrace += sum(runs.values())
+    return per_lane, [len(x) for x in one_seg], [len(x) for x in retrace], [trips_one,
+                                                                             trips_retrace]
+
+
+@pytest.mark.parametrize("name", ["perlin", "simple_light", "earth"])
+def test_texture_work_counts_match_brute_force(name, monkeypatch):
+    """regen_plain's TextureWork (the marbles and image lookups per lane,
+    their warp unions under both loop schedules, the closest hits a warp
+    runs) against a brute-force count over the same tiny render's per-lane
+    segment sequences; counting changes neither the log nor the
+    segments."""
+    scene, cam, st = get_scene(name, width=24, spp=4, max_depth=10)
+    w, h = st.width, st.height
+    n, slots, jump = pwf.strided_schedule(w * h, 4, 256)
+    args = (*ppk.pack_persistent_tables(scene),
+            ppk.pack_camera_scalars_bg(pcam.camera_frame(cam, w, h), cam.background), 5,
+            *pwf.schedule_arrays(n, w * h, 4, w))
+    textures = ppacked.texture_tables(scene, quad_derived(scene))
+    cfg = dict(width=w, height=h, jump_px=jump % w, jump_py=jump // w, num_slots=slots,
+               max_depth=10, rr_start=5, rr_lo=0.05, rr_hi=0.75, sky_gradient=st.sky_gradient,
+               max_iters=ppk.max_iters_for(slots, 10), textures=textures)
+    steps, real = [], pwf._bounce_and_retire
+
+    def recording(res, ns, tex, bg, a, sk_a, t, prim, *rest, **kw):
+        steps.append((a.clone(), t.clone(), prim.clone()))
+        return real(res, ns, tex, bg, a, sk_a, t, prim, *rest, **kw)
+
+    monkeypatch.setattr(pwf, "_bounce_and_retire", recording)
+    log, segs, work = pwf.regen_plain(*args, **cfg, return_texture_work=True)
+    monkeypatch.setattr(pwf, "_bounce_and_retire", real)
+    log0, segs0 = pwf.regen_plain(*args, **cfg)
+    assert torch.equal(log, log0) and torch.equal(segs, segs0)
+
+    ttype = textures.rows[:, ppacked.TCOL_TYPE].long().tolist()
+    kinds = ["marble" if k == pscene.TEX_NOISE else "image" if k == pscene.TEX_IMAGE else "other"
+             for k in ttype]
+    per_lane, one_seg, retrace, trips = brute_force_texture_work(steps, kinds, n)
+    assert work.per_lane.tolist() == per_lane
+    assert work.one_segment.tolist() == one_seg
+    assert work.retrace.tolist() == retrace
+    assert work.warp_trips.tolist() == trips
+    k = 1 if name == "earth" else 0
+    assert sum(per_lane[k]) > 0 and retrace[k] < one_seg[k] and trips[1] >= trips[0]
+    assert work.simt_efficiency("retrace")[k] == sum(per_lane[k]) / (32 * retrace[k])

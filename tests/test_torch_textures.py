@@ -20,6 +20,7 @@ from raytracer_tpu_torch.geometry import intersect as pint
 from raytracer_tpu_torch.geometry import scene as pscene
 from raytracer_tpu_torch.materials import materials as pmat
 from raytracer_tpu_torch.materials import packed as ppk
+from raytracer_tpu_torch.materials import perlin_hash as pph
 from raytracer_tpu_torch.materials import textures as ptex
 
 torch.set_num_threads(1)
@@ -73,6 +74,49 @@ def test_hash_twins_match_numpy():
         np.testing.assert_array_equal(ptex.perm_u8(axis, xt).numpy(), jph.perm_u8(axis, x))
         np.testing.assert_array_equal(ptex.grad_component(axis, xt).numpy(),
                                       jph.grad_component(axis, x))
+
+
+def test_build_tables_equal_jax():
+    """The port's copy of perlin_hash.build_tables() equals the JAX
+    package's, array for array (dtype, shape and every value)."""
+    for mine, theirs in zip(pph.build_tables(), jph.build_tables(), strict=True):
+        assert mine.dtype == theirs.dtype and mine.shape == theirs.shape
+        np.testing.assert_array_equal(mine, theirs)
+
+
+def marble_points(kind: str, n: int = 2048):
+    """Seeded marble inputs (points, scales): `uniform` points of both
+    signs; `lattice` points on and one float step either side of lattice
+    planes (integers and their neighbours, negatives included, where floor
+    and the & 255 wrap change); `large` coordinates past the 256-cell
+    wrap, at large scales."""
+    rng = np.random.default_rng({"uniform": 11, "lattice": 12, "large": 13}[kind])
+    if kind == "uniform":
+        p = rng.uniform(-40, 40, (n, 3))
+        scale = rng.uniform(0.1, 8, n)
+    elif kind == "lattice":
+        p = rng.integers(-300, 300, (n, 3)).astype(np.float32)
+        step = rng.integers(-1, 2, (n, 3))
+        p = np.where(step < 0, np.nextafter(p, -np.inf), np.where(step > 0, np.nextafter(
+            p, np.inf), p))
+        scale = np.ones(n)
+    else:
+        p = rng.uniform(-5e3, 5e3, (n, 3))
+        scale = rng.uniform(4, 64, n)
+    return torch.from_numpy(p.astype(np.float32)), torch.from_numpy(scale.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "lattice", "large"])
+def test_procedural_marble_equals_the_gathered_tables(kind):
+    """The twin's procedural marble (the hash recomputed at every corner)
+    equals its marble gathered from build_tables()' arrays bit for bit:
+    the kernels' shared-memory tables, filled from the same hash, change
+    no bit of a marble."""
+    vec, px, py, pz = (torch.from_numpy(x) for x in pph.build_tables())
+    p, scale = marble_points(kind)
+    assert torch.equal(ptex.marble(p, scale, None), ptex.marble(p, scale, (vec, px, py, pz)))
+    assert torch.equal(ptex.perlin_noise(p * scale[:, None], None),
+                       ptex.perlin_noise(p * scale[:, None], (vec, px, py, pz)))
 
 
 @pytest.mark.parametrize("procedural", [True, False])
