@@ -24,9 +24,10 @@ counters reset just before and read just after:
   400x225, 64 spp, depth 8, each clustered on the host and rendered in one
   launch of kernel 2's culled instantiation;
 * the large-scene path (phase 10): `_render_large_scene` on
-  rand_spheres_large at the same shape, camera rays through the
-  cluster-culled kernel 4, bounces through kernel 1, its mean against the
-  persistent render's;
+  rand_spheres_large at the same shape, clustered as the persistent path
+  clusters it, camera rays through the cluster-culled kernel 4, bounces
+  through kernel 1's clustered entry (and no dense kernel 1), its mean
+  against the persistent render's;
 * the textured render path (phase 10): the CLI renders of perlin, earth,
   earth --bilinear, earth --bilinear --bilinear-exact and simple_light at
   400x225, 100 spp, depth 50, each one launch of kernel 2's textured
@@ -38,7 +39,9 @@ the marble's Perlin tables from the block's shared memory
 instantiation traces one segment a loop iteration.
 
 Phase 2 also holds kernel 1 bit for bit on rays built for every branch of
-the quad test (tests/adversarial_quads.py). Phase 3 also holds kernel 2's
+the quad test (tests/adversarial_quads.py), and its split path (launches
+too small to fill the card, ops/intersect_kernel.py:split_rows) at 1 to
+28,000 rays on a table whose repeated rows tie across slices. Phase 3 also holds kernel 2's
 textured instantiation against its twin bit for bit (perlin, earth
 nearest, stochastic and 4-tap, simple_light) at 96x54, 8 spp, depth 10 and
 at phase 10's own kernel calls (400x225, 100 spp, depth 50, the CLI's seed
@@ -63,7 +66,10 @@ each of the step's launches at its own ray count (as phase 10 does for
 against its twin at perlin's path shape (and the wavefront-step path
 against kernel 2 on rand_spheres and on perlin with its textures), and
 phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
-camera rays. Every phase prints one line; any failure raises and exits
+camera rays, with its per-lane and warp-union bounds on its two-level
+table and on the TPU kernel's flat one; phase 10 holds every clustered
+kernel-1 launch of `_render_large_scene` against its twin bit for bit and
+times each at its own rays. Every phase prints one line; any failure raises and exits
 non-zero.
 The second-to-last line is the per-kernel JSON record, the last line
 `{"ok": true, "device": {...}}`.
@@ -74,6 +80,7 @@ next to this file. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -86,11 +93,9 @@ REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 sys.path.insert(0, str(REPO))
 from raytracer_tpu_torch.utils.bounds import (  # noqa: E402
-    QUAD_OPS,
-    RAY_OPS,
-    SLAB_OPS,
-    SPHERE_OPS,
+    WARP,
     bound,
+    clustered_hit_bytes,
     culled_bounds,
     culled_bytes,
     hit_ops,
@@ -146,6 +151,10 @@ LARGE_CASES = (
     ("quad_field", "quad_field", {}, ["--scene", "quad_field", "--spp", "64"]),
 )
 OUT_DIR = REPO / "chiprun_out"
+# Phase 2's split launches: ray counts from one to about a compacted scan
+# bounce's, and the rand_spheres rows repeated at the table's end.
+SPLIT_RAYS = (1, 31, 32, 33, 1000, 28000)
+SPLIT_REPEATED_ROWS = 100
 # The training path's shape: the JAX package's gradient reference point
 # (bench.py:_measure_grad_depth50).
 TRAIN_CFG = dict(width=400, spp=8, max_depth=50)
@@ -602,6 +611,70 @@ class HitRecorder:
                     bound_by=max(by, key=by.get))
 
 
+class ClusteredRecorder:
+    """Stands in for ops.intersect_kernel.intersect_clustered while a path
+    runs and passes every call on to it: keeps each call's tables (the
+    path's own, shared by its calls) and a copy of its rays."""
+
+    def __init__(self, ik):
+        self.ik, self.real = ik, ik.intersect_clustered
+        self.calls = []
+
+    def __enter__(self):
+        self.ik.intersect_clustered = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ik.intersect_clustered = self.real
+
+    def __call__(self, clusters, sph, quad, o, d):
+        self.calls.append((clusters, sph, quad, o.detach().clone(), d.detach().clone()))
+        return self.real(clusters, sph, quad, o, d)
+
+    def held_and_timed(self):
+        """Every recorded launch held against its twin (ClusterVisit.
+        hit_work's t and prim) bit for bit and timed at its own rays
+        (device time behind a spin kernel), with the twin's time, and the
+        work the twin counts there per lane and per warp: {launches, rays,
+        ms, plain_ms, bound_ms (per lane), bound_by, warp_bound_ms,
+        simt_efficiency, dense_bound_ms, work, warp_union, max_abs} summed
+        over the launches."""
+        import torch
+
+        from raytracer_tpu_torch.ops.cluster_visit import ClusterVisit
+
+        ms = plain_ms = max_abs = 0.0
+        work = [0] * 6
+        warp_work = [0] * 7
+        rays = dense_ops = nbytes = 0
+        visit = None
+        for clusters, sph, quad, o, d in self.calls:
+            if visit is None or visit[0] is not clusters:
+                visit = (clusters, ClusterVisit.build(clusters, sph, quad))
+            n = o.shape[0]
+            t_k, p_k = self.real(clusters, sph, quad, o, d)
+            t_p, p_p, w, ww = visit[1].hit_work(o, d, torch.arange(n, device=o.device) // WARP)
+            torch.cuda.synchronize()
+            if not (torch.equal(t_k, t_p) and torch.equal(p_k, p_p)):
+                fail(f"kernel 1 clustered, a {n}-ray launch: t equal on "
+                     f"{float((t_k == t_p).float().mean())}, prim on "
+                     f"{float((p_k == p_p).float().mean())} of rays against its twin")
+            max_abs = max(max_abs, max_float_diff(t_k, t_p))
+            ms += time_device(lambda: self.real(clusters, sph, quad, o, d), reps=10, warm=2)
+            plain_ms += time_cuda(lambda: visit[1].hit(o, d), reps=1)
+            work = [a + int(b) for a, b in zip(work, w.sum(1).tolist())]
+            warp_work = [a + int(b) for a, b in zip(warp_work, ww.tolist())]
+            rays += n
+            dense_ops += hit_ops(n, sph.shape[0], quad.shape[0])
+            nbytes += clustered_hit_bytes(n, sum(clusters.counts), sph.shape[0], quad.shape[0])
+        b = culled_bounds(rays, work, warp_work, nbytes)
+        return dict(launches=len(self.calls), rays=rays, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b["per_lane"][0], bound_by=b["per_lane"][1],
+                    warp_bound_ms=b["warp_union"][0], simt_efficiency=b["simt_efficiency"],
+                    dense_bound_ms=bound(dense_ops, rays * 32)[0],
+                    work=work, warp_union=warp_work, max_abs=max_abs)
+
+
 def check_pair(label, kernel_out, plain_out, fold, exact=False):
     """Kernel 2's render against its twin's: >= 99% of pixels within rtol
     1e-3, image mean within 1e-3 relative, segments within 0.1%; with
@@ -762,53 +835,63 @@ def step_vs_persistent(name, seed=11):
 
 
 def culled_check():
-    """Phase 9: kernel 4 against its twin (the same search without culling)
-    and against kernel 1, on rand_spheres_large's own first-pass camera
-    rays at the CLI's shape (400x225, 64 spp in passes of 4, 10,001
-    spheres): t must be bit-equal on every ray, prim equal but for exact
-    ties (counted). The twin also counts the sphere tests a perfect per-ray
-    cull makes, the work of the kernel's bound."""
+    """Phase 9: kernel 4 on the large-scene path's own first-pass camera
+    rays of rand_spheres_large at the CLI's shape (400x225, 64 spp in
+    passes of 4, 10,001 spheres) and its two-level cluster table
+    (render/driver.py:cluster_for_render): t and prim bit-equal to its twin
+    (ClusterVisit.hit), and t bit-equal to dense kernel 1 on every ray
+    (prim but for exact ties, counted). The twin's per-lane and warp-union
+    work on these rays, on this table and on the TPU kernel's flat one
+    (utils/cull_work.py:camera_work), gives the bounds."""
     import torch
 
-    from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
-    from raytracer_tpu_torch.geometry.intersect import build_large_scene_tables
-    from raytracer_tpu_torch.ops import ctr_rng
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.geometry.intersect import scene_tables
     from raytracer_tpu_torch.ops import culled_kernel as ck
     from raytracer_tpu_torch.ops import intersect_kernel as ik
-    from raytracer_tpu_torch.render.driver import chunk_seed, samples_per_pass_for
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.ops.cluster_visit import ClusterVisit
+    from raytracer_tpu_torch.render.driver import (
+        chunk_seed,
+        cluster_for_render,
+        pass_camera_rays,
+        samples_per_pass_for,
+    )
     from raytracer_tpu_torch.scenes.registry import get_scene
+    from raytracer_tpu_torch.utils.cull_work import camera_work
 
     scene, cam, st = get_scene("rand_spheres_large", spp=64)
-    tables, build_s = timed_host(lambda: build_large_scene_tables(scene.to("cuda")))
+    (sc, cs), cluster_s = timed_host(lambda: cluster_for_render(scene, cam))
+    sc = sc.to("cuda")
+    table = pk.pack_cluster_table(cs, "cuda")
+    sph, quad = scene_tables(sc)
     w, h = st.width, st.height
     k = samples_per_pass_for(st.samples_per_pixel, w * h)
-    sid = torch.arange(k * w * h, device="cuda")
-    pix = sid % (w * h)
-    o, d = camera_rays(camera_frame(cam, w, h).to("cuda"), pix % w, pix // w,
-                       ctr_rng.camera_uniforms(chunk_seed(0, 0), sid))
-    args = (tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
-            tables.quad_table, tables.num_spheres, o.contiguous(), d.contiguous())
-    t_k, p_k = ck.intersect_culled(*args)
-    (t_p, p_p, work), plain_ms = timed(lambda: ck.intersect_culled_plain(*args, return_work=True))
-    t_1, p_1 = ik.intersect(tables.sph_table, tables.quad_table, *args[-2:])
+    o, d = pass_camera_rays(camera_frame(cam, w, h).to("cuda"), chunk_seed(0, 0), width=w,
+                            height=h, k=k)
+    t_k, p_k = ck.intersect_culled(table, sph, quad, o, d)
+    visit = ClusterVisit.build(table, sph, quad)
+    (t_p, p_p), plain_ms = timed(lambda: visit.hit(o, d))
+    t_1, p_1 = ik.intersect(sph, quad, o, d)
     torch.cuda.synchronize()
     rec = {}
-    for label, t_o, p_o in (("twin", t_p, p_p), ("kernel_1", t_1, p_1)):
+    for label, t_o, p_o, exact in (("twin", t_p, p_p, True), ("kernel_1", t_1, p_1, False)):
         t_eq = float((t_k == t_o).float().mean())
         ties = int(((p_k != p_o) & (t_k == t_o)).sum())
-        if t_eq < 1.0 or int((p_k != p_o).sum()) != ties:
-            fail(f"kernel 4 vs {label}: t equal on {t_eq}, prim differs off ties")
+        if t_eq < 1.0 or int((p_k != p_o).sum()) != ties or (exact and ties):
+            fail(f"kernel 4 vs {label}: t equal on {t_eq}, prim differs off ties or (twin) "
+                 f"on {ties} ties")
         rec[f"vs_{label}"] = dict(t_equal=t_eq, prim_ties=ties,
                                   max_abs=max_float_diff(t_k, t_o))
-    ms = time_device(lambda: ck.intersect_culled(*args), reps=20)
-    k1_ms = time_device(lambda: ik.intersect(tables.sph_table, tables.quad_table, *args[-2:]),
-                        reps=5)
+    ms = time_device(lambda: ck.intersect_culled(table, sph, quad, o, d), reps=20)
+    k1_ms = time_device(lambda: ik.intersect(sph, quad, o, d), reps=5)
+    work, work_s = timed_host(lambda: camera_work(scene, cam, st, device="cuda"))
     rays = int(o.shape[0])
     rec.update(ms=ms, plain_ms=plain_ms, kernel1_ms=k1_ms, rays=rays,
-               clusters=int(tables.clusters.shape[0]), ns=tables.num_spheres,
-               nq=int(tables.quad_table.shape[0]), host_tables_s=build_s,
-               sphere_tests_per_ray=float(work.double().mean()),
-               sphere_tests=int(work.sum()), hit_frac=float((p_k >= 0).float().mean()))
+               cluster_rows=list(table.counts), ns=sc.num_spheres, nq=sc.num_quads,
+               host_cluster_s=cluster_s, hit_frac=float((p_k >= 0).float().mean()),
+               dense_bound_ms=bound(hit_ops(rays, sc.num_spheres, sc.num_quads), rays * 32)[0],
+               work=work, work_s=work_s)
     return rec
 
 
@@ -1057,6 +1140,22 @@ def main() -> int:
     record["intersect"] = k1
     print(f"phase 2 kernel 1 vs plain, 2^20 rays, and {k1['adversarial_quads']['rays']} "
           f"adversarial quad rays: {json.dumps(k1)}", flush=True)
+    # The split path: launches too small to fill the card, on rand_spheres'
+    # table with its first rows repeated at its end (exact ties that fall
+    # in different slices).
+    sph, quad = scene_tables(get_scene("rand_spheres")[0].to("cuda"))
+    sph = torch.cat([sph, sph[:SPLIT_REPEATED_ROWS]]).contiguous()
+    k1_split = {}
+    for n in SPLIT_RAYS:
+        rows = ik.split_rows(n, sph.shape[0], ik.sm_count(0))
+        if rows <= 0:
+            fail(f"kernel 1: a {n}-ray launch over {sph.shape[0]} rows does not split")
+        o, d = (x.cuda() for x in random_rays(n, (-12, 0.05, -12), (12, 6, 12), seed=n))
+        k1_split[str(n)] = dict(check_hit(f"kernel 1 split, {n} rays", sph, quad, o, d),
+                                slice_rows=rows, slices=-(-sph.shape[0] // rows))
+    record["intersect_split"] = k1_split
+    print(f"phase 2 kernel 1 split vs plain, {sph.shape[0]} sphere rows (the last "
+          f"{SPLIT_REPEATED_ROWS} repeated): {json.dumps(k1_split)}", flush=True)
 
     # ---- phase 3: kernel 2 vs its plain twin, same seed and schedule ----
     # Small scenes with several samples per lane, then the main path's own
@@ -1358,12 +1457,13 @@ def main() -> int:
     k4 = culled_check()
     record["culled"] = k4
     print(f"phase 9 kernel 4 vs plain and kernel 1 on rand_spheres_large's first-pass camera "
-          f"rays: {json.dumps(k4)}", flush=True)
+          f"rays, two-level table: {json.dumps(k4)}", flush=True)
 
     # ---- phase 10: the wavefront-step, culled, large-scene and textured paths, counted ----
     from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
-    counters = (("closest_hit", ik, "LAUNCHES"), ("persistent_render", pk, "LAUNCHES"),
+    counters = (("closest_hit", ik, "LAUNCHES"), ("closest_hit_clustered", ik, "LAUNCHES_CLUSTERED"),
+                ("persistent_render", pk, "LAUNCHES"),
                 ("persistent_tape", pk, "LAUNCHES_TAPE"), ("culled", ck, "LAUNCHES"),
                 ("wavefront_step", wk, "LAUNCHES"))
 
@@ -1448,30 +1548,37 @@ def main() -> int:
               f"{np.asarray(ref).round(4).tolist()}; {smi}", flush=True)
     paths["persistent_culled"] = large
 
-    # The large-scene path (kernels 4 + 1), which render_path keeps for
-    # scenes kernel 2 does not serve, on rand_spheres_large at the same
-    # shape and seed: an A/B against the persistent render's mean.
+    # The large-scene path (kernel 4, kernel 1 clustered), which render_path
+    # keeps for scenes kernel 2 does not serve, on rand_spheres_large at the
+    # same shape and seed: an A/B against the persistent render's mean.
+    # Its first render clusters the scene cold; the second finds the
+    # clustering cached.
     from raytracer_tpu_torch.render.driver import _render_large_scene
 
     scene, cam, st = get_scene("rand_spheres_large", spp=64)
-    metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=st.width * st.height)
-    t0 = time.perf_counter()
-    with HitRecorder(ik) as large_hits:
-        img, counts = counted(lambda: _render_large_scene(scene.to("cuda"), cam, st, seed=0,
-                                                          metrics=metrics))
-    wall = time.perf_counter() - t0
-    # Kernel 1's bounce launches at their own ray counts (the twin's dense
-    # search over 10,001 spheres is not timed at these sizes).
-    k1_large = large_hits.timed_sum(plain=False)
+    scene = scene.to("cuda")
+    reports = []
+    for cached in (False, True):
+        metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=st.width * st.height)
+        recorder = ClusteredRecorder(ik) if cached else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with recorder:
+            img, counts = counted(lambda: _render_large_scene(scene, cam, st, seed=0,
+                                                              metrics=metrics))
+        reports.append(dict(metrics.snapshot(), wall_s=time.perf_counter() - t0))
+        check_launches("large-scene path", counts, ("culled", "closest_hit_clustered"))
+    large_hits = recorder
+    # Kernel 1's clustered bounce launches: each against its twin, and timed
+    # at its own ray count.
+    k1_large = large_hits.held_and_timed()
     del large_hits.calls
-    check_launches("large-scene path", counts, ("culled", "closest_hit"))
     lin_mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
     want = np.asarray(large["rand_spheres_large"]["linear_mean"])
     if not np.allclose(lin_mean, want, rtol=0.05):
         fail(f"large-scene path: mean {lin_mean} vs the persistent render's {want}")
-    paths["large_scene"] = dict(report=dict(metrics.snapshot(), wall_s=wall), launches=counts,
+    paths["large_scene"] = dict(report=reports[1], report_cold=reports[0], launches=counts,
                                 linear_mean=lin_mean.round(4).tolist(),
-                                persistent_mean=want.tolist(), closest_hit=k1_large)
+                                persistent_mean=want.tolist(), closest_hit_clustered=k1_large)
     print(f"phase 10 large_scene path, _render_large_scene on rand_spheres_large 400x225@64spp "
           f"depth 8: {json.dumps(paths['large_scene'])}", flush=True)
 
@@ -1508,10 +1615,10 @@ def main() -> int:
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
     b3 = bound(hit_ops(k3t["segments"], scene3.num_spheres, scene3.num_quads),
                n3 * (12 + 4 * st3.max_depth + 4))
-    # Kernel 4 with perfect culling: every ray's G slab tests and quad
-    # tests, and the sphere tests of the clusters its own slab test enters.
-    b4 = bound(k4["rays"] * (k4["clusters"] * SLAB_OPS + k4["nq"] * QUAD_OPS + RAY_OPS)
-               + k4["sphere_tests"] * SPHERE_OPS, k4["rays"] * (24 + 8))
+    # Kernel 4 with perfect per-lane culling on its two-level table (the
+    # twin's counts on phase 9's rays; warp-union and the flat table's
+    # beside it).
+    k4w = k4["work"]
     k5s = k5["iteration_0"]
     b5 = bound(hit_ops(k5s["live"], k5["ns"], k5["nq"]), k5s["lanes"] * STEP_LANE_BYTES)
     # Kernel 2 textured, at each CLI render: the closest hit of every
@@ -1591,7 +1698,8 @@ def main() -> int:
             "launches": launches_scan,
             "on_main_path": True,
             "path": "training, scan backend (one step, phase 7)",
-            "max_abs_err": max(v["t_max_abs"] for v in (*k1.values(), *k1_path.values())),
+            "max_abs_err": max(v["t_max_abs"] for v in (*k1.values(), *k1_path.values(),
+                                                         *k1_split.values())),
             "ms": k1_scan["ms"],
             "plain_ms": k1_scan["plain_ms"],
             "bound_ms": k1_scan["bound_ms"],
@@ -1602,8 +1710,31 @@ def main() -> int:
                      f"rand_spheres ({k1r['ns']} spheres, {k1r['nq']} quad); ms, plain_ms and "
                      "bound_ms summed over the launches",
             "bounce_0": {k: k1r[k] for k in ("rays", "ms", "plain_ms")},
-            "launches_large_scene_path": paths["large_scene"]["launches"]["closest_hit"],
-            "large_scene_path": paths["large_scene"]["closest_hit"],
+            "split": {n: {k: v[k] for k in ("ms", "plain_ms", "slice_rows", "slices")}
+                      for n, v in k1_split.items()},
+        },
+        {
+            "name": "closest_hit_clustered",
+            "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/intersect_kernel.cu",
+            "replaces": "raytracer_tpu/ops/intersect_kernel.py:115",
+            "launches": paths["large_scene"]["launches"]["closest_hit_clustered"],
+            "on_main_path": True,
+            "path": "render, large-scene path: _render_large_scene's bounce rays on "
+                    "rand_spheres_large (phase 10)",
+            "max_abs_err": k1_large["max_abs"],
+            "ms": k1_large["ms"],
+            "plain_ms": k1_large["plain_ms"],
+            "bound_ms": k1_large["bound_ms"],
+            "bound_by": k1_large["bound_by"],
+            "library_ms": None,
+            "shape": f"the render's {k1_large['launches']} bounce launches at their own ray "
+                     f"counts ({k1_large['rays']} rays in all) x rand_spheres_large clustered "
+                     "(two-level table, per-lane walk); ms, plain_ms and bounds summed over the "
+                     "launches, bound_ms with perfect per-lane culling",
+            "warp_bound_ms": k1_large["warp_bound_ms"],
+            "dense_bound_ms": k1_large["dense_bound_ms"],
+            "simt_efficiency": k1_large["simt_efficiency"],
         },
         {
             "name": "persistent_render",
@@ -1659,11 +1790,16 @@ def main() -> int:
             "max_abs_err": max(v["max_abs"] for k_, v in k4.items() if k_.startswith("vs_")),
             "ms": k4["ms"],
             "plain_ms": k4["plain_ms"],
-            "bound_ms": b4[0],
-            "bound_by": b4[1],
+            "bound_ms": k4w["two_level"]["bound_ms"],
+            "bound_by": k4w["two_level"]["bound_by"],
             "library_ms": None,
             "shape": f"{k4['rays']} first-pass camera rays x rand_spheres_large ({k4['ns']} "
-                     f"spheres in {k4['clusters']} clusters, {k4['nq']} quad)",
+                     f"spheres, {k4['nq']} quad) on its two-level table (rows "
+                     f"{k4['cluster_rows']}), warp vote; bound_ms with perfect per-lane culling",
+            "warp_bound_ms": k4w["two_level"]["warp_bound_ms"],
+            "flat_table_bound_ms": k4w["flat"]["bound_ms"],
+            "flat_table_warp_bound_ms": k4w["flat"]["warp_bound_ms"],
+            "dense_bound_ms": k4["dense_bound_ms"],
         },
         {
             "name": "wavefront_step",

@@ -3,47 +3,48 @@
 //
 // Replaces raytracer_tpu/ops/culled_kernel.py:intersect_pallas_culled
 // (_culled_kernel), which slab-tested a (128 x 128)-ray VMEM tile against
-// each cluster AABB and skipped the cluster's sphere loop with a
-// tile-uniform lax.cond when no ray of the tile could hit it.
+// each cluster AABB of a flat table (clusters of <= 128 spheres, ordered
+// front to back per direction octant) and skipped the cluster's sphere loop
+// with a tile-uniform lax.cond when no ray of the tile could hit it.
 //
-// What bounds it on an H100: arithmetic, ~21 FP32 operations per sphere
-// test of a cluster that is entered, plus ~30 per slab test. Each ray reads
-// 24 bytes and writes 8, so bytes are far below it. With perfect per-ray
-// culling a camera ray tests only the spheres of the clusters its own slab
-// test enters; a warp runs a cluster's loop when any of its 32 rays enters.
+// What bounds it on an H100: arithmetic, 23 FP32 operations per slab test
+// and ~21 per sphere test of a cluster that is entered. Each ray reads 24
+// bytes and writes 8, so bytes are far below it. On the TPU's flat table
+// every ray paid every cluster's slab test (128 on rand_spheres_large,
+// about half its operations) and a warp the whole loop of each cluster any
+// of its rays entered.
 //
-// Design (right before fast): one thread per ray. Every thread walks the G
-// clusters in the front-to-back order of its warp's octant, taken from the
-// warp's first ray (the TPU took the tile's first ray), so the loop and the
-// warp vote stay uniform; the ragged last warp keeps its lanes alive on the
-// last ray and writes nothing for them. Per cluster: the conservative slab
-// test (zero direction components nudged to +-1e-30, as in the TPU kernel)
-// against the ray's own running best hit; `__any_sync` over the warp decides
-// whether the warp runs the cluster's sphere loop (csrc/closest_hit.cuh,
-// the same scaled-t arithmetic as kernel 1, so each candidate t is
-// bit-identical to kernel 1's). Then the quads, brute force. The winning
-// cluster-ordered row maps to its global sphere id by a per-lane gather,
-// which is cheap here (the TPU did it in XLA). Shared-memory staging of the
-// cluster table is later work.
+// Design: one thread per ray, the two-level walk of csrc/cluster_walk.cuh
+// over the render's own cluster table (ops/persistent_kernel.py:
+// ClusterTable: 64-sphere fine rows under supers of 16, each sorted front
+// to back from the eye, render/driver.py:cluster_for_render) and its
+// cluster-ordered sphere and quad tables, so the prim ids are that permuted
+// scene's. Every camera ray starts at the eye, so that order is front to
+// back for each of them: the nearest hit comes early and culls what lies
+// behind it. The walk runs under the warp-vote policy: a warp's 32 rays
+// are neighbouring pixels of one row and enter nearly the same rows, so
+// the warp enters a super or fine row when any of its lanes does and every
+// branch of the walk is uniform. Every lane must reach every vote, so the
+// ragged last warp keeps its lanes alive on the last ray and writes nothing
+// for them (blockDim is a multiple of 32). Entering a row that a lane's
+// own test would skip never changes its result. On an H100 the vote takes
+// ~1.8% less time than the per-lane walk on rand_spheres_large's camera
+// rays (utils/time_kernels.py, cell k4_large, patch `perlane`).
 //
-// Plain twin (and spec): raytracer_tpu_torch/ops/culled_kernel.py:
-// intersect_culled_plain, the same search without culling.
+// Plain twin: raytracer_tpu_torch/ops/cluster_visit.py:ClusterVisit.hit,
+// the dense search in the walk's visit order. The TPU kernel's own spec
+// (the flat table and its search) stays as ops/culled_kernel.py:
+// build_clusters and intersect_culled_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "closest_hit.cuh"
+#include "cluster_walk.cuh"
 
 namespace {
 
-using rt::slab_inv;
-constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
-
-// clusters: G rows of two float4, [min.x min.y min.z max.x] [max.y max.z start count].
-__global__ void culled_kernel(const float4* __restrict__ clusters, int g,
-                              const int* __restrict__ order,
-                              const float4* __restrict__ sph_cl,
-                              const int* __restrict__ orig_ids, int ns_total,
+__global__ void culled_kernel(rt::CullArgs cull, const float4* __restrict__ sph, int ns,
                               const float4* __restrict__ quad, int nq,
                               const float* __restrict__ origin,
                               const float* __restrict__ direction, int n,
@@ -54,63 +55,30 @@ __global__ void culled_kernel(const float4* __restrict__ clusters, int g,
   const rt::RayTerms r = rt::ray_terms(origin[3 * j], origin[3 * j + 1], origin[3 * j + 2],
                                        direction[3 * j], direction[3 * j + 1],
                                        direction[3 * j + 2]);
-  const float inv_a = 1.0f / r.a;
-  const float inv_dx = slab_inv(r.dx);
-  const float inv_dy = slab_inv(r.dy);
-  const float inv_dz = slab_inv(r.dz);
-
-  // Octant of the warp's first ray (blockDim is a multiple of 32).
-  const float dx0 = __shfl_sync(FULL_MASK, r.dx, 0);
-  const float dy0 = __shfl_sync(FULL_MASK, r.dy, 0);
-  const float dz0 = __shfl_sync(FULL_MASK, r.dz, 0);
-  const int oct = (dx0 > 0.0f ? 1 : 0) + (dy0 > 0.0f ? 2 : 0) + (dz0 > 0.0f ? 4 : 0);
-  const int* __restrict__ ord = order + oct * g;
-
   float t_best = INFINITY;
   int p_best = -1;
-  for (int ci = 0; ci < g; ++ci) {
-    const int c = __ldg(ord + ci);
-    const float4 b0 = __ldg(clusters + 2 * c);
-    const float4 b1 = __ldg(clusters + 2 * c + 1);
-    // Slab test in plain t against the running best (t_best is scaled).
-    const float tx0 = (b0.x - r.ox) * inv_dx;
-    const float tx1 = (b0.w - r.ox) * inv_dx;
-    float lo = fminf(tx0, tx1);
-    float hi = fmaxf(tx0, tx1);
-    const float ty0 = (b0.y - r.oy) * inv_dy;
-    const float ty1 = (b1.x - r.oy) * inv_dy;
-    lo = fmaxf(lo, fminf(ty0, ty1));
-    hi = fminf(hi, fmaxf(ty0, ty1));
-    const float tz0 = (b0.z - r.oz) * inv_dz;
-    const float tz1 = (b1.y - r.oz) * inv_dz;
-    lo = fmaxf(lo, fminf(tz0, tz1));
-    hi = fminf(hi, fmaxf(tz0, tz1));
-    lo = fmaxf(lo, rt::T_MIN);
-    hi = fminf(hi, t_best * inv_a);
-    if (__any_sync(FULL_MASK, valid && lo < hi)) {
-      const int start = (int)b1.z;
-      rt::sphere_candidates_range(sph_cl, start, start + (int)b1.w, r, t_best, p_best);
-    }
-  }
-  rt::quad_candidates(quad, nq, ns_total, r, t_best, p_best);
+  rt::clustered_candidates<rt::WALK_WARP_VOTE>(cull, sph, ns, quad, nq, r, t_best, p_best);
   if (valid) {
+    const float inv_a = 1.0f / r.a;
     t_out[i] = t_best * inv_a;  // back from scaled-t space (INF stays INF)
-    prim_out[i] = (p_best >= 0 && p_best < ns_total) ? __ldg(orig_ids + p_best) : p_best;
+    prim_out[i] = p_best;
   }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int rt_intersect_culled(const void* clusters, int g, const void* order,
-                                   const void* sph_cl, const void* orig_ids, int ns_total,
-                                   const void* quad, int nq, const void* origin,
-                                   const void* direction, int n, void* t_out,
-                                   void* prim_out, int threads, void* stream) {
+// clusters as ops/persistent_kernel.py:ClusterTable (rows and the four
+// section lengths), sph and quad the cluster-ordered tables; threads a
+// multiple of 32. Returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int rt_intersect_culled(const void* clusters, int s_super, int s_fine, int q_super,
+                                   int q_fine, const void* sph, int ns, const void* quad, int nq,
+                                   const void* origin, const void* direction, int n,
+                                   void* t_out, void* prim_out, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
+  const rt::CullArgs cull{(const float4*)clusters, s_super, s_fine, q_super, q_fine};
   culled_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)clusters, g, (const int*)order, (const float4*)sph_cl,
-      (const int*)orig_ids, ns_total, (const float4*)quad, nq, (const float*)origin,
+      cull, (const float4*)sph, ns, (const float4*)quad, nq, (const float*)origin,
       (const float*)direction, n, (float*)t_out, (int*)prim_out);
   return (int)cudaGetLastError();
 }

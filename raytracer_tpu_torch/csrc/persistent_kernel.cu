@@ -51,32 +51,19 @@
 // Culling is a compile-time parameter too (kCull, render mode only, with
 // either kTex). It replaces the TPU kernel's cluster-culled sphere and quad
 // loops (persistent_kernel.py:457-545, 571-602) for scenes that
-// geometry/bvh.py:cluster_scene permuted into cluster order. The cluster
-// table (ops/persistent_kernel.py:ClusterTable) holds, per kind, super rows
-// whose [start, count) index fine rows and fine rows whose [start, count)
-// index the primitive table, each with its AABB. Per segment and kind, in
-// row order: slab-test each super; if it can be hit, slab-test its fine
-// rows; for each fine row that can be hit, test its primitives
-// (closest_hit.cuh's *_candidates_range). With no super level the fine rows
-// are walked directly; with no rows of a kind its dense loop runs. The slab
-// test is the TPU kernel's (_can_hit): nudged inverse direction
-// (rt::slab_inv), lo clamped to T_MIN, and `lo*a < min(hi*a, t_best)` in
-// scaled-t space, on the interval padded by SLAB_PAD each side (below);
-// kernel and twin make the same decision. The TPU
-// tile voted with jnp.any and skipped a loop under lax.cond; here each
+// geometry/bvh.py:cluster_scene permuted into cluster order, by the
+// two-level walk of csrc/cluster_walk.cuh under its per-lane policy. The
+// TPU tile voted with jnp.any and skipped a loop under lax.cond; here each
 // lane branches on its own test. A warp runs a loop while any of its lanes
 // is in it, which costs what the tile vote cost and never changes a
 // result; there is no warp vote, since lanes leave the kernel at different
 // times (the early return, the `rem <= 0` break) and a __any_sync over
-// exited lanes is undefined. Culling only skips clusters that cannot hold
-// a strictly closer hit, and a strict `<` keeps the first minimal
-// candidate, so the result equals the dense search in the visit order
-// (supers, their fine rows, each row's range), ties included; the driver
-// sorts fine rows front to back inside each super
-// (render/driver.py:cluster_for_render), so that order is not the table's.
-// The kernel keeps no count of the clusters it enters (the TPU kernel's
-// clusters_entered): the twin counts them (ClusterVisit.hit_work), so a
-// render pays for no counters.
+// exited lanes is undefined. The result equals the dense search in the
+// visit order, ties included; the driver sorts fine rows front to back
+// inside each super (render/driver.py:cluster_for_render), so that order
+// is not the table's. The kernel keeps no count of the clusters it enters
+// (the TPU kernel's clusters_entered): the twin counts them
+// (ClusterVisit.hit_work), so a render pays for no counters.
 //
 // What bounds the culled instantiation on an H100: per segment, every
 // super slab test (23 FP32 operations), the fine slab tests of the supers
@@ -127,6 +114,7 @@
 
 #include "camera.cuh"
 #include "closest_hit.cuh"
+#include "cluster_walk.cuh"
 #include "ctr_rng.cuh"
 #include "textures.cuh"
 
@@ -159,75 +147,6 @@ struct TexArgs {
   int img_h, img_w, filter;
 };
 
-// Cluster inputs of the kCull instantiations: (R, 8) rows, two float4 a
-// row [min.x min.y min.z max.x] [max.y max.z start count], in the sections
-// [sphere supers | sphere fine | quad supers | quad fine] of the given
-// lengths.
-struct CullArgs {
-  const float4* rows;
-  int s_super, s_fine, q_super, q_fine;
-};
-
-// Padding (in t) of a cluster's slab interval on each side. A bounce ray
-// starts on a surface, and the expanded-form sphere test can re-hit that
-// surface just past T_MIN at a point outside the sphere's own box, where
-// the TPU kernel's unpadded test would cull a candidate that the dense
-// search keeps. Padding only enters more clusters, so the result stays the
-// dense search's. ops/persistent_kernel.py:CLUSTER_SLAB_PAD.
-constexpr float SLAB_PAD = 4e-3f;
-
-// Can the ray hit the AABB of cluster row `row` before its current best
-// (scaled t)? The TPU kernel's _can_hit, per lane, on the padded interval.
-static __device__ __forceinline__ bool cluster_enters(float4 b0, float4 b1,
-                                                      const rt::RayTerms& r, float ix,
-                                                      float iy, float iz, float t_best) {
-  const float tx0 = (b0.x - r.ox) * ix;
-  const float tx1 = (b0.w - r.ox) * ix;
-  float lo = fminf(tx0, tx1);
-  float hi = fmaxf(tx0, tx1);
-  const float ty0 = (b0.y - r.oy) * iy;
-  const float ty1 = (b1.x - r.oy) * iy;
-  lo = fmaxf(lo, fminf(ty0, ty1));
-  hi = fminf(hi, fmaxf(ty0, ty1));
-  const float tz0 = (b0.z - r.oz) * iz;
-  const float tz1 = (b1.y - r.oz) * iz;
-  lo = fmaxf(lo, fminf(tz0, tz1));
-  hi = fminf(hi, fmaxf(tz0, tz1));
-  lo = fmaxf(lo - SLAB_PAD, rt::T_MIN);
-  return lo * r.a < fminf((hi + SLAB_PAD) * r.a, t_best);
-}
-
-// One kind's two-level walk: supers at rows [super_base, super_base +
-// n_super) (none: every fine row), fine rows at fine_base + their index;
-// test(begin, end) runs the primitive range of each fine row entered.
-// `t_best` is the caller's running best, which test() lowers.
-template <typename Test>
-static __device__ __forceinline__ void cluster_walk(const float4* __restrict__ rows,
-                                                    int super_base, int n_super, int fine_base,
-                                                    int n_fine, const rt::RayTerms& r, float ix,
-                                                    float iy, float iz, const float& t_best,
-                                                    Test test) {
-  const int n_outer = n_super > 0 ? n_super : 1;
-  for (int si = 0; si < n_outer; ++si) {
-    int f_lo = 0, f_hi = n_fine;
-    if (n_super > 0) {
-      const float4 s0 = __ldg(rows + 2 * (super_base + si));
-      const float4 s1 = __ldg(rows + 2 * (super_base + si) + 1);
-      if (!cluster_enters(s0, s1, r, ix, iy, iz, t_best)) continue;
-      f_lo = (int)s1.z;
-      f_hi = f_lo + (int)s1.w;
-    }
-    for (int fi = f_lo; fi < f_hi; ++fi) {
-      const float4 b0 = __ldg(rows + 2 * (fine_base + fi));
-      const float4 b1 = __ldg(rows + 2 * (fine_base + fi) + 1);
-      if (cluster_enters(b0, b1, r, ix, iy, iz, t_best)) {
-        const int start = (int)b1.z;
-        test(start, start + (int)b1.w);
-      }
-    }
-  }
-}
-
 // Kernel 3's sample queue: the next sample id for each calling thread,
 // one atomicAdd on `next` per group of converged threads (ids past the
 // last sample mean the queue is empty).
@@ -255,7 +174,7 @@ __global__ void persistent_kernel(
     int* __restrict__ segs_out, int width, int height, int jump_px, int jump_py,
     int num_slots, int max_depth, int rr_start, float rr_lo, float rr_hi,
     int sky_gradient, int max_iters, int* __restrict__ tape, int* __restrict__ next_sample,
-    int* __restrict__ thread_segs, TexArgs tex, CullArgs cull) {
+    int* __restrict__ thread_segs, TexArgs tex, rt::CullArgs cull) {
   // The noise instantiations' Perlin tables, filled by the whole block
   // before any of its threads leaves (the return below, kTape's queue break).
   const rt::PerlinTables* perlin = nullptr;
@@ -327,24 +246,7 @@ __global__ void persistent_kernel(
     float t_s = INFINITY;
     int prim = -1;
     if (kCull) {
-      const float ix = rt::slab_inv(dx);
-      const float iy = rt::slab_inv(dy);
-      const float iz = rt::slab_inv(dz);
-      if (cull.s_fine > 0) {
-        cluster_walk(cull.rows, 0, cull.s_super, cull.s_super, cull.s_fine, r, ix, iy, iz, t_s,
-                     [&](int b, int e) { rt::sphere_candidates_range(sph, b, e, r, t_s, prim); });
-      } else {
-        rt::sphere_candidates(sph, ns, r, t_s, prim);
-      }
-      if (cull.q_fine > 0) {
-        const int q_base = cull.s_super + cull.s_fine;
-        cluster_walk(cull.rows, q_base, cull.q_super, q_base + cull.q_super, cull.q_fine, r, ix,
-                     iy, iz, t_s, [&](int b, int e) {
-                       rt::quad_candidates_range(quad, b, e, ns, r, t_s, prim);
-                     });
-      } else {
-        rt::quad_candidates(quad, nq, ns, r, t_s, prim);
-      }
+      rt::clustered_candidates(cull, sph, ns, quad, nq, r, t_s, prim);
     } else {
       rt::sphere_candidates(sph, ns, r, t_s, prim);
       rt::quad_candidates(quad, nq, ns, r, t_s, prim);
@@ -585,7 +487,7 @@ extern "C" int rt_render_persistent(
     int q_super, int q_fine, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
   const TexArgs tex = tex_args(tex_rows, images, dims, img_h, img_w, filter);
-  const CullArgs cull{(const float4*)clusters, s_super, s_fine, q_super, q_fine};
+  const rt::CullArgs cull{(const float4*)clusters, s_super, s_fine, q_super, q_fine};
   const int textures = textures_of(tex_rows, noise);
   auto kernel =
       textures == TEXTURES_NOISE
@@ -642,6 +544,6 @@ extern "C" int rt_render_persistent_tape(
       (const float*)cam, (uint32_t)seed, nullptr, nullptr, nullptr, n,
       (float*)radiance, (int*)segs, width, height, 0, 0, /*num_slots=*/1, max_depth,
       /*rr_start=*/max_depth, 0.05f, 0.95f, sky_gradient, /*max_iters=*/max_depth + 2,
-      (int*)tape, (int*)next_sample, (int*)thread_segs, tex, CullArgs{nullptr, 0, 0, 0, 0});
+      (int*)tape, (int*)next_sample, (int*)thread_segs, tex, rt::CullArgs{nullptr, 0, 0, 0, 0});
   return (int)cudaGetLastError();
 }

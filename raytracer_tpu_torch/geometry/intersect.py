@@ -12,10 +12,11 @@ tensors. The winner itself is held constant, which is correct almost
 everywhere; visibility-boundary terms are the edge estimators' job.
 
 `sphere_uv` and `quad_uv` are the surface coordinates image textures read.
-Large scenes (render/driver.py:_render_large_scene) search through prebuilt
-`LargeSceneTables`: the cluster-culled kernel for coherent camera rays
-(`intersect_scene_culled`) and the dense closest-hit kernel for bounces
-(`intersect_scene_dense_tables`).
+`LargeSceneTables` holds the JAX large-scene path's tables (the dense
+tables and the TPU kernel 4's flat cluster table), which the tests hold
+against JAX; the port's large-scene path
+(render/driver.py:_render_large_scene) walks the render's own cluster
+table instead.
 """
 
 from __future__ import annotations
@@ -192,8 +193,9 @@ def intersect_scene(scene: Scene, origin, direction) -> HitRecord:
 
 
 class LargeSceneTables(NamedTuple):
-    """Device tables of the large-scene searches, built once per scene:
-    the dense closest-hit tables and ops/culled_kernel.py's cluster tables."""
+    """Device tables of the JAX large-scene path's searches: the dense
+    closest-hit tables and ops/culled_kernel.py:build_clusters' flat
+    cluster tables."""
 
     sph_table: torch.Tensor  # (S, 4) dense
     quad_table: torch.Tensor  # (Q, 12)
@@ -212,19 +214,3 @@ def build_large_scene_tables(scene: Scene, max_leaf: int = 128) -> LargeSceneTab
     cl, order, sph_cl, orig = ck.build_clusters(scene, max_leaf=max_leaf)
     return LargeSceneTables(sph, quad, cl.to(dev), order.to(dev), sph_cl.to(dev),
                             orig.to(dev), scene.num_spheres)
-
-
-def intersect_scene_culled(tables: LargeSceneTables, origin, direction):
-    """Closest hit (t, prim) of a coherent ray batch (camera rays in pixel
-    order) through the cluster-culled kernel (its twin on CPU tensors)."""
-    return ck.intersect_culled(
-        tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
-        tables.quad_table, tables.num_spheres, origin.contiguous(), direction.contiguous(),
-    )
-
-
-def intersect_scene_dense_tables(tables: LargeSceneTables, origin, direction):
-    """Closest hit (t, prim) of an incoherent batch (bounce rays) through the
-    dense closest-hit kernel (its twin on CPU tensors)."""
-    return ik.intersect(tables.sph_table, tables.quad_table, origin.contiguous(),
-                        direction.contiguous())

@@ -41,8 +41,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # sph, ns, quad, nq, origin, direction, n, t_out, prim_out, threads, stream
-    "rt_intersect": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+    # sph, ns, quad, nq, origin, direction, n, t_out, prim_out, slice_rows,
+    # words, threads, stream
+    "rt_intersect": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # clusters, n_sph_super, n_sph, n_quad_super, n_quad, sph, ns, quad, nq,
+    # origin, direction, n, t_out, prim_out, threads, stream
+    "rt_intersect_clustered": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
     # sph, ns, quad, nq, res, cam, seed, rem0, px0, py0, n, log, segs,
     # width, height, jump_px, jump_py, num_slots, max_depth, rr_start,
     # rr_lo, rr_hi, sky_gradient, max_iters, tex_rows, images, image_dims,
@@ -70,9 +74,9 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
     ],
-    # clusters, g, order, sph_cl, orig_ids, ns_total, quad, nq, origin,
-    # direction, n, t_out, prim_out, threads, stream
-    "rt_intersect_culled": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+    # clusters, n_sph_super, n_sph, n_quad_super, n_quad, sph, ns, quad, nq,
+    # origin, direction, n, t_out, prim_out, threads, stream
+    "rt_intersect_culled": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
 }
 
 

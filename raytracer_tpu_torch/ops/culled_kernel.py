@@ -2,18 +2,21 @@
 scenes.
 
 Port of raytracer_tpu/ops/culled_kernel.py (`intersect_pallas_culled`,
-`build_clusters`). On the host, the BVH is cut into clusters of at most
-`max_leaf` spheres, laid out cluster-contiguous, each with its AABB, and the
-clusters are ordered front to back for each of the eight direction
-octants. The CUDA kernel (`csrc/culled_kernel.cu`, one thread per ray)
-walks the clusters in the octant order of its warp's first ray, slab-tests
-each AABB against its own running best hit, and skips the cluster's sphere
-loop when no ray of the warp can hit it; quads are tested brute force.
+`build_clusters`). The TPU kernel walks a flat table: the BVH cut on the
+host into clusters of at most `max_leaf` spheres, laid out
+cluster-contiguous, each with its AABB, ordered front to back for each of
+the eight direction octants. `build_clusters` and `intersect_culled_plain`
+(the same search without culling, in that order) keep that table and
+search here as the TPU kernel's spec, held against JAX by the tests.
 
-`intersect_culled_plain` is its plain twin and spec: the same search
-without culling, in the same cluster order, so culling must not change t.
-It can also count the sphere tests a perfect per-ray cull would make (the
-kernel's bound in chip_smoke.py).
+On the H100 the CUDA kernel (`csrc/culled_kernel.cu`, one thread per ray)
+walks the render's own two-level cluster table instead
+(render/driver.py:cluster_for_render: 64-sphere fine rows under supers of
+16, sorted front to back from the eye, from which every camera ray
+starts), with csrc/cluster_walk.cuh's warp vote: a warp enters a row when
+any of its rays can hit it. `intersect_culled` takes that ClusterTable and
+the permuted scene's tables; its twin is ops/cluster_visit.py:
+ClusterVisit.hit, which equals the dense search in t on every ray.
 """
 
 from __future__ import annotations
@@ -26,14 +29,12 @@ from raytracer_tpu_torch.ops.intersect_kernel import (
     INF,
     PLAIN_CHUNK,
     T_MIN,
-    check_float4_rows,
-    check_tensor,
     closest_hit_scaled,
+    clustered_closest_hit,
     slab_inv,
 )
 
-# Threads per block of the CUDA kernel (a multiple of the 32-lane warp).
-THREADS = 128
+# Lanes of a warp (the TPU kernel's tile took its first ray's octant).
 WARP = 32
 
 # CUDA launches of the kernel (plain-twin calls do not count).
@@ -144,7 +145,8 @@ def _slab_enters(box, origin, inv_d, t_best, inv_a):
 
 def intersect_culled_plain(clusters, order, sph_cl, orig_ids, quad_table, ns_total: int,
                            origin, direction, *, return_work: bool = False):
-    """Plain twin of kernel 4: for each ray every cluster in its warp's
+    """The TPU kernel's search (its spec; the CUDA kernel walks the
+    two-level table instead): for each ray every cluster in its warp's
     octant order (no culling), first minimal scaled-t candidate winning,
     then the quads. Returns (t (N,) float32, prim (N,) int32 global ids:
     spheres 0..ns_total-1, quads after); with `return_work` also (N,)
@@ -188,44 +190,13 @@ def intersect_culled_plain(clusters, order, sph_cl, orig_ids, quad_table, ns_tot
     return (t, prim, work) if return_work else (t, prim)
 
 
-def intersect_culled(clusters, order, sph_cl, orig_ids, quad_table, ns_total: int,
-                     origin, direction):
-    """Cluster-culled closest hit of a coherent ray batch: (t (N,) f32,
-    prim (N,) i32 global ids). Tables from build_clusters (moved to the
-    rays' device) and ops/intersect_kernel.py:pack_quad_table.
-
-    CPU tensors take `intersect_culled_plain`; CUDA tensors launch the CUDA
-    kernel (or raise)."""
+def intersect_culled(clusters, sph_table, quad_table, origin, direction):
+    """Cluster-culled closest hit of a coherent ray batch (camera rays in
+    pixel order) by the warp-vote cluster walk: (t, prim), as
+    ops/intersect_kernel.py:clustered_closest_hit (the twin on CPU tensors,
+    the CUDA kernel or an error on CUDA tensors)."""
     global LAUNCHES
-    dev = origin.device
-    g = clusters.shape[0]
-    check_tensor("clusters", clusters, torch.float32, (g, 8), dev)
-    check_tensor("order", order, torch.int32, (8, g), dev)
-    check_tensor("sph_cl", sph_cl, torch.float32, (None, 4), dev)
-    check_tensor("orig_ids", orig_ids, torch.int32, (sph_cl.shape[0],), dev)
-    check_tensor("quad_table", quad_table, torch.float32, (None, 12), dev)
-    check_tensor("origin", origin, torch.float32, (None, 3), dev)
-    n = origin.shape[0]
-    check_tensor("direction", direction, torch.float32, (n, 3), dev)
-    args = (clusters, order, sph_cl, orig_ids, quad_table, ns_total, origin, direction)
-    if dev.type == "cpu":
-        return intersect_culled_plain(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    check_float4_rows(clusters=clusters, sph_cl=sph_cl, quad_table=quad_table)
-    from raytracer_tpu_torch.ops.build import check_launch, load_kernels
-
-    lib = load_kernels()
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return t, prim
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt_intersect_culled(
-        clusters.data_ptr(), g, order.data_ptr(), sph_cl.data_ptr(), orig_ids.data_ptr(),
-        ns_total, quad_table.data_ptr(), quad_table.shape[0], origin.data_ptr(),
-        direction.data_ptr(), n, t.data_ptr(), prim.data_ptr(), THREADS, stream,
-    )
-    check_launch("rt_intersect_culled", err)
-    LAUNCHES += 1
+    t, prim, launched = clustered_closest_hit("rt_intersect_culled", clusters, sph_table,
+                                              quad_table, origin, direction)
+    LAUNCHES += launched
     return t, prim

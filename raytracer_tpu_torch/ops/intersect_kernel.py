@@ -7,6 +7,13 @@ and its spec: the same scaled-t compare space (t' = t*|d|^2), the same strict
 open interval t > 1e-3, NaN-rejected infeasible spheres, and the first
 minimal candidate winning ties (the kernel's sequential strict `<`).
 
+`intersect` runs the dense search: in one pass, or, for a launch too small
+to fill the card, with the table split into slices whose winners fold
+into one (t bits, prim) word per ray (`split_rows`; `intersect_split_plain`
+is the plain model of that combine). `intersect_clustered` runs the
+two-level cluster walk over a cluster-ordered scene (the large-scene
+path's bounce rays); its twin is ops/cluster_visit.py:ClusterVisit.hit.
+
 Tables: spheres (S, 4) [cx, cy, cz, |c|^2 - r^2] with 1e30 for dummy rows;
 quads (Q, 12) [n, n.Q, av, bv, Q.av, Q.bv] with a zero normal for dummy rows.
 Results: t (N,) float32 (+inf on a miss), prim (N,) int32 (-1 on a miss;
@@ -14,6 +21,8 @@ quads are numbered after spheres).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,11 +35,25 @@ QUAD_DENOM_EPS = 1e-8
 SLAB_TINY = 1e-30
 # Rays per block of the plain twin's dense (rays, prims) candidate matrices.
 PLAIN_CHUNK = 16384
-# Threads per block of the CUDA kernel.
+# Threads per block of the dense kernel, and of the clustered walk (kernel
+# 1's clustered entry and kernel 4).
 THREADS = 256
+CLUSTERED_THREADS = 128
+# The dense kernel splits its table when a launch has fewer blocks than
+# this many a streaming multiprocessor, into enough slices for about
+# SPLIT_TARGET_BLOCKS blocks an SM (eight blocks of 256 threads fill one),
+# each of at least SPLIT_MIN_ROWS sphere rows.
+SPLIT_BELOW_BLOCKS = 2
+SPLIT_TARGET_BLOCKS = 8
+SPLIT_MIN_ROWS = 32
+# Sphere rows per group of csrc/closest_hit.cuh's loop: slices start on a
+# group.
+SPHERE_GROUP = 4
 
-# CUDA launches of the kernel (plain-twin calls do not count).
+# CUDA launches of the dense and the clustered kernel (plain-twin calls do
+# not count; a split launch counts once).
 LAUNCHES = 0
+LAUNCHES_CLUSTERED = 0
 
 
 def pack_sphere_table(sph_center, sph_radius) -> torch.Tensor:
@@ -143,6 +166,52 @@ def intersect_plain(sph_table, quad_table, origin, direction):
     return t, prim
 
 
+def split_rows(n: int, ns: int, sms: int, threads: int = THREADS) -> int:
+    """Sphere rows per slice of a dense launch of n rays over ns sphere rows
+    on a card of `sms` streaming multiprocessors: 0 (one pass) when its
+    blocks fill the card or the table is too short to split, else a
+    multiple of SPHERE_GROUP that cuts the table into enough slices for
+    SPLIT_TARGET_BLOCKS blocks an SM."""
+    blocks = -(-n // threads)
+    if n == 0 or blocks >= SPLIT_BELOW_BLOCKS * sms or ns < 2 * SPLIT_MIN_ROWS:
+        return 0
+    slices = min(-(-SPLIT_TARGET_BLOCKS * sms // blocks), ns // SPLIT_MIN_ROWS)
+    rows = -(-ns // slices)
+    return -(-rows // SPHERE_GROUP) * SPHERE_GROUP
+
+
+def intersect_split_plain(sph_table, quad_table, origin, direction, slice_rows: int):
+    """Plain model of the split kernel's combine: each slice's first minimal
+    candidate (sphere rows [k * slice_rows, (k + 1) * slice_rows), the quads
+    in the last slice) as the word (bits of its scaled t << 32) | prim, the
+    minimum word over the slices (none for a slice without a finite
+    candidate), and the word turned back into (t, prim). Equals
+    intersect_plain bit for bit."""
+    ns = sph_table.shape[0]
+    slices = max(1, -(-ns // slice_rows))
+    miss = torch.iinfo(torch.int64).max
+    a = _ray_terms(origin, direction)[2]
+    best = torch.full((origin.shape[0],), miss, dtype=torch.int64, device=origin.device)
+    for k in range(slices):
+        b, e = k * slice_rows, min(ns, (k + 1) * slice_rows)
+        quads = quad_table if k == slices - 1 else quad_table[:0]
+        t_s, p, _ = closest_hit_scaled(sph_table[b:e], quads, origin, direction)
+        prim = torch.where(p < e - b, p.long() + b, p.long() - (e - b) + ns)
+        bits = t_s.view(torch.int32).long()
+        word = torch.where(t_s < INF, (bits << 32) | prim, miss)
+        best = torch.minimum(best, word)
+    hit = best != miss
+    t_s = torch.where(hit, (best >> 32).to(torch.int32).view(torch.float32), INF)
+    prim = torch.where(hit, best & 0xFFFFFFFF, -1).to(torch.int32)
+    return t_s * (1.0 / a), prim
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_tensor(name, x, dtype, shape, device):
     """Raise unless `x` has the dtype, shape (None = any extent), device and
     contiguity a kernel needs."""
@@ -172,7 +241,8 @@ def intersect(sph_table, quad_table, origin, direction):
     """Closest hit for a flat ray batch: (t (N,) f32, prim (N,) i32).
 
     CPU tensors take `intersect_plain`; CUDA tensors launch the CUDA kernel
-    (or raise)."""
+    (or raise), split (`split_rows`) when its blocks cannot fill the card,
+    its scratch words allocated here."""
     global LAUNCHES
     dev = origin.device
     check_tensor("sph_table", sph_table, torch.float32, (None, 4), dev)
@@ -192,12 +262,59 @@ def intersect(sph_table, quad_table, origin, direction):
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t, prim
+    rows = split_rows(n, sph_table.shape[0], sm_count(dev.index or 0))
+    words = torch.empty(n if rows else 0, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_intersect(
         sph_table.data_ptr(), sph_table.shape[0], quad_table.data_ptr(), quad_table.shape[0],
         origin.data_ptr(), direction.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
-        THREADS, stream,
+        rows, words.data_ptr() if rows else None, THREADS, stream,
     )
     check_launch("rt_intersect", err)
     LAUNCHES += 1
+    return t, prim
+
+
+def clustered_closest_hit(entry: str, clusters, sph_table, quad_table, origin, direction):
+    """Closest hit of a ray batch over a cluster-ordered scene: (t (N,) f32,
+    prim (N,) i32, the scene's table rows, whether a kernel was launched).
+    `clusters` is the scene's ops/persistent_kernel.py:ClusterTable,
+    `sph_table` and `quad_table` its tables (geometry/intersect.py:
+    scene_tables of the permuted scene).
+
+    CPU tensors take the twin, ops/cluster_visit.py:ClusterVisit.hit; CUDA
+    tensors launch the library's clustered walk `entry` (or raise)."""
+    from raytracer_tpu_torch.ops.cluster_visit import ClusterVisit, check_clustered_inputs
+
+    dev = origin.device
+    check_clustered_inputs(clusters, sph_table, quad_table, origin, direction)
+    if dev.type == "cpu":
+        return (*ClusterVisit.build(clusters, sph_table, quad_table).hit(origin, direction),
+                False)
+    from raytracer_tpu_torch.ops.build import check_launch, load_kernels
+
+    lib = load_kernels()
+    n = origin.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, prim, False
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, entry)(
+        clusters.rows.data_ptr(), *clusters.counts, sph_table.data_ptr(), sph_table.shape[0],
+        quad_table.data_ptr(), quad_table.shape[0], origin.data_ptr(), direction.data_ptr(), n,
+        t.data_ptr(), prim.data_ptr(), CLUSTERED_THREADS, stream,
+    )
+    check_launch(entry, err)
+    return t, prim, True
+
+
+def intersect_clustered(clusters, sph_table, quad_table, origin, direction):
+    """Closest hit of a ray batch over a cluster-ordered scene by the
+    per-lane cluster walk (the large-scene path's bounce rays): (t, prim),
+    as clustered_closest_hit."""
+    global LAUNCHES_CLUSTERED
+    t, prim, launched = clustered_closest_hit("rt_intersect_clustered", clusters, sph_table,
+                                              quad_table, origin, direction)
+    LAUNCHES_CLUSTERED += launched
     return t, prim

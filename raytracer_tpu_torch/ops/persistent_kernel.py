@@ -66,7 +66,7 @@ N_CAM = 22
 CLUSTERED_SCENE_PRIMS = 1536
 
 # Padding (in t) of a cluster's slab interval on each side in kernel 2's
-# culled walk (csrc/persistent_kernel.cu:SLAB_PAD). A bounce ray starts on
+# culled walk (csrc/cluster_walk.cuh:SLAB_PAD). A bounce ray starts on
 # a surface, and the expanded-form sphere test can re-hit that surface
 # just past T_MIN at a point outside the sphere's own box; the TPU
 # kernel's unpadded test culls such a candidate where the dense search
@@ -169,7 +169,7 @@ def pack_cluster_table(clusters, device="cpu") -> ClusterTable:
                         *(len(x) for x in parts))
 
 
-def _check_clusters(clusters: ClusterTable, dev) -> None:
+def check_cluster_table(clusters: ClusterTable, dev) -> None:
     check_tensor("clusters.rows", clusters.rows, torch.float32, (None, 8), dev)
     if min(clusters.counts) < 0 or sum(clusters.counts) > clusters.rows.shape[0]:
         raise ValueError(f"cluster counts {clusters.counts} do not fit "
@@ -259,7 +259,7 @@ def render_persistent(
     for name, x in (("rem0", rem0), ("px0", px0), ("py0", py0)):
         check_tensor(name, x, torch.int32, (n,), dev)
     if clusters is not None:
-        _check_clusters(clusters, dev)
+        check_cluster_table(clusters, dev)
     cfg = dict(
         width=width, height=height, jump_px=jump_px, jump_py=jump_py,
         num_slots=num_slots, max_depth=max_depth, rr_start=rr_start,

@@ -16,9 +16,11 @@ scenes).
   the permutation applied on every render), and kernel 2 culls clusters
   inside its loop.
 * "large_scene": scenes it does not serve (noise from rng-filled Perlin
-  tables) with more than LARGE_SCENE_PRIMS primitives: passes of k samples
-  per pixel, camera rays through the cluster-culled kernel 4 and bounces
-  through the dense kernel 1 (`_render_large_scene`).
+  tables) with more than LARGE_SCENE_PRIMS primitives: the scene clustered
+  as for the persistent path (`cluster_for_render`), then passes of k
+  samples per pixel, camera rays through the cluster-culled kernel 4 and
+  bounces through kernel 1's clustered entry, both walking that cluster
+  table (`_render_large_scene`).
 * "wavefront_step": the other scenes it does not serve: the regenerative
   loop with kernel 5 as each iteration's front half and the shading
   epilogue in PyTorch (integrator/wavefront.py:render_wavefront_step),
@@ -48,12 +50,7 @@ from raytracer_tpu_torch.geometry.bvh import (
     isolate_oversized,
     permute_scene,
 )
-from raytracer_tpu_torch.geometry.intersect import (
-    build_large_scene_tables,
-    intersect_scene_culled,
-    intersect_scene_dense_tables,
-    quad_derived,
-)
+from raytracer_tpu_torch.geometry.intersect import quad_derived, scene_tables
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.integrator.wavefront import (
     render_wavefront_regen,
@@ -63,6 +60,8 @@ from raytracer_tpu_torch.integrator.wavefront import (
 )
 from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
+from raytracer_tpu_torch.ops import culled_kernel as ck
+from raytracer_tpu_torch.ops import intersect_kernel as ik
 from raytracer_tpu_torch.ops.persistent_kernel import (
     CLUSTERED_SCENE_PRIMS,
     pack_camera_scalars_bg,
@@ -213,8 +212,9 @@ def order_clusters(cs: ClusterSet, eye) -> ClusterSet:
 
 
 def cluster_for_render(scene: Scene, cam: Camera):
-    """Cluster-order a large scene for kernel 2 and sort its cluster rows
-    front to back from the eye: camera rays (most segments) find their
+    """Cluster-order a large scene for kernel 2's culled instantiations (and
+    the large-scene path's kernels 1 and 4) and sort its cluster rows front
+    to back from the eye: camera rays (most segments) find their
     nearest hit early, and the shrinking best hit culls the clusters behind
     it (the ordered traversal of bvh.go:225-232). Fine rows may move freely
     within their super: their start/count index the permuted primitive
@@ -224,6 +224,20 @@ def cluster_for_render(scene: Scene, cam: Camera):
     order = _cluster_order_cached(scene)
     return permute_scene(scene, order), order_clusters(order.clusters,
                                                        cam.look_from.cpu().numpy())
+
+
+def _clustered(scene: Scene, cam: Camera, dev, metrics=None):
+    """(`cluster_for_render`'s permuted scene, its ClusterTable on `dev`);
+    `metrics` records the host clustering seconds, the BVH builder and the
+    table's section lengths."""
+    t0 = time.perf_counter()
+    scene, cs = cluster_for_render(scene, cam)
+    clusters = pack_cluster_table(cs, dev)
+    if metrics is not None:
+        metrics.cluster_s += time.perf_counter() - t0
+        metrics.bvh_builder = cs.builder
+        metrics.cluster_rows = list(clusters.counts)
+    return scene, clusters
 
 
 def chunk_seed(seed: int, idx: int) -> int:
@@ -291,13 +305,7 @@ def render_image(
     cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
     clusters = None
     if path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
-        t0 = time.perf_counter()
-        scene, cs = cluster_for_render(scene, cam)
-        clusters = pack_cluster_table(cs, dev)
-        if metrics is not None:
-            metrics.cluster_s += time.perf_counter() - t0
-            metrics.bvh_builder = cs.builder
-            metrics.cluster_rows = list(clusters.counts)
+        scene, clusters = _clustered(scene, cam, dev, metrics)
     scene = scene.to(dev)
     sph, quad, res = pack_persistent_tables(scene)
     textures = texture_tables(scene, quad_derived(scene),
@@ -346,26 +354,36 @@ def render_image(
     return (acc / float(spp)).reshape(h, w, 3)
 
 
-def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, width: int,
-                      height: int, k: int, max_depth: int, sky_gradient: bool):
-    """One pass of the large-scene path: k samples per pixel in one batch,
-    lane L sample id L at pixel L mod (width*height), its camera and bounce
-    uniforms the counter RNG's under this pass's seed. Camera rays
-    (coherent, in pixel order) go through the cluster-culled kernel 4,
-    bounces through the dense kernel 1 (the JAX driver's
-    first_bounce_intersect_fn); no russian roulette (the JAX package's
-    `trace`). Returns ((n_pixels, 3) radiance sum, segments (k * n_pixels,)
-    int32)."""
-    dev = tables.sph_table.device
+def pass_camera_rays(frame, seed: int, *, width: int, height: int, k: int):
+    """The camera rays of a large-scene pass of k samples per pixel: lane L
+    is sample id L at pixel L mod (width*height), its uniforms the counter
+    RNG's under the pass's seed; (origin, direction) (k * width * height, 3)
+    on the frame's device, contiguous."""
     n = width * height
-    sid = torch.arange(k * n, device=dev)
+    sid = torch.arange(k * n, device=frame.center.device)
     pix = sid % n
     o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, sid))
+    return o.contiguous(), d.contiguous()
+
+
+def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, width: int,
+                      height: int, k: int, max_depth: int, sky_gradient: bool):
+    """One pass of the large-scene path over a cluster-ordered scene and its
+    (ClusterTable, sphere table, quad table): k samples per pixel in one
+    batch, lane L sample id L at pixel L mod (width*height), its camera and
+    bounce uniforms the counter RNG's under this pass's seed. Camera rays
+    (coherent, in pixel order) go through the cluster-culled kernel 4,
+    bounces through kernel 1's clustered entry; no russian roulette (the
+    JAX package's `trace`). Returns ((n_pixels, 3) radiance sum, segments
+    (k * n_pixels,) int32)."""
+    clusters, sph, quad = tables
+    dev = sph.device
+    n = width * height
+    o, d = pass_camera_rays(frame, seed, width=width, height=height, k=k)
 
     def hit_fn(scene, o, d, bounce, lanes):
-        if bounce == 0:
-            return intersect_scene_culled(tables, o, d)
-        return intersect_scene_dense_tables(tables, o, d)
+        hit = ck.intersect_culled if bounce == 0 else ik.intersect_clustered
+        return hit(clusters, sph, quad, o.contiguous(), d.contiguous())
 
     rad, segs = trace(
         scene, o, d, cam.background.to(dev),
@@ -379,12 +397,18 @@ def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, wi
 def _render_large_scene(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
                         progress: bool = False, metrics=None):
     """The large-scene path (port of raytracer_tpu/render/driver.py:290-344):
-    host BVH clustering once, then spp / k passes of k samples per pixel.
-    Returns the linear mean radiance (H, W, 3) on the scene's device."""
+    the scene clustered on the host once per render (`cluster_for_render`:
+    the clustering cached per geometry, the permutation applied to `scene`),
+    then spp / k passes of k samples per pixel over the permuted scene, so
+    prim ids and shading are that scene's. Returns the linear mean radiance
+    (H, W, 3) on the scene's device; `metrics` also records the host
+    clustering seconds, the BVH builder and the cluster table's section
+    lengths."""
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n = w * h
     dev = scene.sph_center.device
-    tables = build_large_scene_tables(scene)
+    scene, clusters = _clustered(scene, cam, dev, metrics)
+    tables = (clusters, *scene_tables(scene))
     frame = camera_frame(cam, w, h).to(dev)
     k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)
     passes = spp // k

@@ -4,10 +4,10 @@ move over its memory rate (chip_smoke.py's per-kernel record,
 utils/cull_work.py).
 
 Operations are the FP32 arithmetic of csrc/closest_hit.cuh and the cluster
-walk of csrc/persistent_kernel.cu, counted from the source (compares and
+walk of csrc/cluster_walk.cuh, counted from the source (compares and
 selects not counted, a multiply-add as two operations: contraction is off).
 Where a loop skips work on the data, the culled bounds count what the
-call's data needs, from the twin's counts (integrator/wavefront.py:
+call's data needs, from the twin's counts (ops/cluster_visit.py:
 ClusterVisit.hit_work).
 """
 
@@ -70,16 +70,25 @@ def culled_bytes(log_bytes, lanes, cluster_rows, ns, nq):
             + (48 + 64) * nq)
 
 
+def clustered_hit_bytes(rays, cluster_rows, ns, nq):
+    """Bytes a clustered closest-hit call (kernel 1's clustered entry,
+    kernel 4) must move: each ray's origin and direction read and its t and
+    prim written (32), the cluster rows, and the sphere and quad tables."""
+    return 32 * rays + 32 * cluster_rows + 16 * ns + 48 * nq
+
+
 def culled_bounds(segments, work, warp_work, nbytes):
-    """Kernel 2 culled, from its twin's counts on the same call
-    (regen_plain(return_work=True): `work` the six per-lane totals,
-    `warp_work` the six warp-union totals and the warp steps):
+    """A culled walk's bounds from its twin's counts on the same call
+    (kernel 2: regen_plain(return_work=True); kernels 1 and 4:
+    ClusterVisit.hit_work, with `segments` their rays): `work` the six
+    per-lane totals, `warp_work` the six warp-union totals and the warp
+    steps:
 
     * "per_lane": (bound_ms, bound_by) of perfect per-lane culling, every
       lane paying only its own tests;
     * "warp_union": the same where each warp pays, for all its 32 lanes,
-      the union of its lanes' tests (csrc/persistent_kernel.cu branches per
-      lane, so a warp runs a loop while any lane is in it);
+      the union of its lanes' tests (a warp runs a loop while any lane is
+      in it, per lane or under csrc/cluster_walk.cuh's warp vote);
     * "simt_efficiency": per-lane operations over warp-union operations."""
     lane_ops = _walk_ops(segments, work)
     warp_ops = WARP * _walk_ops(warp_work[6], warp_work)

@@ -31,7 +31,7 @@ DEFAULT_PADS = (0.0, 1e-3, 2e-3, 4e-3, 8e-3)
 def divergent_rays(visit, o, d, pads) -> dict:
     """{pad: rays of (o, d) whose culled winner differs from the dense one}
     for a ClusterVisit `visit` (one block of rays)."""
-    from raytracer_tpu_torch.integrator.wavefront import _slab_enters
+    from raytracer_tpu_torch.ops.cluster_visit import _slab_enters
     from raytracer_tpu_torch.ops.intersect_kernel import INF, candidates_scaled, slab_inv
 
     cands, a = candidates_scaled(visit.sph_rows, visit.quad_rows, o, d)
@@ -64,6 +64,7 @@ def count(scene, cam, st, *, device="cuda", pads=DEFAULT_PADS, wavefront=None, s
     from raytracer_tpu_torch.geometry.intersect import quad_derived
     from raytracer_tpu_torch.integrator import wavefront as wf
     from raytracer_tpu_torch.materials.packed import texture_tables
+    from raytracer_tpu_torch.ops import cluster_visit as cv
     from raytracer_tpu_torch.ops import persistent_kernel as pk
     from raytracer_tpu_torch.render.driver import DEFAULT_WAVEFRONT, cluster_for_render
 
@@ -74,16 +75,16 @@ def count(scene, cam, st, *, device="cuda", pads=DEFAULT_PADS, wavefront=None, s
     sched = wf.schedule_arrays(n, w * h, spp, w, device=device)
     cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).to(device)
     totals = {pad: 0 for pad in pads}
-    real_hit = wf.ClusterVisit.hit
+    real_hit = cv.ClusterVisit.hit
 
     def hit(visit, o, d):
-        step = max(1, wf.WORK_CELLS // max(1, visit.sph_rows.shape[0] + visit.quad_rows.shape[0]))
+        step = max(1, cv.WORK_CELLS // max(1, visit.sph_rows.shape[0] + visit.quad_rows.shape[0]))
         for s in range(0, o.shape[0], step):
             for pad, k in divergent_rays(visit, o[s : s + step], d[s : s + step], pads).items():
                 totals[pad] += k
         return real_hit(visit, o, d)
 
-    wf.ClusterVisit.hit = hit
+    cv.ClusterVisit.hit = hit
     t0 = time.perf_counter()
     try:
         _, segs = wf.regen_plain(
@@ -95,7 +96,7 @@ def count(scene, cam, st, *, device="cuda", pads=DEFAULT_PADS, wavefront=None, s
             clusters=pk.pack_cluster_table(cs, device))
         segments = int(segs.sum())
     finally:
-        wf.ClusterVisit.hit = real_hit
+        cv.ClusterVisit.hit = real_hit
     return dict(segments=segments, seconds=time.perf_counter() - t0, kernel_pad=pk.CLUSTER_SLAB_PAD,
                 divergent_rays_by_pad={str(p): k for p, k in totals.items()})
 

@@ -1,16 +1,18 @@
 """Profile one render of a registered scene on a CUDA device.
 
     python -m raytracer_tpu_torch.utils.profile_render [--scene perlin]
-        [--spp N] [--out out/render_trace.json]
+        [--spp N] [--large-scene] [--out out/render_trace.json]
 
 The scene at its CLI defaults (width, spp, depth; --spp overrides), through
-the path render/driver.py:render_path gives it. One warm render, then one
+the path render/driver.py:render_path gives it, or with --large-scene
+through the large-scene path (render/driver.py:_render_large_scene). One warm render, then one
 under torch.profiler (CPU and CUDA activity). Prints one JSON line: the
 render's wall seconds, the device's busy time (the union of its kernels'
 intervals) and idle share, the kernel launches, the device time of the
 port's own kernels and of everything else (PyTorch's operators), the host
 syncs (`aten::nonzero` and `aten::item`, each waits for the device), and
-the top kernels and operators; with --out also the Chrome trace. Needs a
+the top kernels and operators (by device time, and by host time); with
+--out also the Chrome trace. Needs a
 CUDA device: it fails without one.
 """
 
@@ -42,23 +44,33 @@ def main(argv=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from raytracer_tpu_torch.render.driver import render_image, render_path
+    from raytracer_tpu_torch.render.driver import _render_large_scene, render_image, render_path
     from raytracer_tpu_torch.scenes.registry import SCENES, get_scene
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="perlin", choices=sorted(SCENES))
     ap.add_argument("--spp", type=int, default=None)
+    ap.add_argument("--large-scene", action="store_true",
+                    help="render through the large-scene path (kernels 4 and 1)")
     ap.add_argument("--out", default=None, help="Chrome trace path (none by default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_render needs a CUDA device")
 
     scene, cam, st = get_scene(args.scene, **({} if args.spp is None else {"spp": args.spp}))
-    render_image(scene, cam, st, device="cuda", seed=1)
+    if args.large_scene:
+        scene = scene.to("cuda")
+
+    def render(seed):
+        if args.large_scene:
+            return _render_large_scene(scene, cam, st, seed=seed)
+        return render_image(scene, cam, st, device="cuda", seed=seed)
+
+    render(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_image(scene, cam, st, device="cuda", seed=0)
+        render(0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.out:
@@ -78,13 +90,15 @@ def main(argv=None) -> dict:
         "self_cuda_time_total")
     top_ops = sorted(((a.key, getattr(a, dev_attr) / 1e3, a.count) for a in ops),
                      key=lambda t: -t[1])[:ROWS]
+    top_host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count) for a in ops),
+                      key=lambda t: -t[1])[:ROWS]
     syncs = {a.key: a.count for a in ops if a.key in SYNC_OPS}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     total_ms = sum(by_kernel.values())
     report = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "scene": args.scene,
-        "path": render_path(scene),
+        "path": "large_scene" if args.large_scene else render_path(scene),
         "shape": [st.width, st.height, st.samples_per_pixel, st.max_depth],
         "wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
         "kernel_launches": len(kernels), "kernel_ms_total": total_ms,
@@ -92,6 +106,7 @@ def main(argv=None) -> dict:
         "other_kernel_ms": total_ms - sum(own_ms.values()), "host_syncs": syncs,
         "top_kernels_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:ROWS],
         "top_ops_self_device_ms_count": top_ops,
+        "top_ops_self_host_ms_count": top_host,
     }
     print(json.dumps(report), flush=True)
     return report

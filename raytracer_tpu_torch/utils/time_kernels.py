@@ -23,10 +23,23 @@ Cells (each through its public wrapper, so a parent checkout runs it too):
   segments x 32); `k3_earth` (the 4-tap) and `k3_perlin` likewise, all
   three timed behind a spin kernel;
 * `k1_train`: kernel 1 on that step's 720,000 bounce-0 camera rays (seed
-  101), timed behind a spin kernel.
+  101), timed behind a spin kernel;
+* `k1_scan`: kernel 1 at every launch of one "scan" training step on
+  rand_spheres 400x225@8spp depth 50 (seed 101, texture colors halved),
+  each at its own rays, summed (the step's 50 launches, recorded as the
+  step makes them);
+* `k1_large` and `k4_large`: `_render_large_scene` on rand_spheres_large
+  at 400x225@64spp depth 8, seed 0, its launches recorded as the render
+  makes them: every bounce launch of kernel 1 (dense in a checkout whose
+  large-scene path walks no cluster table, else its clustered entry),
+  summed, and kernel 4's first launch (the first pass's 360,000 camera
+  rays), each on that checkout's own tables.
 
 A variant sets `threads` (kernel 2 and 3's block size), `k1_threads`
-(kernel 1's), `tape_grid` (ops/persistent_kernel.py:TAPE_GRID_DIVISOR,
+(kernel 1's), where the checkout has them `clustered_threads` (the
+clustered walk's: kernel 1's clustered entry and kernel 4) and `split_target`
+(ops/intersect_kernel.py:SPLIT_TARGET_BLOCKS, the split launches' blocks
+an SM), `tape_grid` (ops/persistent_kernel.py:TAPE_GRID_DIVISOR,
 where the checkout has it), the culled cells' clustering where the
 checkout's render/driver.py has these settings (`sph` and `quad`:
 CLUSTER_GRAIN's leaf/fan of each kind, e.g. `sph=32/16`; `oversize`:
@@ -184,6 +197,9 @@ PATCHES = {
     "permhash": [(_TEX, _PERM_TABLE, _PERM_HASH)],
     "hash": [(_TEX, _PERM_TABLE, _PERM_HASH),
              (_TEX, "  const float4 g = tab.grad[h];\n", _GRAD_HASH)],
+    # Kernel 4 walking per lane instead of under the warp vote.
+    "perlane": [("culled_kernel.cu", "clustered_candidates<rt::WALK_WARP_VOTE>",
+                 "clustered_candidates<rt::WALK_PER_LANE>")],
     # At most 64 registers a thread (eight blocks of 128 threads an SM).
     "regs64": [("persistent_kernel.cu", "__global__ void persistent_kernel(",
                 "__global__ void __launch_bounds__(128, 8) persistent_kernel(")],
@@ -332,6 +348,77 @@ def _tape_cell(name, **scene_kw):
             dict(ns=sc.num_spheres, nq=sc.num_quads, lanes=n, size=[w, h], spp=8, max_depth=50))
 
 
+def _recorded(run, targets):
+    """Run `run()` with each (module, attribute) of `targets` replaced by a
+    recorder that passes the call on and keeps the real function and its
+    arguments (tensors cloned); returns [(fn, args)] in call order."""
+    import torch
+
+    calls = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def recorder(fn):
+        def call(*args):
+            calls.append((fn, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args)))
+            return fn(*args)
+        return call
+
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, recorder(fn))
+        run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls
+
+
+def _replay(calls):
+    """A cell call that makes every recorded call again; returns their
+    outputs, flattened."""
+    return lambda: tuple(x for fn, args in calls for x in fn(*args))
+
+
+def _path_cells() -> dict:
+    """The k1_scan, k1_large and k4_large cells (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
+    from raytracer_tpu_torch.ops import culled_kernel as ck
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.render.driver import _render_large_scene
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    out = {}
+    scene, cam, st = get_scene("rand_spheres", width=400, spp=8, max_depth=50)
+    kw = dict(width=st.width, height=st.height, samples_per_pass=8, max_depth=50)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 7, **kw)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    _, _, step = make_inverse_renderer(start, cam, target, backend="scan",
+                                       learning_rate=1e-2, device="cuda", **kw)
+    calls = _recorded(lambda: step(101), [(ik, "intersect")])
+    out["k1_scan"] = (_replay(calls), 10, True, dict(
+        launches=len(calls), rays=sum(a[2].shape[0] for _, a in calls)))
+
+    scene, cam, st = get_scene("rand_spheres_large", spp=64)
+    sc = scene.to("cuda")
+    clustered = hasattr(ik, "intersect_clustered")
+    k1 = "intersect_clustered" if clustered else "intersect"
+    calls = _recorded(lambda: _render_large_scene(sc, cam, st, seed=0),
+                      [(ik, k1), (ck, "intersect_culled")])
+    bounces = [c for c in calls if c[0] is not ck.intersect_culled]
+    first_camera = [c for c in calls if c[0] is ck.intersect_culled][:1]
+    out["k1_large"] = (_replay(bounces), 3, True, dict(
+        entry=k1, launches=len(bounces), rays=sum(a[-1].shape[0] for _, a in bounces)))
+    out["k4_large"] = (_replay(first_camera), 20, True,
+                       dict(rays=first_camera[0][1][-1].shape[0]))
+    return out
+
+
 def cells():
     """{cell: (call, reps, spin, info)}; each call returns its outputs."""
     import torch
@@ -374,6 +461,7 @@ def cells():
     sph, quad = scene_tables(sc)
     out["k1_train"] = ((lambda: ik.intersect(sph, quad, o, d)), 20, True,
                        dict(rays=n, ns=sc.num_spheres, nq=sc.num_quads))
+    out.update(_path_cells())
     return out
 
 
@@ -386,6 +474,12 @@ def _apply(variant: dict, defaults: dict):
 
     pk.THREADS = int(variant.get("threads", defaults["threads"]))
     ik.THREADS = int(variant.get("k1_threads", defaults["k1_threads"]))
+    for key, mod, name in (("clustered_threads", ik, "CLUSTERED_THREADS"),
+                           ("split_target", ik, "SPLIT_TARGET_BLOCKS")):
+        if hasattr(mod, name):
+            setattr(mod, name, int(variant.get(key, defaults[key])))
+        elif key in variant:
+            raise SystemExit(f"time_kernels: this checkout has no {name} for {key}")
     if hasattr(pk, "TAPE_GRID_DIVISOR"):
         pk.TAPE_GRID_DIVISOR = int(variant.get("tape_grid", defaults["tape_grid"]))
     from raytracer_tpu_torch.render import driver
@@ -445,6 +539,8 @@ def main(argv=None) -> dict:
     from raytracer_tpu_torch.render import driver
 
     defaults = dict(threads=pk.THREADS, k1_threads=ik.THREADS,
+                    clustered_threads=getattr(ik, "CLUSTERED_THREADS", None),
+                    split_target=getattr(ik, "SPLIT_TARGET_BLOCKS", None),
                     tape_grid=getattr(pk, "TAPE_GRID_DIVISOR", 1), csrc=build.CSRC_DIR,
                     grain=dict(getattr(driver, "CLUSTER_GRAIN", {})),
                     oversize=getattr(driver, "CLUSTER_OVERSIZE", None))

@@ -19,6 +19,12 @@ each path run once before its timed runs):
   perlin, earth and simple_light at --spp 100 (kernel 2 textured);
 * `wavefront_step`: `render_image` on perlin with rng-filled Perlin tables
   (kernel 5 and the PyTorch epilogue), ended by a device sync;
+* `large_scene`: `_render_large_scene` on rand_spheres_large at
+  400x225@64spp depth 8 (kernels 4 and 1), each run on a scene built
+  anew and moved to the card before it (its host clustering cold inside
+  the wall), ended by a device sync; `large_scene_cached` the same on one
+  scene on the card, so every run after the first finds its clustering
+  cached;
 * `bucketed_step`, `scan_step`: one `make_inverse_renderer` Adam step of
   each backend on rand_spheres at 400x225, 8 spp, depth 50 from texture
   colors halved (chip_smoke.py phase 7's shape), ended by a device sync.
@@ -74,7 +80,7 @@ def path_runners(out_dir: Path) -> dict:
 
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
-    from raytracer_tpu_torch.render.driver import render_image
+    from raytracer_tpu_torch.render.driver import _render_large_scene, render_image
     from raytracer_tpu_torch.scenes.registry import get_scene
     from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
@@ -96,6 +102,16 @@ def path_runners(out_dir: Path) -> dict:
     big = get_scene("rand_spheres_large", spp=64, n_spheres=50000)
     runners["culled_50k"] = render_50k
     runners["culled_50k_cached"] = lambda: render_50k(big[0])
+    def render_large(scene=None):
+        if scene is None:  # new tensors: a cold host clustering
+            scene = get_scene("rand_spheres_large", spp=64)[0].to("cuda")
+        return dict(wall_s=_synced(lambda: _render_large_scene(scene, large[1], large[2],
+                                                                seed=0)))
+
+    large = get_scene("rand_spheres_large", spp=64)
+    large_sc = large[0].to("cuda")
+    runners["large_scene"] = render_large
+    runners["large_scene_cached"] = lambda: render_large(large_sc)
     scene, cam, st = get_scene("perlin", procedural_perlin=False)
     runners["wavefront_step"] = lambda: dict(wall_s=_synced(
         lambda: render_image(scene, cam, st, device="cuda", seed=0)))

@@ -26,6 +26,7 @@ from raytracer_tpu_torch.core import camera as pcam
 from raytracer_tpu_torch.geometry import bvh as pbvh
 from raytracer_tpu_torch.geometry import scene as pscene
 from raytracer_tpu_torch.integrator import wavefront as pwf
+from raytracer_tpu_torch.ops import cluster_visit as pcv
 from raytracer_tpu_torch.ops import culled_kernel as pck
 from raytracer_tpu_torch.ops import intersect_kernel as pik
 from raytracer_tpu_torch.ops import persistent_kernel as ppk
@@ -431,7 +432,7 @@ def walk_culled(table, sph, quad, o, d, warp=None):
     ns = sph.shape[0]
 
     def enters(r):
-        return pwf._slab_enters(rows[r : r + 1, :6], o, inv, a, t_best[:, None])[:, 0]
+        return pcv._slab_enters(rows[r : r + 1, :6], o, inv, a, t_best[:, None])[:, 0]
 
     def test_range(kind, begin, end, mask):
         nonlocal t_best, p_best
@@ -487,7 +488,7 @@ def test_visit_twin_equals_culling_walk(name, kw, front_to_back):
     tgt = torch.from_numpy(rng.uniform(-9, 9, (3000, 3)).astype(np.float32))
     d = tgt - o
     d[:200, :2] = 0.0  # axis-parallel rays: the slab test's nudged inverse
-    visit = pwf.ClusterVisit.build(table, sph, quad)
+    visit = pcv.ClusterVisit.build(table, sph, quad)
     t_v, p_v, w_v = visit.hit_work(o, d)
     t_w, p_w, w_w = walk_culled(table, sph, quad, o, d)
     assert torch.equal(t_v, t_w) and torch.equal(p_v, p_w)
@@ -513,7 +514,7 @@ def test_warp_union_work_equals_the_culling_walk(name, kw, front_to_back):
     rng = np.random.default_rng(9)
     o = torch.from_numpy(rng.uniform(-9, 9, (2000, 3)).astype(np.float32))
     d = torch.from_numpy(rng.uniform(-9, 9, (2000, 3)).astype(np.float32)) - o
-    visit = pwf.ClusterVisit.build(table, sph, quad)
+    visit = pcv.ClusterVisit.build(table, sph, quad)
     lanes = torch.arange(2000)
     _, _, per_ray = visit.hit_work(o, d)
     _, _, per_ray_1, one = visit.hit_work(o, d, warp=lanes)
@@ -628,7 +629,7 @@ def test_slab_pad_keeps_the_dense_winner_of_a_self_rehit(scene_kw, origin, direc
     scene, cam, _ = pbuilders.rand_spheres_large(width=32, **scene_kw)
     scene_cl, cs = pdriver.cluster_for_render(scene, cam)
     sph, quad, _ = ppk.pack_persistent_tables(scene_cl)
-    visit = pwf.ClusterVisit.build(ppk.pack_cluster_table(cs), sph, quad)
+    visit = pcv.ClusterVisit.build(ppk.pack_cluster_table(cs), sph, quad)
     o, d = torch.tensor([origin]), torch.tensor([direction])
     assert int(visit.hit(o, d)[1]) == winner
     assert divergent_rays(visit, o, d, (0.0, ppk.CLUSTER_SLAB_PAD)) == {

@@ -212,3 +212,94 @@ def test_large_scene_path_counts_passes(monkeypatch):
     assert bool(torch.isfinite(img).all()) and img.shape == (9, 16, 3)
     assert metrics.passes == 2 and metrics.traced_segments >= 144 * 6
     assert metrics.iterations >= 2
+
+
+def large_scene_launches(monkeypatch, width=48, spp=2, n_spheres=1000, seed=2):
+    """_render_large_scene on rand_spheres_large (CPU, one pass): the scene
+    it renders, its (ClusterTable, sphere, quad tables), and the rays of its
+    kernel-4 launch and of each clustered kernel-1 launch, recorded as the
+    path makes them. Also every dense kernel-1 call it makes."""
+    psc, cam, st = pbuilders.rand_spheres_large(width=width, spp=spp, n_spheres=n_spheres)
+    calls = {"culled": [], "clustered": [], "dense": []}
+
+    def recorder(kind, real):
+        def call(*args):
+            calls[kind].append(args)
+            return real(*args)
+        return call
+
+    monkeypatch.setattr(pck, "intersect_culled", recorder("culled", pck.intersect_culled))
+    monkeypatch.setattr(pik, "intersect_clustered",
+                        recorder("clustered", pik.intersect_clustered))
+    monkeypatch.setattr(pik, "intersect", recorder("dense", pik.intersect))
+    monkeypatch.setattr(pdriver, "TARGET_RAYS_PER_PASS", spp * st.width * st.height)
+    pdriver._render_large_scene(psc, cam, st, seed=seed)
+    return psc, cam, calls
+
+
+def test_clustered_twin_equals_dense_search_on_bounce_rays(monkeypatch):
+    """Kernel 1's clustered entry's twin (ClusterVisit.hit) on every bounce
+    launch of a large-scene pass over rand_spheres_large (1,000 spheres):
+    origins on surfaces, where the expanded-form sphere test re-hits its
+    own surface just past T_MIN. Against intersect_plain on the same
+    permuted tables, t equal on every ray and prim equal but for exact ties
+    (counted: none here); the culled walk at the kernel's slab pad
+    (utils/cull_divergence.py's model) changes no winner."""
+    from raytracer_tpu_torch.ops import cluster_visit as pcv
+    from raytracer_tpu_torch.ops import persistent_kernel as ppk
+    from raytracer_tpu_torch.utils.cull_divergence import divergent_rays
+
+    _, _, calls = large_scene_launches(monkeypatch)
+    assert len(calls["clustered"]) >= 3 and not calls["dense"]
+    clusters, sph, quad = calls["clustered"][0][:3]
+    assert clusters.n_sph >= 8
+    visit = pcv.ClusterVisit.build(clusters, sph, quad)
+    ties = rays = 0
+    for _, _, _, o, d in calls["clustered"]:
+        t_c, p_c = visit.hit(o, d)
+        t_d, p_d = pik.intersect_plain(sph, quad, o, d)
+        assert torch.equal(t_c, t_d)
+        assert int(((p_c != p_d) & (t_c == t_d)).sum()) == int((p_c != p_d).sum())
+        ties += int((p_c != p_d).sum())
+        rays += o.shape[0]
+        assert divergent_rays(visit, o, d, (ppk.CLUSTER_SLAB_PAD,)) == {ppk.CLUSTER_SLAB_PAD: 0}
+    assert rays > 2000 and ties == 0
+
+
+def test_cluster_visit_equals_the_tpu_kernels_search_on_camera_rays(monkeypatch):
+    """Kernel 4's twin on the render's two-level table (ClusterVisit.hit)
+    against the TPU kernel's flat-table search (intersect_culled_plain) on
+    the large-scene path's own camera rays: t equal on every ray, prim
+    (mapped back to the unpermuted scene) equal but for exact ties
+    (counted: none here)."""
+    from raytracer_tpu_torch.ops import cluster_visit as pcv
+
+    psc, _, calls = large_scene_launches(monkeypatch)
+    clusters, sph, quad, o, d = calls["culled"][0]
+    t_v, p_v = pcv.ClusterVisit.build(clusters, sph, quad).hit(o, d)
+    order = pdriver._cluster_order_cached(psc)
+    ns = psc.num_spheres
+    quad_order = order.quad if order.quad is not None else torch.arange(psc.num_quads)
+    back = torch.cat([order.sph.long(), ns + quad_order.long()])
+    p_v = torch.where(p_v >= 0, back[p_v.clamp(min=0).long()], -1).to(torch.int32)
+    cl, cl_order, sph_cl, orig = pck.build_clusters(psc)
+    qt = pik.pack_quad_table(pint.quad_derived(psc))
+    t_f, p_f = pck.intersect_culled_plain(cl, cl_order, sph_cl, orig, qt, ns, o, d)
+    assert torch.equal(t_v, t_f)
+    ties = int((p_v != p_f).sum())
+    assert int(((p_v != p_f) & (t_v == t_f)).sum()) == ties == 0
+    assert float((p_v >= 0).float().mean()) > 0.5
+
+
+def test_large_scene_path_culls_every_search_and_launches_nothing_on_cpu(monkeypatch):
+    """_render_large_scene on CPU tensors: camera rays through kernel 4's
+    wrapper, every bounce through kernel 1's clustered entry, no dense
+    kernel-1 call, all on one two-level cluster table of the permuted scene,
+    and no wrapper counts a launch."""
+    before = (pik.LAUNCHES, pik.LAUNCHES_CLUSTERED, pck.LAUNCHES)
+    psc, _, calls = large_scene_launches(monkeypatch, width=16, spp=2, n_spheres=300)
+    assert len(calls["culled"]) == 1 and len(calls["clustered"]) >= 2 and not calls["dense"]
+    tables = calls["culled"][0][:3]
+    assert all(c[0] is tables[0] and c[1] is tables[1] for c in calls["clustered"])
+    assert tables[0].n_sph > 0 and tables[1].shape[0] == psc.num_spheres
+    assert (pik.LAUNCHES, pik.LAUNCHES_CLUSTERED, pck.LAUNCHES) == before

@@ -19,15 +19,12 @@ from cluster_scenes import SCENES as CLUSTER_SCENES
 from cluster_scenes import TWIN_CASES
 from raytracer_tpu_torch.core.camera import camera_frame, camera_rays, make_camera
 from raytracer_tpu_torch.geometry.bvh import ClusterSet, cluster_scene
-from raytracer_tpu_torch.geometry.intersect import (
-    build_large_scene_tables,
-    quad_derived,
-    scene_tables,
-)
+from raytracer_tpu_torch.geometry.intersect import quad_derived, scene_tables
 from raytracer_tpu_torch.geometry.scene import SceneBuilder
 from raytracer_tpu_torch.integrator import wavefront as wf
 from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import build, ctr_rng
+from raytracer_tpu_torch.ops import cluster_visit as cv
 from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
 from raytracer_tpu_torch.ops import persistent_kernel as pk
@@ -308,7 +305,7 @@ def test_twin_counts_the_early_out_quad_work():
     sph = torch.zeros(0, 4)
     quad = torch.from_numpy(table)
     dense = pk.pack_cluster_table(ClusterSet(*(np.zeros((0, 8), np.float32),) * 4))
-    visit = wf.ClusterVisit.build(dense, sph, quad)
+    visit = cv.ClusterVisit.build(dense, sph, quad)
     _, p, work = visit.hit_work(torch.from_numpy(o), torch.from_numpy(d))
     assert np.array_equal(p.numpy(), want_p)
     assert np.array_equal(work[2].numpy(), np.full(len(o), len(table)))
@@ -645,65 +642,186 @@ def test_wavefront_step_kernel_matches_plain(cuda, name):
                 out_k.py, out_k.sample_k, torch.ones_like(out_k.px))
 
 
+def large_scene_launches(device, monkeypatch, width=96, spp=2, n_spheres=None):
+    """_render_large_scene on rand_spheres_large (width wide, spp samples,
+    one pass) on `device`: (its ClusterTable, sphere and quad tables, the
+    (origin, direction) of its kernel-4 launch, the (origin, direction) of
+    each of its clustered kernel-1 launches), recorded as the path makes
+    them."""
+    from raytracer_tpu_torch.render import driver
+
+    kw = {"n_spheres": n_spheres} if n_spheres else {}
+    scene, cam, st = get_scene("rand_spheres_large", width=width, spp=spp, **kw)
+    calls = {"culled": [], "clustered": []}
+
+    def recorder(kind, real):
+        def call(clusters, sph, quad, o, d):
+            calls[kind].append((clusters, sph, quad, o.clone(), d.clone()))
+            return real(clusters, sph, quad, o, d)
+        return call
+
+    monkeypatch.setattr(ck, "intersect_culled", recorder("culled", ck.intersect_culled))
+    monkeypatch.setattr(ik, "intersect_clustered",
+                        recorder("clustered", ik.intersect_clustered))
+    monkeypatch.setattr(driver, "TARGET_RAYS_PER_PASS", spp * st.width * st.height)
+    driver._render_large_scene(scene.to(device), cam, st, seed=3)
+    clusters, sph, quad = calls["culled"][0][:3]
+    return (clusters, sph, quad, calls["culled"][0][3:],
+            [c[3:] for c in calls["clustered"]])
+
+
+def assert_t_equal_prim_but_ties(t, p, t_ref, p_ref):
+    """t bit-equal on every ray; prim equal except where the two winners
+    give the same t exactly (a tie that another visit order breaks the
+    other way). Returns the ties."""
+    assert torch.equal(t, t_ref)
+    ties = int((p != p_ref).sum())
+    assert int(((p != p_ref) & (t == t_ref)).sum()) == ties
+    return ties
+
+
 @pytest.mark.cuda
-def test_culled_kernel_matches_plain_and_dense(cuda):
-    """Kernel 4 against its twin and against kernel 1 on rand_spheres_large's
-    camera rays at 96 wide: t and prim equal on every ray."""
-    scene, cam, st = get_scene("rand_spheres_large", width=96, spp=2)
-    tables = build_large_scene_tables(scene.to(cuda))
-    n = st.width * st.height
-    sid = torch.arange(2 * n, device=cuda)
-    pix = sid % n
-    o, d = camera_rays(camera_frame(cam, st.width, st.height).to(cuda), pix % st.width,
-                       pix // st.width, ctr_rng.camera_uniforms(2, sid))
-    args = (tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
-            tables.quad_table, tables.num_spheres, o.contiguous(), d.contiguous())
+def test_culled_kernel_matches_plain_and_dense(cuda, monkeypatch):
+    """Kernel 4 on the large-scene path's own camera rays (rand_spheres_large
+    at 96 wide, its two-level cluster table): equal to its twin
+    (ClusterVisit.hit) bit for bit, and to dense kernel 1 in t (prim but for
+    exact ties)."""
+    clusters, sph, quad, (o, d), _ = large_scene_launches(cuda, monkeypatch)
     before = ck.LAUNCHES
-    t_k, p_k = ck.intersect_culled(*args)
+    t_k, p_k = ck.intersect_culled(clusters, sph, quad, o, d)
     assert ck.LAUNCHES == before + 1
-    t_p, p_p = ck.intersect_culled_plain(*args)
-    t_1, p_1 = ik.intersect(tables.sph_table, tables.quad_table, *args[-2:])
+    t_p, p_p = cv.ClusterVisit.build(clusters, sph, quad).hit(o, d)
+    t_1, p_1 = ik.intersect(sph, quad, o, d)
     torch.cuda.synchronize()
     assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
-    assert torch.equal(t_k, t_1) and torch.equal(p_k, p_1)
+    assert_t_equal_prim_but_ties(t_k, p_k, t_1, p_1)
 
 
-def test_new_wrappers_on_cpu_take_the_twin_and_count_nothing():
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_spheres", [None, 50000])
+def test_clustered_kernel_matches_plain_and_dense(cuda, monkeypatch, n_spheres):
+    """Kernel 1's clustered entry on every bounce launch of a large-scene
+    pass (origins on surfaces, the self re-hits the slab pad exists for):
+    equal to ClusterVisit.hit bit for bit, and to dense kernel 1 in t (prim
+    but for exact ties)."""
+    clusters, sph, quad, _, bounces = large_scene_launches(cuda, monkeypatch,
+                                                           n_spheres=n_spheres)
+    visit = cv.ClusterVisit.build(clusters, sph, quad)
+    assert len(bounces) >= 3
+    for o, d in bounces:
+        before = ik.LAUNCHES_CLUSTERED
+        t_k, p_k = ik.intersect_clustered(clusters, sph, quad, o, d)
+        assert ik.LAUNCHES_CLUSTERED == before + 1
+        t_p, p_p = visit.hit(o, d)
+        t_1, p_1 = ik.intersect(sph, quad, o, d)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
+        assert_t_equal_prim_but_ties(t_k, p_k, t_1, p_1)
+
+
+def duplicated_rows_scene(seed=4):
+    """Tables of 488 spheres (the training scene's row count) whose last 100
+    repeat earlier rows, and two quads, one of them repeated: exact ties
+    between rows in different slices of a split launch."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-6, 6, (488, 3)).astype(np.float32)
+    r = rng.uniform(0.2, 1.0, 488).astype(np.float32)
+    c[388:], r[388:] = c[:100], r[:100]
+    b = SceneBuilder(seed)
+    m = b.lambertian((0.5, 0.5, 0.5))
+    for ci, ri in zip(c, r):
+        b.add_sphere(tuple(ci), float(ri), m)
+    for _ in range(2):
+        b.add_quad((-7, -7, -7), (14, 0, 0), (0, 14, 0), m)
+    return scene_tables(b.build())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 28000, 720000])
+def test_intersect_kernel_split_matches_plain(cuda, n):
+    """Dense kernel 1 at ray counts from one ray to the scan step's first
+    launch, on tables with duplicated rows: t and prim bit-equal to its twin
+    whether the launch splits its table or not (split_rows)."""
+    sph, quad = (x.to(cuda) for x in duplicated_rows_scene())
+    o, d = random_rays(n, (-8, -8, -8), (8, 8, 8), seed=n, device=cuda)
+    rows = ik.split_rows(n, sph.shape[0], ik.sm_count(cuda.index or 0))
+    assert (rows > 0) == (n <= 28000)
+    before = ik.LAUNCHES
+    t_k, p_k = ik.intersect(sph, quad, o, d)
+    assert ik.LAUNCHES == before + 1
+    t_p, p_p = ik.intersect_plain(sph, quad, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
+
+
+@pytest.mark.parametrize("n,slice_rows", [(1, 36), (31, 36), (32, 52), (33, 4), (1000, 100),
+                                          (4096, 488), (4096, 500)])
+def test_split_combine_equals_the_twin(n, slice_rows):
+    """The plain model of the split kernel's combine (each slice's first
+    minimal candidate as the word (t bits << 32) | prim, the minimum word)
+    equals intersect_plain bit for bit, on tables whose duplicated rows make
+    exact ties across slices, NaN and zero directions included."""
+    sph, quad = duplicated_rows_scene()
+    o, d = random_rays(n, (-8, -8, -8), (8, 8, 8), seed=n)
+    d[:: 7] = torch.tensor([0.0, 0.0, 0.0])
+    d[3:: 11] = torch.tensor([float("nan"), 0.0, 1.0])
+    t_s, p_s = ik.intersect_split_plain(sph, quad, o, d, slice_rows)
+    t_p, p_p = ik.intersect_plain(sph, quad, o, d)
+    assert torch.equal(t_s.isnan(), t_p.isnan())
+    same = ~t_p.isnan()
+    assert torch.equal(t_s[same], t_p[same]) and torch.equal(p_s, p_p)
+
+
+def test_split_plan_fills_the_card():
+    """split_rows: launches of at least two blocks an SM keep one pass;
+    smaller ones split into slices that start on a sphere group, hold at
+    least SPLIT_MIN_ROWS rows and give about SPLIT_TARGET_BLOCKS blocks an
+    SM; tables too short to split keep one pass."""
+    sms = 132
+    assert ik.split_rows(720000, 488, sms) == 0
+    assert ik.split_rows(2 * sms * ik.THREADS, 488, sms) == 0
+    assert ik.split_rows(0, 488, sms) == 0 and ik.split_rows(100, 60, sms) == 0
+    for n in (1, 33, 1000, 28000, (2 * sms - 1) * ik.THREADS):
+        rows = ik.split_rows(n, 488, sms)
+        slices = -(-488 // rows)
+        blocks = -(-n // ik.THREADS)
+        assert rows % ik.SPHERE_GROUP == 0 and rows >= ik.SPLIT_MIN_ROWS and slices >= 2
+        assert blocks * slices <= ik.SPLIT_TARGET_BLOCKS * sms + blocks * 2
+
+
+def test_new_wrappers_on_cpu_take_the_twin_and_count_nothing(monkeypatch):
     args, cfg = step_inputs("perlin", 16, "cpu")
-    before = (wk.LAUNCHES, ck.LAUNCHES)
+    before = (wk.LAUNCHES, ck.LAUNCHES, ik.LAUNCHES_CLUSTERED)
     out = wk.wavefront_step(*args, **cfg)
     ref = wk.wavefront_step_plain(*args, **cfg)
     assert all(torch.equal(a, b) for a, b in zip(out, ref)) and bool(out.grant.all())
-    scene = get_scene("rand_spheres_large", width=8, n_spheres=200)[0]
-    tables = build_large_scene_tables(scene)
-    o, d = random_rays(256, (-12, 0.05, -12), (12, 6, 12), seed=2)
-    targs = (tables.clusters, tables.cluster_order, tables.sph_clustered, tables.orig_ids,
-             tables.quad_table, tables.num_spheres, o, d)
-    t, p = ck.intersect_culled(*targs)
-    t_p, p_p = ck.intersect_culled_plain(*targs)
-    assert torch.equal(t, t_p) and torch.equal(p, p_p)
-    assert (wk.LAUNCHES, ck.LAUNCHES) == before
+    clusters, sph, quad, (o, d), bounces = large_scene_launches(
+        "cpu", monkeypatch, width=16, spp=1, n_spheres=200)
+    visit = cv.ClusterVisit.build(clusters, sph, quad)
+    for fn, (o_, d_) in ((ck.intersect_culled, (o, d)), (ik.intersect_clustered, bounces[0])):
+        t, p = fn(clusters, sph, quad, o_, d_)
+        t_p, p_p = visit.hit(o_, d_)
+        assert torch.equal(t, t_p) and torch.equal(p, p_p)
+    assert (wk.LAUNCHES, ck.LAUNCHES, ik.LAUNCHES_CLUSTERED) == before
 
 
-def test_new_wrappers_reject_bad_inputs():
+def test_new_wrappers_reject_bad_inputs(monkeypatch):
     args, cfg = step_inputs("perlin", 16, "cpu")
     with pytest.raises(TypeError, match="active"):
         wk.wavefront_step(*args[:6], args[6].to(torch.int32), *args[7:], **cfg)
     with pytest.raises(ValueError, match="contiguous"):
         wk.wavefront_step(*args[:4], args[4].T.contiguous().T, *args[5:], **cfg)
-    scene = get_scene("rand_spheres_large", width=8, n_spheres=50)[0]
-    tables = build_large_scene_tables(scene)
-    o, d = random_rays(64, (-12, 0.05, -12), (12, 6, 12), seed=2)
-    with pytest.raises(TypeError, match="order"):
-        ck.intersect_culled(tables.clusters, tables.cluster_order.long(),
-                            tables.sph_clustered, tables.orig_ids, tables.quad_table,
-                            tables.num_spheres, o, d)
-    meta = torch.zeros(4, 3, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ck.intersect_culled(*(x.to("meta") for x in (tables.clusters, tables.cluster_order,
-                                                     tables.sph_clustered, tables.orig_ids,
-                                                     tables.quad_table)),
-                            tables.num_spheres, meta, meta)
+    clusters, sph, quad, (o, d), _ = large_scene_launches("cpu", monkeypatch, width=8, spp=1,
+                                                          n_spheres=50)
+    for fn in (ck.intersect_culled, ik.intersect_clustered):
+        with pytest.raises(TypeError, match="sph_table"):
+            fn(clusters, sph.double(), quad, o, d)
+        with pytest.raises(ValueError, match="do not fit"):
+            fn(clusters._replace(n_sph=clusters.rows.shape[0] + 1), sph, quad, o, d)
+        meta = torch.zeros(4, 3, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(clusters._replace(rows=clusters.rows.to("meta")), sph.to("meta"),
+               quad.to("meta"), meta, meta)
 
 
 def test_library_key_follows_sources(tmp_path, monkeypatch):
