@@ -14,7 +14,8 @@ counters reset just before and read just after:
   tape-forward ("bucketed") backend at 400x225, 8 spp, depth 50, through
   the tape kernel (kernel 3), then one step of its "scan" backend, whose
   closest hit is kernel 1; phase 7t: five such steps on earth (4-tap
-  bilinear) and one on perlin, through kernel 3's textured instantiation;
+  bilinear) and one on perlin (at depth 8), through kernel 3's textured
+  instantiation;
 * the wavefront-step path (phase 10): perlin with rng-filled Perlin
   tables at 400x225, 100 spp, depth 50 through render_image, kernel 5 and
   the PyTorch shading epilogue;
@@ -31,7 +32,23 @@ counters reset just before and read just after:
 * the textured render path (phase 10): the CLI renders of perlin, earth,
   earth --bilinear, earth --bilinear --bilinear-exact and simple_light at
   400x225, 100 spp, depth 50, each one launch of kernel 2's textured
-  instantiation, timed by CUDA events.
+  instantiation, timed by CUDA events;
+* the checkpointed render path (phase 11): render/checkpoint.py's
+  render_with_checkpoints on rand_spheres at 400x225, 500 spp, depth 50 in
+  chunks of 100 spp, stopped after two chunks and resumed (kernel 2, one
+  launch a chunk: 2 + 3, and 5 uninterrupted; resumed = uninterrupted bit
+  for bit), its wall and render_image's at that chunking in turns, and
+  the CLI with --checkpoint (its PNG byte-equal to phase 5's);
+* the training path with the silhouette edge term (phase 12): five
+  bucketed Adam steps of make_inverse_renderer(boundary=True) at phase 7's
+  shape, kernel 3 the forward and kernel 1 every bounce of the edge
+  traces (each of the first step's kernel-1 calls held against its twin
+  and timed at its own rays), then one scan step with the edge term; the
+  edge gradient on the card against the CPU's at a small shape, and
+  diff/opt_checkpoint.py's run_optimization stopped and resumed on the
+  card;
+* the profiled CLI (phase 13): --profile and --memory-profile on the
+  main path, the trace naming kernel 2 among its CUDA kernels.
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -159,6 +176,21 @@ SPLIT_REPEATED_ROWS = 100
 # (bench.py:_measure_grad_depth50).
 TRAIN_CFG = dict(width=400, spp=8, max_depth=50)
 TRAIN_SEEDS = (101, 102, 103, 104, 105)
+# Phase 7t's perlin step runs at this depth: its eager replay of the marble
+# costs ~0.1 s of host launches a bounce whatever the lanes left, and at
+# depth 50 took 18-19 s of the script for paths of 2.3 segments on
+# average (0.6% longer than 8). Phase 6 holds kernel 3 on perlin at 50.
+PERLIN_STEP_DEPTH = 8
+# Phase 11: the checkpointed render's chunking (rand_spheres at the main
+# path's shape, 500 spp in chunks of 100) and the chunks the interrupted
+# run takes before it stops.
+CHECKPOINT_CHUNK = 100
+CHECKPOINT_FIRST_CHUNKS = 2
+# Phase 12: bucketed steps with the boundary term (phase 7's shape and
+# start), and the small shapes of its card-vs-CPU checks.
+BOUNDARY_STEPS = 5
+EDGE_CHECK_SIZE = (24, 20)
+
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -552,8 +584,10 @@ def check_hit(label, sph, quad, o, d):
 
 
 class HitRecorder:
-    """Stands in for ops.intersect_kernel.intersect while a path runs and
-    passes every call on to it: keeps each call's ray count and inputs
+    """Stands in for ops.intersect_kernel.intersect (and for the name
+    integrator.wavefront imports it under, trace's default hit) while a
+    path runs and passes every call on to it: keeps each call's ray count
+    and inputs
     (`calls`; a call's sphere and quad tables are one copy shared with the
     call before it when they are equal), and marks the first call and the
     first later call whose ray count leaves the kernel's last block partial
@@ -576,11 +610,15 @@ class HitRecorder:
         return last
 
     def __enter__(self):
-        self.ik.intersect = self
+        from raytracer_tpu_torch.integrator import wavefront
+
+        self.ik.intersect = wavefront.intersect = self
         return self
 
     def __exit__(self, *exc):
-        self.ik.intersect = self.real
+        from raytracer_tpu_torch.integrator import wavefront
+
+        self.ik.intersect = wavefront.intersect = self.real
 
     def __call__(self, sph, quad, o, d):
         i, n = len(self.counts), o.shape[0]
@@ -1077,6 +1115,455 @@ class PersistentTimer:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+def emitter_scene():
+    """tests/test_torch_boundary.py's deterministic edge scene: a
+    diffuse_light sphere and quad against a flat background, its camera at
+    EDGE_CHECK_SIZE. At max_depth 1 every edge sample's inside radiance is
+    the emission and its outside the background, whatever the random
+    numbers."""
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+
+    w, h = EDGE_CHECK_SIZE
+    b = SceneBuilder(0)
+    b.add_sphere((-0.6, 0.1, -3.0), 0.7, b.diffuse_light((3.0, 2.0, 1.0)))
+    b.add_quad((0.3, -0.8, -3.2), (1.0, 0.1, -0.2), (0.1, 1.1, 0.0),
+               b.diffuse_light((0.5, 1.5, 2.5)))
+    cam, _ = make_camera(w / h, w, fov_degrees=55, look_from=(0, 0, 0), look_at=(0, 0, -3),
+                         background=(0.2, 0.3, 0.4))
+    return b.build(), cam
+
+
+def lambertian_edge_scene():
+    """tests/test_boundary_grad.py's silhouette scene: a lambertian sphere
+    under the gradient sky, its camera at EDGE_CHECK_SIZE."""
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+
+    w, h = EDGE_CHECK_SIZE
+    b = SceneBuilder(0)
+    b.add_sphere((0.3, -0.1, -3.0), 1.0, b.lambertian((0.6, 0.3, 0.2)))
+    b.add_quad((-1.6, -0.9, -4.0), (0.9, 0.0, 0.0), (0.0, 0.9, 0.0),
+               b.lambertian((0.2, 0.6, 0.3)))
+    cam, _ = make_camera(w / h, w, fov_degrees=55, look_from=(0, 0, 0), look_at=(0.1, 0, -3))
+    return b.build(), cam
+
+
+def edge_devices(scene, cam, *, max_depth, sky_gradient, seed=31):
+    """The boundary term's gradient (diff/boundary.py) of sum(ct * image)
+    in every geometry leaf, for one seeded cotangent image, on CUDA (kernel
+    1 in the edge traces) and on the CPU (its twin): {device: {leaf:
+    gradient on the CPU}}."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.diff.boundary import EdgeSamplingConfig, make_boundary_image_fn
+    from raytracer_tpu_torch.diff.grad import split_scene
+
+    w, h = EDGE_CHECK_SIZE
+    ct = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (h, w, 3)).astype(np.float32))
+    cfg = EdgeSamplingConfig(samples_per_sphere=128, samples_per_quad_edge=32, spp_edge=4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params, rebuild = split_scene(scene.to(dev), ("sph_center", "sph_radius", "quad_q",
+                                                      "quad_u", "quad_v"))
+        fn = make_boundary_image_fn(rebuild, width=w, height=h, max_depth=max_depth,
+                                    sky_gradient=sky_gradient, config=cfg)
+        grads = torch.autograd.grad((fn(params, cam, seed) * ct.to(dev)).sum(),
+                                    list(params.values()))
+        out[dev] = {k: g.cpu() for k, g in zip(params, grads)}
+    return out
+
+
+def hold_edge_gradients():
+    """Phase 12's card-vs-CPU check of the edge gradient at
+    EDGE_CHECK_SIZE, with the same seeds: on the emitter scene (max_depth
+    1, deterministic radiances) every leaf within rtol 1e-4 (atol 1e-6 of
+    its largest entry); on the lambertian scene (max_depth 3, the gradient
+    sky) within phase 7a's STEP_LIMITS for the geometry. Returns the
+    readings (largest difference over the largest entry, per leaf)."""
+    import torch
+
+    out, bad = {}, []
+    for label, (scene, cam), kw in (("emitter", emitter_scene(), dict(max_depth=1,
+                                                                      sky_gradient=False)),
+                                    ("lambertian", lambertian_edge_scene(),
+                                     dict(max_depth=3, sky_gradient=True))):
+        g = edge_devices(scene, cam, **kw)
+        rel = {}
+        for name, gc in g["cpu"].items():
+            gk, top = g["cuda"][name], float(gc.abs().max())
+            rel[name] = float((gk - gc).abs().max()) / max(top, 1e-30)
+            if label == "emitter":
+                rtol, atol = 1e-4, 1e-6 * top
+            else:
+                rtol, atol = STEP_LIMITS["sph_center"][0], 1e-4
+            if top <= 0 or not torch.allclose(gk, gc, rtol=rtol, atol=atol):
+                bad.append(f"{label}: {name} edge gradient CUDA vs CPU beyond rtol {rtol}, "
+                           f"atol {atol:.3g} (largest entry {top:.4g})")
+        out[label] = rel
+    if bad:
+        fail(f"phase 12 edge gradients: {bad}; readings {json.dumps(out)}")
+    return out
+
+
+def optimization_resume_check():
+    """Phase 12's run_optimization (diff/opt_checkpoint.py) on the card:
+    four scan steps of tests/test_torch_checkpoint.py's small problem,
+    stopped after two and resumed, against an uninterrupted run. Two
+    uninterrupted runs measure first how far the card's steps differ run
+    to run (autograd's backward scatters with atomics); the resumed run
+    may differ from an uninterrupted one by no more than four times that,
+    or than 1e-6 of the largest param where the runs agree bit for bit
+    (float32 rounding). Returns the readings."""
+    import tempfile
+
+    import torch
+
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
+    from raytracer_tpu_torch.diff.opt_checkpoint import opt_fingerprint, run_optimization
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+
+    b = SceneBuilder(0)
+    b.add_sphere((0, 0, -3), 1.0, b.lambertian((0.6, 0.3, 0.2)))
+    b.add_sphere((0, -101, -3), 100.0, b.lambertian((0.5, 0.5, 0.5)))
+    scene = b.build()
+    cam, _ = make_camera(1.0, 12, look_from=(0, 0, 1), look_at=(0, 0, -3))
+    kw = dict(width=12, height=12, samples_per_pass=2, max_depth=3, sky_gradient=True)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 42, **kw)
+    fp = opt_fingerprint(scene, cam, target, kw, 7)
+
+    def run(**ck):
+        params, opt, step = make_inverse_renderer(scene, cam, target, trainable=(
+            "tex_c0", "sph_center"), learning_rate=5e-2, device="cuda", **kw)
+        run_optimization(step, params, opt, n_steps=4, seed=7, fingerprint=fp, **ck)
+        return {k: p.detach().cpu() for k, p in params.items()}, opt
+
+    def diff(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    full_a, _ = run()
+    full_b, _ = run()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/opt.npz"
+        run(checkpoint_path=path, save_every=1, max_steps_this_run=2)
+        resumed, opt = run(checkpoint_path=path, save_every=1)
+    steps = [int(s["step"]) for s in opt.state_dict()["state"].values()]
+    run_to_run, resume = diff(full_a, full_b), diff(resumed, full_a)
+    scale = max(float(v.abs().max()) for v in full_a.values())
+    limit = 4 * run_to_run if run_to_run > 0 else 1e-6 * scale
+    if steps != [4] * len(steps) or not resume <= limit:
+        fail(f"run_optimization resumed on the card: Adam steps {steps}, params off the "
+             f"uninterrupted run's by {resume:.3g} (limit {limit:.3g}; two uninterrupted runs "
+             f"differ by {run_to_run:.3g})")
+    return dict(run_to_run_max_abs=run_to_run, resumed_max_abs=resume, limit=limit,
+                adam_steps=steps)
+
+
+def hold_hits(hits):
+    """Every kernel-1 call that `hits` (a HitRecorder) recorded against its
+    twin on the same inputs, t and prim bit for bit: {calls, rays, max_abs}."""
+    import torch
+
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+
+    max_abs = 0.0
+    for i, (sph, quad, o, d) in enumerate(hits.calls):
+        t_k, p_k = hits.real(sph, quad, o, d)
+        t_p, p_p = ik.intersect_plain(sph, quad, o, d)
+        torch.cuda.synchronize()
+        if not (torch.equal(p_k, p_p) and bool(((t_k == t_p) | (t_k.isnan() & t_p.isnan())).all())):
+            fail(f"kernel 1 on the edge traces, call {i} ({o.shape[0]} rays): t equal on "
+                 f"{float((t_k == t_p).float().mean())}, prim on "
+                 f"{float((p_k == p_p).float().mean())} of rays against its twin")
+        max_abs = max(max_abs, max_float_diff(t_k, t_p))
+    return dict(calls=len(hits.calls), rays=sum(hits.counts), max_abs=max_abs)
+
+
+def checkpoint_phase(cli, smi):
+    """Phase 11: render/checkpoint.py on the main path's scene and shape
+    (rand_spheres 400x225, 500 spp, depth 50), through kernel 2.
+
+    Two uninterrupted checkpointed renders in chunks of CHECKPOINT_CHUNK
+    must be bit-equal (the fold is deterministic). Then a render that
+    saves after each chunk and stops after CHECKPOINT_FIRST_CHUNKS chunks,
+    its resumption to the end, and an uninterrupted render: the resumed
+    image bit-equal to the uninterrupted one, kernel 2's launches
+    2 + 3 and 5. render_image at as many chunks (a log budget that gives
+    it five, each of the largest size that fits: 101 spp, the last 96) and
+    the checkpointed render without and with saves are timed in turns,
+    three of each, and the saver thread's seconds a save are read. Last,
+    the CLI with --checkpoint on a fresh path at the default chunk: its
+    PNG byte-equal to phase 5's plain CLI PNG."""
+    import shutil
+
+    import torch
+
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.render import checkpoint as ckpt
+    from raytracer_tpu_torch.render.driver import (
+        DEFAULT_WAVEFRONT,
+        log_bytes,
+        render_image,
+        spp_chunk_for,
+    )
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene, cam, st = get_scene("rand_spheres")
+    if (st.width, st.height, st.samples_per_pixel, st.max_depth) != (400, 225, 500, 50):
+        fail(f"phase 11: rand_spheres renders at {st}")
+    n_pix = st.width * st.height
+    kw = dict(seed=0, spp_per_chunk=CHECKPOINT_CHUNK, device="cuda")
+    out_dir = OUT_DIR / "checkpoint"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir()
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def launched(fn):
+        pk.LAUNCHES = 0
+        out, wall = synced(fn)
+        return out, wall, pk.LAUNCHES
+
+    first = ckpt.render_with_checkpoints(scene, cam, st, **kw)
+    again = ckpt.render_with_checkpoints(scene, cam, st, **kw)
+    if not torch.equal(first, again):
+        fail("phase 11: two uninterrupted renders at the same chunking differ on "
+             f"{int((first != again).sum())} values")
+    saves = []
+    real_save = ckpt.save_checkpoint
+
+    def timed_save(path, c):
+        t0 = time.perf_counter()
+        real_save(path, c)
+        saves.append(time.perf_counter() - t0)
+
+    path = str(out_dir / "render.npz")
+    ckpt.save_checkpoint = timed_save
+    try:
+        _, wall_first, n_first = launched(lambda: ckpt.render_with_checkpoints(
+            scene, cam, st, checkpoint_path=path, max_chunks=CHECKPOINT_FIRST_CHUNKS, **kw))
+        stopped = ckpt.load_checkpoint(path)
+        resumed, wall_resumed, n_resumed = launched(lambda: ckpt.render_with_checkpoints(
+            scene, cam, st, checkpoint_path=path, **kw))
+        full, wall_full, n_full = launched(lambda: ckpt.render_with_checkpoints(
+            scene, cam, st, **kw))
+        chunks = -(-st.samples_per_pixel // CHECKPOINT_CHUNK)
+        if (stopped.done_spp, stopped.chunk_idx) != (
+                CHECKPOINT_FIRST_CHUNKS * CHECKPOINT_CHUNK, CHECKPOINT_FIRST_CHUNKS):
+            fail(f"phase 11: the stopped render saved {stopped.done_spp} spp, chunk "
+                 f"{stopped.chunk_idx}")
+        if (n_first, n_resumed, n_full) != (CHECKPOINT_FIRST_CHUNKS,
+                                            chunks - CHECKPOINT_FIRST_CHUNKS, chunks):
+            fail(f"phase 11: kernel 2 launched {n_first} + {n_resumed} and {n_full} times")
+        if not torch.equal(resumed, full):
+            fail(f"phase 11: the resumed image differs from the uninterrupted one on "
+                 f"{int((resumed != full).sum())} values")
+        if not torch.equal(resumed, first):
+            fail("phase 11: the resumed image differs from the first uninterrupted render")
+        # Walls in turns: render_image at a log budget that gives it as
+        # many chunks (its own chunk size: the largest that fits), the
+        # checkpointed render without a path (the chunk loop alone) and
+        # with one (a host copy and a save after every chunk).
+        budget = log_bytes(n_pix, CHECKPOINT_CHUNK, DEFAULT_WAVEFRONT)
+        ri_chunk = spp_chunk_for(n_pix, st.samples_per_pixel, DEFAULT_WAVEFRONT, budget)
+        if -(-st.samples_per_pixel // ri_chunk) != chunks:
+            fail(f"phase 11: the log budget gives render_image chunks of {ri_chunk} spp")
+        walls = {"render_image": [], "chunks_no_saves": [], "checkpointed": []}
+        saves.clear()
+        for rep in range(3):
+            order = list(walls) if rep % 2 == 0 else list(walls)[::-1]
+            for label in order:
+                pk.LAUNCHES = 0
+                if label == "render_image":
+                    img, wall = synced(lambda: render_image(scene, cam, st, device="cuda", seed=0,
+                                                            log_budget_bytes=budget))
+                elif label == "chunks_no_saves":
+                    img, wall = synced(lambda: ckpt.render_with_checkpoints(scene, cam, st, **kw))
+                else:
+                    p = str(out_dir / f"turn{rep}.npz")
+                    img, wall = synced(lambda: ckpt.render_with_checkpoints(
+                        scene, cam, st, checkpoint_path=p, **kw))
+                if pk.LAUNCHES != chunks or not bool(torch.isfinite(img).all()):
+                    fail(f"phase 11: {label} launched kernel 2 {pk.LAUNCHES} times")
+                if label != "render_image" and not torch.equal(img, full):
+                    fail(f"phase 11: {label} differs from the uninterrupted render")
+                walls[label].append(wall)
+        saver_s = list(saves)
+    finally:
+        ckpt.save_checkpoint = real_save
+    # The CLI at its default chunk (render_image's: one chunk at this shape).
+    png = OUT_DIR / "rand_spheres_checkpoint.png"
+    _, wall_cli, n_cli = launched(lambda: cli.main(
+        ["--scene", "rand_spheres", "--out", str(png), "--checkpoint",
+         str(out_dir / "cli.npz")]))
+    if png.read_bytes() != (OUT_DIR / "rand_spheres.png").read_bytes():
+        fail("phase 11: the --checkpoint CLI PNG differs from phase 5's plain CLI PNG")
+    return dict(launches=dict(stopped=n_first, resumed=n_resumed, uninterrupted=n_full,
+                              cli=n_cli),
+                wall_s=dict(stopped=wall_first, resumed=wall_resumed,
+                            uninterrupted_no_saves=wall_full, cli_checkpoint=wall_cli),
+                walls_in_turns=walls, render_image_chunk=ri_chunk, saver_s_per_save=saver_s,
+                resumed_equals_uninterrupted=True, cli_png_equal=True)
+
+
+def boundary_phase(train_kw, smi):
+    """Phase 12: make_inverse_renderer(boundary=True) at phase 7's shape and
+    start (rand_spheres 400x225, 8 spp, depth 50, the default trainables,
+    texture colors halved), through kernel 3 (the bucketed forward) and
+    kernel 1 (every bounce of every edge trace).
+
+    BOUNDARY_STEPS bucketed Adam steps, each printed with its wall split
+    (tape forward, loss/cotangent, replay forward, backward, edges,
+    optimizer); kernel 3's launches (one a step) and kernel 1's (the edge
+    traces only) counted. Every kernel-1 call of the first step is
+    recorded and held against its twin bit for bit, then timed at its own
+    rays (device time, summed, with its bound). Then one scan step with the
+    boundary term (kernel 1 in the render and in the edge traces), the
+    edge gradient on the card against the CPU's (hold_edge_gradients), and
+    run_optimization stopped and resumed on the card
+    (optimization_resume_check)."""
+    import torch
+
+    from raytracer_tpu_torch.diff.grad import boundary_config, make_inverse_renderer, \
+        render_linear_diff
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width, height=st.height,
+                                    samples_per_pass=st.samples_per_pixel,
+                                    max_depth=st.max_depth)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    cfg = boundary_config(scene)
+    params, _, step = make_inverse_renderer(start, cam, target, backend="bucketed",
+                                            boundary=True, **train_kw)
+    steps = []
+    ik.LAUNCHES = 0
+    pk.LAUNCHES_TAPE = 0
+    torch.cuda.synchronize()
+    for i, seed in enumerate(TRAIN_SEEDS[:BOUNDARY_STEPS]):
+        recorder = HitRecorder(ik) if i == 0 else contextlib.nullcontext()
+        timings = {}
+        with recorder:
+            t0 = time.perf_counter()
+            loss = float(step(seed, timings))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if i == 0:
+            hits = recorder
+        if not (math.isfinite(loss) and all(bool(torch.isfinite(p.grad).all())
+                                            for p in params.values())):
+            fail(f"boundary step {seed}: loss {loss} or its gradients not finite")
+        steps.append(dict(loss=loss, wall_s=wall, **timings))
+        s_ = steps[-1]
+        print(f"phase 12 bucketed step {i} with the boundary term: loss {loss:.6g}, wall "
+              f"{wall:.4f} s = tape forward {s_['tape_forward']:.4f} + loss/cotangent "
+              f"{s_['loss_cotangent']:.4f} + replay forward {s_['replay_forward']:.4f} + backward "
+              f"{s_['backward']:.4f} + edges {s_['edges']:.4f} + optimizer "
+              f"{s_['optimizer']:.4f} s (edges {s_['edges'] / wall:.1%}); {smi}", flush=True)
+    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE)
+    if launches["persistent_tape"] != BOUNDARY_STEPS or launches["closest_hit"] <= 0:
+        fail(f"phase 12: launches {launches} in {BOUNDARY_STEPS} boundary steps")
+    edge_rays = 3 * (scene.num_spheres * cfg.samples_per_sphere) * cfg.spp_edge
+    if hits.counts[0] != scene.num_spheres * cfg.samples_per_sphere * cfg.spp_edge:
+        fail(f"phase 12: the first edge trace's camera rays {hits.counts[0]}, expected "
+             f"{scene.num_spheres} spheres x {cfg.samples_per_sphere} x {cfg.spp_edge}")
+    held = hold_hits(hits)
+    k1_edges = dict(hits.timed_sum(), held=held, rays_per_launch=hits.counts,
+                    launches_in_all_steps=launches["closest_hit"],
+                    camera_rays_per_trace=hits.counts[0], edge_paths_per_step=edge_rays)
+    del hits.calls
+    # One scan step with the boundary term.
+    params_s, _, step_s = make_inverse_renderer(start, cam, target, backend="scan",
+                                                boundary=True, **train_kw)
+    ik.LAUNCHES = 0
+    torch.cuda.synchronize()
+    scan_t = {}
+    t0 = time.perf_counter()
+    scan_loss = float(step_s(TRAIN_SEEDS[0], scan_t))
+    torch.cuda.synchronize()
+    scan_t["wall_s"] = time.perf_counter() - t0
+    scan_launches = ik.LAUNCHES
+    if not (math.isfinite(scan_loss) and scan_launches > TRAIN_CFG["max_depth"]
+            and all(bool(torch.isfinite(p.grad).all()) for p in params_s.values())):
+        fail(f"phase 12 scan step: loss {scan_loss}, closest-hit launches {scan_launches}")
+    edge_check = hold_edge_gradients()
+    resume = optimization_resume_check()
+    rec = dict(steps=steps, launches=launches, closest_hit_edges=k1_edges,
+               edge_config=cfg._asdict(), scan_step=dict(scan_t, loss=scan_loss,
+                                                        closest_hit_launches=scan_launches),
+               edge_cuda_vs_cpu_rel_to_max=edge_check, run_optimization=resume)
+    print(f"phase 12 boundary term: {BOUNDARY_STEPS} bucketed steps, launches "
+          f"{json.dumps(launches)}; kernel 1 in the first step's edge traces: "
+          f"{k1_edges['launches']} launches, {k1_edges['rays']} rays, {k1_edges['ms']:.3f} ms "
+          f"summed by CUDA events (bound {k1_edges['bound_ms']:.3f} ms, twin "
+          f"{k1_edges['plain_ms']:.1f} ms), every call bit-equal to its twin; rays per launch "
+          f"{hits.counts}; scan step {json.dumps(rec['scan_step'])}; edge gradient CUDA vs "
+          f"CPU {json.dumps(edge_check)}; run_optimization resumed on the card "
+          f"{json.dumps(resume)}; {smi}", flush=True)
+    return rec
+
+
+def profile_phase(cli):
+    """Phase 13: the CLI with --profile and --memory-profile on the main
+    path, run in its own directory under OUT_DIR with the allocator's peak
+    reset before it: the trace under out/trace names kernel 2's symbol
+    among its CUDA kernel events, the memory report's peak is above 0 and
+    below the card's total, and the CLI's report carries peak_hbm_mb."""
+    import os
+    import shutil
+
+    import torch
+
+    run_dir = OUT_DIR / "profile"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        report = cli.main(["--scene", "rand_spheres", "--out", "rs.png", "--profile",
+                           "--memory-profile", "memory.json"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    traces = sorted((run_dir / "out" / "trace").glob("*.json"))
+    if len(traces) != 1:
+        fail(f"phase 13: traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    k2_events = [e for e in events if e.get("cat") == "kernel" and "persistent_kernel" in e["name"]]
+    memory = json.loads((run_dir / "memory.json").read_text())
+    total_mb = torch.cuda.get_device_properties(0).total_memory / 2**20
+    if not k2_events:
+        fail(f"phase 13: no persistent_kernel among the trace's CUDA kernels {kernels}")
+    if not 0 < memory["peak_hbm_mb"] < total_mb or "peak_hbm_mb" not in report:
+        fail(f"phase 13: memory report peak {memory.get('peak_hbm_mb')} MiB, card "
+             f"{total_mb:.0f} MiB; CLI report keys {sorted(report)}")
+    return dict(trace=str(traces[0].relative_to(REPO)), trace_mb=traces[0].stat().st_size / 2**20,
+                kernel_names=len(kernels), persistent_kernel_events=len(k2_events),
+                persistent_kernel_us=sum(e.get("dur", 0) for e in k2_events),
+                memory=dict({k: memory[k] for k in ("peak_hbm_mb", "hbm_in_use_mb",
+                                                    "hbm_limit_mb", "live_buffers_mb",
+                                                    "total_mb", "num_blocks")},
+                            largest_block_mb=memory["blocks"][0]["mb"] if memory["blocks"]
+                            else 0.0),
+                report_memory={k: report[k] for k in ("peak_hbm_mb", "hbm_in_use_mb",
+                                                      "hbm_limit_mb", "live_buffers_mb")},
+                wall_s=wall, render_wall_s=report["wall_s"])
+
+
 def main() -> int:
     import torch
 
@@ -1104,8 +1591,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     record = {}
+    # Each phase's start on the host clock; the record gets their seconds.
+    phase_start = {}
 
     # ---- phase 1: device, kernel build ----
+    phase_start["1"] = time.perf_counter()
     t0 = time.perf_counter()
     build.load_kernels()
     build_s = time.perf_counter() - t0
@@ -1121,6 +1611,7 @@ def main() -> int:
           f"built in {native_s:.3f} s; ptxas: {regs}", flush=True)
 
     # ---- phase 2: kernel 1 vs its plain twin, 1M random rays ----
+    phase_start["2"] = time.perf_counter()
     k1 = {}
     for name, lo, hi in (("rand_spheres", (-12, 0.05, -12), (12, 6, 12)),
                          ("cornell", (1, 1, 1), (554, 554, 554))):
@@ -1158,6 +1649,7 @@ def main() -> int:
           f"{SPLIT_REPEATED_ROWS} repeated): {json.dumps(k1_split)}", flush=True)
 
     # ---- phase 3: kernel 2 vs its plain twin, same seed and schedule ----
+    phase_start["3"] = time.perf_counter()
     # Small scenes with several samples per lane, then the main path's own
     # kernel call: rand_spheres 400x225@500spp depth 50, its lanes, seed 0.
     k2 = {}
@@ -1221,6 +1713,7 @@ def main() -> int:
               flush=True)
 
     # ---- phase 4: render_image on CUDA against the golden statistics ----
+    phase_start["4"] = time.perf_counter()
     golden = json.loads((REPO / "tests" / "golden_stats.json").read_text())
     g4, clamped_means = {}, {}
     for name in GOLDEN_SCENES + GOLDEN_NO_PROBES:
@@ -1250,6 +1743,7 @@ def main() -> int:
           f"probes), and earth 512x1024 texels at 400x225@100spp: {json.dumps(g4)}", flush=True)
 
     # ---- phase 5: the main path, counted ----
+    phase_start["5"] = time.perf_counter()
     out_png = OUT_DIR / "rand_spheres.png"
     ik.LAUNCHES = 0
     pk.LAUNCHES = 0
@@ -1279,6 +1773,7 @@ def main() -> int:
           f"linear mean {lin_mean.round(4).tolist()}", flush=True)
 
     # ---- phase 6: kernel 3 vs its plain twin ----
+    phase_start["6"] = time.perf_counter()
     # A small cornell shape (quads, the emitter), then the training path's
     # own shape: rand_spheres 400x225, 8 spp, depth 50, one lane per sample.
     k3 = {}
@@ -1316,6 +1811,7 @@ def main() -> int:
           f"{json.dumps(k3_tex)}; {smi}", flush=True)
 
     # ---- phase 7: the training path, counted ----
+    phase_start["7"] = time.perf_counter()
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
 
     step_7a = step_check()
@@ -1400,20 +1896,22 @@ def main() -> int:
           f"kernel 1 at each launch's own rays, summed {json.dumps(k1_scan)}", flush=True)
 
     # ---- phase 7t: the training path on textured scenes, counted ----
+    phase_start["7t"] = time.perf_counter()
     # Five bucketed steps on earth (4-tap bilinear) from a sphere 5% too
-    # large, then one on perlin; the tape kernel's textured instantiation
-    # is each step's forward.
+    # large, then one on perlin at depth PERLIN_STEP_DEPTH; the tape
+    # kernel's textured instantiation is each step's forward.
     train_t = {}
-    for label, name, kw, n_steps in (("earth_bilinear", "earth", {"bilinear": True}, 5),
-                                     ("perlin", "perlin", {}, 1)):
-        scene, cam, st = get_scene(name, **TRAIN_CFG, **kw)
+    for label, name, kw, n_steps in (
+            ("earth_bilinear", "earth", {"bilinear": True}, 5),
+            ("perlin", "perlin", {"max_depth": PERLIN_STEP_DEPTH}, 1)):
+        scene, cam, st = get_scene(name, **{**TRAIN_CFG, **kw})
         with torch.no_grad():
             target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width,
                                         height=st.height, samples_per_pass=st.samples_per_pixel,
                                         max_depth=st.max_depth)
         start = dataclasses.replace(scene, sph_radius=scene.sph_radius * 1.05)
         params, _, step = make_inverse_renderer(start, cam, target, backend="bucketed",
-                                                **train_kw)
+                                                **{**train_kw, "max_depth": st.max_depth})
         pk.LAUNCHES_TAPE = 0
         torch.cuda.synchronize()
         steps_t = []
@@ -1442,6 +1940,7 @@ def main() -> int:
                   f"tape launches {rec_t['tape_launches']}", flush=True)
 
     # ---- phase 8: kernel 5 vs its twin; the wavefront-step path vs kernel 2 ----
+    phase_start["8"] = time.perf_counter()
     from raytracer_tpu_torch.ops import culled_kernel as ck
     from raytracer_tpu_torch.ops import wavefront_kernel as wk
 
@@ -1454,12 +1953,14 @@ def main() -> int:
           f"96x54@8spp depth 10 (rr_hi 0.75): {json.dumps(k5)}", flush=True)
 
     # ---- phase 9: kernel 4 vs its twin and kernel 1 ----
+    phase_start["9"] = time.perf_counter()
     k4 = culled_check()
     record["culled"] = k4
     print(f"phase 9 kernel 4 vs plain and kernel 1 on rand_spheres_large's first-pass camera "
           f"rays, two-level table: {json.dumps(k4)}", flush=True)
 
     # ---- phase 10: the wavefront-step, culled, large-scene and textured paths, counted ----
+    phase_start["10"] = time.perf_counter()
     from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
     counters = (("closest_hit", ik, "LAUNCHES"), ("closest_hit_clustered", ik, "LAUNCHES_CLUSTERED"),
@@ -1610,6 +2111,25 @@ def main() -> int:
     paths["textured"] = textured
     record["paths"] = paths
 
+    # ---- phase 11: checkpoint and resume on the main path, counted ----
+    phase_start["11"] = time.perf_counter()
+    ckpt_rec = checkpoint_phase(cli, smi)
+    record["checkpoint"] = ckpt_rec
+    print(f"phase 11 checkpoint and resume, rand_spheres 400x225@500spp depth 50 in chunks of "
+          f"{CHECKPOINT_CHUNK}: {json.dumps(ckpt_rec)}; {smi}", flush=True)
+
+    # ---- phase 12: the boundary term on the training path, counted ----
+    phase_start["12"] = time.perf_counter()
+    bnd = boundary_phase(train_kw, smi)
+    record["boundary"] = bnd
+
+    # ---- phase 13: the CLI's profiling flags ----
+    phase_start["13"] = time.perf_counter()
+    prof = profile_phase(cli)
+    record["profile"] = prof
+    print(f"phase 13 the CLI with --profile --memory-profile, rand_spheres 400x225@500spp "
+          f"depth 50: {json.dumps(prof)}; {smi}", flush=True)
+
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
@@ -1712,6 +2232,11 @@ def main() -> int:
             "bounce_0": {k: k1r[k] for k in ("rays", "ms", "plain_ms")},
             "split": {n: {k: v[k] for k in ("ms", "plain_ms", "slice_rows", "slices")}
                       for n, v in k1_split.items()},
+            "edge_term": {k: bnd["closest_hit_edges"][k] for k in (
+                "launches", "rays", "ms", "plain_ms", "bound_ms", "bound_by",
+                "launches_in_all_steps", "camera_rays_per_trace")},
+            "edge_term_path": f"training, bucketed backend with boundary=True: the edge traces "
+                              f"of one step (phase 12), {BOUNDARY_STEPS} steps",
         },
         {
             "name": "closest_hit_clustered",
@@ -1758,6 +2283,8 @@ def main() -> int:
             "shape": f"rand_spheres 400x225@500spp depth 50, {DEFAULT_WAVEFRONT} lanes",
             "textured": k2_textured,
             "culled": k2_culled,
+            "checkpointed": {k: ckpt_rec[k] for k in ("launches", "walls_in_turns",
+                                                       "saver_s_per_save")},
         },
         {
             "name": "persistent_tape",
@@ -1767,7 +2294,7 @@ def main() -> int:
             "launches": launches_train["persistent_tape"],
             "on_main_path": True,
             "path": "training, bucketed backend (five steps, phase 7); textured: five steps on "
-                    "earth (4-tap), one on perlin (phase 7t)",
+                    "earth (4-tap), one on perlin at depth 8 (phase 7t)",
             "max_abs_err": max(v["max_abs"] for v in (*k3.values(), *k3_tex.values())),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
@@ -1777,6 +2304,7 @@ def main() -> int:
             "shape": f"rand_spheres 400x225@8spp depth 50, {n3} samples from the queue",
             "warp_occupancy": k3t["warp_occupancy"],
             "textured": k3_textured,
+            "launches_in_boundary_steps": bnd["launches"]["persistent_tape"],
         },
         {
             "name": "culled_closest_hit",
@@ -1820,11 +2348,16 @@ def main() -> int:
                      f"({k5['ns']} spheres, {k5['nq']} quad)",
         },
     ]
+    names = list(phase_start)
+    phase_s = {n: (phase_start[names[i + 1]] if i + 1 < len(names) else time.perf_counter())
+               - phase_start[n] for i, n in enumerate(names)}
     (OUT_DIR / "chip_smoke_record.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "record": record, "golden_means": g4,
          "main_path": report, "step_check": step_7a, "kernels": kernels,
-         "command_s": time.perf_counter() - T_START}, indent=1))
-    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s", flush=True)
+         "command_s": time.perf_counter() - T_START, "phase_s": phase_s}, indent=1))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s; seconds a phase (to the next "
+          f"phase's start, the last to the record) "
+          f"{json.dumps({n: round(v, 1) for n, v in phase_s.items()})}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -28,6 +28,10 @@ design here; and the depth ladder with its padded bucket sizes
 compile cache. The eager replay instead works at each bounce on the lanes
 still alive, so its work follows the real lane-bounces with no padding;
 the gradient is the same sum.
+
+With `edge_image_fns` (diff/boundary.py's zero-valued edge images), the
+step adds their gradients as VJPs against the forward's image cotangent
+(`compose_edges`, JAX `_compose_edges`).
 """
 
 from __future__ import annotations
@@ -48,6 +52,32 @@ from raytracer_tpu_torch.ops.persistent_kernel import (
     render_persistent_tape,
     unsupported_reason,
 )
+
+
+# Counter of the edge terms' seed stream (the JAX package folds its step key
+# with 6070 for them).
+EDGE_SEED_STREAM = 6070
+
+
+def edge_seed(seed: int, i: int) -> int:
+    """Seed of edge term i in a step seeded `seed`: the scan and bucketed
+    backends give edge term i the same seed, and none of them shares the
+    interior render's."""
+    return int(ctr_rng.hash_i32(seed, EDGE_SEED_STREAM, i + 1))
+
+
+def compose_edges(edge_image_fns, params: dict, cam: Camera, seed: int, ct_img):
+    """Gradients, keyed like `params`, of sum over i of sum(fn_i(params,
+    cam, edge_seed(seed, i)) * ct_img): for zero-valued edge images
+    fn(params, cam, seed) -> (H, W, 3), exactly their first-order share of
+    a loss whose image cotangent is `ct_img` (the scan backend adds the
+    same images to its render before the loss; the two agree because the
+    images are zero)."""
+    total = sum((fn(params, cam, edge_seed(seed, i)) * ct_img).sum()
+                for i, fn in enumerate(edge_image_fns))
+    grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+    return {name: torch.zeros_like(p) if g is None else g
+            for (name, p), g in zip(params.items(), grads)}
 
 
 class PhaseClock:
@@ -118,6 +148,7 @@ def make_bucketed_grad_fn(
     samples_per_pass: int,
     max_depth: int,
     sky_gradient: bool = False,
+    edge_image_fns=(),
 ):
     """Build `step(params, seed, timings=None) -> (loss, grads)`: the loss of
     one tape-forward render against `target` (H, W, 3) and its gradient in
@@ -126,9 +157,13 @@ def make_bucketed_grad_fn(
     takes its twin. `seed` is an int; the JAX package derives it from its key
     as `jax.random.randint(key, (), 0, 2**31 - 1)`.
 
+    `edge_image_fns`: zero-valued edge images fn(params, cam, seed) (diff/
+    boundary.py) whose gradients `compose_edges` adds after the interior
+    step, against the forward's image cotangent.
+
     With a `timings` dict the step syncs the device at each phase's end and
     adds the phase's wall seconds under "tape_forward", "loss_cotangent",
-    "replay_forward" and "backward"."""
+    "replay_forward", "backward" and, with edge terms, "edges"."""
     dev = target.device
     k = samples_per_pass
     total = k * width * height
@@ -150,7 +185,7 @@ def make_bucketed_grad_fn(
                 textures=texture_tables(scene, quad_derived(scene)),
             )
             clock.lap("tape_forward")
-            loss, ct_lane, lane_depth, _ = finish(rad3.T, tape, target, samples_per_pass=k)
+            loss, ct_lane, lane_depth, ct_img = finish(rad3.T, tape, target, samples_per_pass=k)
             lanes = torch.arange(total, device=dev)
             if not sky_gradient:
                 lanes = lanes[lane_depth > 1]
@@ -170,6 +205,11 @@ def make_bucketed_grad_fn(
             for (name, p), g in zip(params.items(), grads)
         }
         clock.lap("backward")
+        if edge_image_fns:
+            with torch.profiler.record_function("edges"):
+                edge = compose_edges(edge_image_fns, params, cam, seed, ct_img)
+            grads = {name: g + edge[name] for name, g in grads.items()}
+            clock.lap("edges")
         return loss, grads
 
     return step

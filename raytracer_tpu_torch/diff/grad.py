@@ -19,8 +19,14 @@ Two backends compute the same estimator:
 * "bucketed": diff/bucketed.py, whose forward is the tape kernel and whose
   gradient replays the tape.
 
-Not ported yet (ROADMAP Queue 1 #10): the visibility-boundary estimators
-(`boundary`, `shadow_edges`, `mirror_edges`, `refracted_edges`) and the
+`boundary=True` adds the silhouette term that interior autodiff cannot see
+(diff/boundary.py: primary-visibility edge sampling of sphere contours and
+quad edges): the scan backend adds its zero-valued image to the render
+before the loss, the bucketed backend composes it by VJP against the
+forward's image cotangent (diff/bucketed.py:compose_edges).
+
+Not ported yet (ROADMAP Queue 1 #10): the other visibility-boundary
+estimators (`shadow_edges`, `mirror_edges`, `refracted_edges`) and the
 trainable camera.
 """
 
@@ -33,7 +39,8 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
-from raytracer_tpu_torch.diff.bucketed import PhaseClock, make_bucketed_grad_fn
+from raytracer_tpu_torch.diff.boundary import EdgeSamplingConfig, make_boundary_image_fn
+from raytracer_tpu_torch.diff.bucketed import PhaseClock, edge_seed, make_bucketed_grad_fn
 from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.integrator.wavefront import trace
@@ -115,23 +122,32 @@ def render_loss(
     samples_per_pass: int,
     max_depth: int,
     sky_gradient: bool = False,
+    edge_image_fns=(),
 ):
-    """MSE between a fresh render (render_linear_diff) and `target`."""
+    """MSE between a fresh render (render_linear_diff) and `target`. Each
+    of `edge_image_fns` (zero-valued edge images fn(params, cam, seed),
+    diff/boundary.py) is added to the render before the loss, under seed
+    diff.bucketed.edge_seed(seed, i), so the geometry gradients include
+    its boundary term."""
     img = render_linear_diff(
         rebuild(params), cam, seed, width=width, height=height,
         samples_per_pass=samples_per_pass, max_depth=max_depth, sky_gradient=sky_gradient,
     )
+    for i, fn in enumerate(edge_image_fns):
+        img = img + fn(params, cam, edge_seed(seed, i))
     return torch.mean((img - target) ** 2)
 
 
-def make_scan_grad_fn(rebuild, cam: Camera, target, **render_kw):
+def make_scan_grad_fn(rebuild, cam: Camera, target, edge_image_fns=(), **render_kw):
     """`step(params, seed, timings=None) -> (loss, grads)` of the scan
     backend; `timings` gets "forward" and "backward" seconds (see
-    diff.bucketed.make_bucketed_grad_fn)."""
+    diff.bucketed.make_bucketed_grad_fn), the edge terms' work inside
+    "backward"."""
 
     def step(params, seed: int, timings=None):
         clock = PhaseClock(timings, target.device)
-        loss = render_loss(params, rebuild, cam, seed, target, **render_kw)
+        loss = render_loss(params, rebuild, cam, seed, target, edge_image_fns=edge_image_fns,
+                           **render_kw)
         clock.lap("forward")
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {
@@ -142,6 +158,17 @@ def make_scan_grad_fn(rebuild, cam: Camera, target, **render_kw):
         return loss.detach(), grads
 
     return step
+
+
+def boundary_config(scene: Scene) -> EdgeSamplingConfig:
+    """The edge budget of make_inverse_renderer(boundary=True): the default
+    up to 64 primitives; past that 64 samples a sphere contour, 32 a quad
+    edge and 4 paths a point (the JAX package's budget, diff/grad.py:
+    209-214). The estimator stays unbiased; its noise adds to the
+    stochastic gradient's."""
+    if scene.num_spheres + scene.num_quads > 64:
+        return EdgeSamplingConfig(samples_per_sphere=64, samples_per_quad_edge=32, spp_edge=4)
+    return EdgeSamplingConfig()
 
 
 def make_inverse_renderer(
@@ -172,10 +199,14 @@ def make_inverse_renderer(
     gradients of one render (backend "scan" or "bucketed") and updates the
     params in place. With a `timings` dict each phase's wall seconds are
     added to it (see the backends), the update under "optimizer".
+    `boundary=True` adds the edge-sampled silhouette gradients of
+    diff/boundary.py (needed when the trainables move geometry whose
+    silhouettes are in view), at a reduced budget on scenes of more than
+    64 primitives (`boundary_config`).
     The default device is CUDA, which raises without a card."""
     for flag, name in (
-        (boundary, "boundary"), (shadow_edges, "shadow_edges"),
-        (mirror_edges, "mirror_edges"), (refracted_edges, "refracted_edges"),
+        (shadow_edges, "shadow_edges"), (mirror_edges, "mirror_edges"),
+        (refracted_edges, "refracted_edges"),
     ):
         if flag:
             raise NotImplementedError(f"{name} is not ported yet ({_EDGE_ITEM})")
@@ -194,10 +225,17 @@ def make_inverse_renderer(
         width=width, height=height, samples_per_pass=samples_per_pass,
         max_depth=max_depth, sky_gradient=sky_gradient,
     )
+    edge_fns = ()
+    if boundary:
+        edge_fns = (make_boundary_image_fn(
+            rebuild, width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
+            config=boundary_config(scene),
+        ),)
     if backend == "bucketed":
-        grad_fn = make_bucketed_grad_fn(rebuild, cam, target, **render_kw)
+        grad_fn = make_bucketed_grad_fn(rebuild, cam, target, edge_image_fns=edge_fns,
+                                        **render_kw)
     elif backend == "scan":
-        grad_fn = make_scan_grad_fn(rebuild, cam, target, **render_kw)
+        grad_fn = make_scan_grad_fn(rebuild, cam, target, edge_image_fns=edge_fns, **render_kw)
     else:
         raise ValueError(f"unknown backend {backend!r}; use 'scan' or 'bucketed'")
 

@@ -77,9 +77,24 @@ def _background(direction, background, sky_gradient):
     return background.to(direction.device).expand_as(direction)
 
 
+def roulette(throughput, alive, depth, coin, *, start: int, lo: float, hi: float):
+    """Unbiased russian roulette (the JAX package's rule,
+    raytracer_tpu/integrator/wavefront.py:477-483): with q = clip(max over
+    channels of the lane's throughput, lo, hi), a lane alive at `depth`
+    (bounces taken, counting this one) >= `start` continues only if its
+    coin < q, and its throughput is divided by q. Returns (alive,
+    throughput)."""
+    q = torch.clamp(throughput.max(dim=1).values, min=lo, max=hi)
+    on = alive & (depth >= start)
+    alive = alive & (~on | (coin < q))
+    throughput = torch.where((on & alive)[:, None], throughput / q[:, None], throughput)
+    return alive, throughput
+
+
 def _trace_loop(
     res, num_spheres: int, origin, direction, background, uniforms_at, hit_fn, *,
-    max_depth: int, sky_gradient: bool, return_tape: bool, textures=None,
+    max_depth: int, sky_gradient: bool, return_tape: bool, textures=None, rr=None,
+    rr_uniform_at=None,
 ):
     """Trace every lane's path to its end, working at each bounce on the
     lanes still alive only (compacted, so the work and the autograd graph
@@ -88,7 +103,9 @@ def _trace_loop(
     `uniforms_at(bounce, lanes)` gives the (L, UNIFORMS_PER_BOUNCE) shading
     uniforms of the alive lanes `lanes` (indices into the batch);
     `hit_fn(origin, direction, bounce, lanes)` their winner (t (L,) with
-    +inf on a miss, prim (L,)). Returns (radiance (N, 3), tape
+    +inf on a miss, prim (L,)). `rr` = (start, lo, hi) turns on
+    `roulette` after each bounce, its coins (L,) from
+    `rr_uniform_at(bounce, lanes)`. Returns (radiance (N, 3), tape
     (max_depth, N) int32 or None, segments (N,) int32)."""
     n = origin.shape[0]
     dev = origin.device
@@ -112,7 +129,13 @@ def _trace_loop(
         contrib = torch.where(scat.hit[:, None], tp * scat.emitted, tp * bg)
         rad = rad.index_put((lanes,), rad[lanes] + contrib)
         alive = scat.hit & scat.scattered
-        tp = (tp * scat.attenuation)[alive]
+        if rr is not None and bounce + 1 >= rr[0]:
+            alive, tp_next = roulette(
+                tp * scat.attenuation, alive, bounce + 1, rr_uniform_at(bounce, lanes),
+                start=rr[0], lo=rr[1], hi=rr[2])
+            tp = tp_next[alive]
+        else:
+            tp = (tp * scat.attenuation)[alive]
         o = scat.point[alive]
         d = scat.direction[alive]
         lanes = lanes[alive]
@@ -131,6 +154,10 @@ def trace(
     return_tape: bool = False,
     return_segments: bool = False,
     intersect_fn=None,
+    russian_roulette: bool = False,
+    rr_start_depth: int = 5,
+    rr_max_q: float = 0.95,
+    rr_uniform=None,
 ):
     """Trace one path per lane; returns radiance (N, 3), and with
     `return_tape` also the (max_depth, N) int32 winner tape: row b holds the
@@ -142,8 +169,16 @@ def trace(
     shading uniforms of the alive lanes `lanes` (indices into this batch)
     at `bounce`; for a precomputed (max_depth, N, UNIFORMS_PER_BOUNCE)
     tensor `seq` (ops.ctr_rng.bounce_uniform_seq) pass
-    `lambda b, l: seq[b][l]`. Depth exhaustion contributes black. No
-    russian roulette.
+    `lambda b, l: seq[b][l]`. Depth exhaustion contributes black.
+
+    `russian_roulette` (off by default) ends paths early without bias: after
+    a bounce, a lane that scattered and has taken >= `rr_start_depth`
+    bounces continues with probability q = clip(max throughput, 0.05,
+    `rr_max_q`), its throughput divided by q (`roulette` above, the
+    rule of JAX's `trace` and of its regenerative epilogue). The coins come
+    from the caller like the shading uniforms: `rr_uniform(bounce, lanes)
+    -> (L,)`, for instance `lambda b, l: ctr_rng.rr_uniforms(seed, l, b,
+    max_depth)`, the counter the persistent kernel draws its coins at.
 
     `intersect_fn(scene, origin, direction, bounce, lanes) -> (t, prim)`
     replaces the closest hit; `lanes` are the alive lanes' indices into
@@ -157,6 +192,8 @@ def trace(
     qd = quad_derived(scene)
     sph, quad = pack_sphere_table(scene.sph_center, scene.sph_radius), pack_quad_table(qd)
     res = primitive_table(scene, qd)
+    if russian_roulette and rr_uniform is None:
+        raise ValueError("russian_roulette needs the coins: pass rr_uniform(bounce, lanes)")
     if intersect_fn is None:
         sph, quad = sph.detach(), quad.detach()
 
@@ -170,6 +207,8 @@ def trace(
         res, scene.num_spheres, origin, direction, background, uniform_seq, hit_fn,
         max_depth=max_depth, sky_gradient=sky_gradient, return_tape=return_tape,
         textures=texture_tables(scene, qd),
+        rr=(rr_start_depth, 0.05, rr_max_q) if russian_roulette else None,
+        rr_uniform_at=rr_uniform,
     )
     out = (rad,) + ((tape,) if return_tape else ()) + ((segs,) if return_segments else ())
     return out if len(out) > 1 else rad

@@ -111,6 +111,12 @@ def bounce_uniforms(seed, lane_ids, bounce: int):
     return uniform(seed, lane_ids.to(torch.int64)[:, None], shading_ctr(bounce, j))
 
 
+def rr_uniforms(seed, lane_ids, bounce: int, max_depth: int):
+    """(L,) russian-roulette coins of one bounce for the given sample ids,
+    at the counter the persistent kernel draws them at (rr_ctr)."""
+    return uniform(seed, lane_ids.to(torch.int64), rr_ctr(bounce, max_depth))
+
+
 def bounce_uniform_seq(seed, lane_ids, max_depth: int):
     """(max_depth, L, UNIFORMS_PER_BOUNCE) shading uniforms, the
     `uniform_seq` layout of integrator.wavefront.trace."""

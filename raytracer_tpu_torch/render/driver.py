@@ -257,6 +257,116 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def path_wavefront(path: str, n_pixels: int, wavefront: int = DEFAULT_WAVEFRONT) -> int:
+    """Lanes of a render on `path`: `wavefront` on the persistent path; at
+    least one image within [STEP_WAVEFRONT_MIN, STEP_WAVEFRONT_MAX] on the
+    wavefront-step path (the large-scene path sizes passes instead)."""
+    if path == "wavefront_step":
+        return max(STEP_WAVEFRONT_MIN, min(n_pixels, STEP_WAVEFRONT_MAX))
+    return wavefront
+
+
+def default_spp_chunk(scene: Scene, settings: RenderSettings, *,
+                      wavefront: int = DEFAULT_WAVEFRONT,
+                      log_budget_bytes: int = LOG_BUDGET_BYTES) -> int:
+    """Samples per pixel of `render_image`'s chunks on `scene`'s path: the
+    large-scene path's passes (samples_per_pass_for), else the largest
+    chunk whose retirement log fits `log_budget_bytes` (spp_chunk_for)."""
+    n_pix = settings.width * settings.height
+    spp = settings.samples_per_pixel
+    path = render_path(scene)
+    if path == "large_scene":
+        return samples_per_pass_for(spp, n_pix, TARGET_RAYS_PER_PASS)
+    return spp_chunk_for(n_pix, spp, path_wavefront(path, n_pix, wavefront), log_budget_bytes)
+
+
+def render_chunks(
+    scene: Scene,
+    cam: Camera,
+    settings: RenderSettings,
+    *,
+    device="cuda",
+    seed: int = 0,
+    spp_per_chunk: int | None = None,
+    start_chunk: int = 0,
+    wavefront: int = DEFAULT_WAVEFRONT,
+    log_budget_bytes: int = LOG_BUDGET_BYTES,
+    progress: bool = False,
+    metrics=None,
+    bilinear_stochastic: bool | None = None,
+):
+    """The chunk loop of `render_image` as a generator: renders chunks
+    `start_chunk`, `start_chunk` + 1, ... of `spp_per_chunk` samples per
+    pixel (default: `default_spp_chunk`; the last chunk takes what is
+    left) and yields (chunk index, samples per pixel done after it, the
+    chunk's (n_pixels, 3) radiance sum on `device`). Chunk c renders
+    samples [c * spp_per_chunk, ...) under seed `chunk_seed(seed, c)`, so
+    any run of chunks reproduces the same chunks of an uninterrupted
+    render (render/checkpoint.py resumes from one). On the large-scene
+    path a chunk is a pass. Arguments as `render_image`'s; `metrics` gets
+    the traced-segment totals once the generator is exhausted."""
+    path = render_path(scene)
+    dev = resolve_device(device)
+    if spp_per_chunk is None:
+        spp_per_chunk = default_spp_chunk(scene, settings, wavefront=wavefront,
+                                          log_budget_bytes=log_budget_bytes)
+    if path == "large_scene":
+        yield from _large_scene_chunks(scene.to(dev), cam, settings, seed=seed, k=spp_per_chunk,
+                                       start_chunk=start_chunk, progress=progress,
+                                       metrics=metrics)
+        return
+    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+    n_pix = w * h
+    frame = camera_frame(cam, w, h)
+    cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
+    clusters = None
+    if path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
+        scene, clusters = _clustered(scene, cam, dev, metrics)
+    scene = scene.to(dev)
+    sph, quad, res = pack_persistent_tables(scene)
+    textures = texture_tables(scene, quad_derived(scene),
+                              stochastic=path == "persistent" and bilinear_stochastic is not False)
+    wavefront = path_wavefront(path, n_pix, wavefront)
+
+    chunk = spp_per_chunk
+    if metrics is not None:
+        n, num_slots, _ = strided_schedule(n_pix, chunk, wavefront)
+        metrics.wavefront_lanes = n
+        metrics.retirement_log_mb = 3 * num_slots * n * 4 / 2**20
+    seg_parts = []
+    iters = 0
+    chunk_idx = start_chunk
+    done = min(spp, chunk_idx * chunk)
+    while done < spp:
+        step = min(chunk, spp - done)
+        kw = dict(width=w, height=h, spp=step, wavefront_size=wavefront,
+                  max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
+        if path == "persistent":
+            fb, segs = render_wavefront_regen(
+                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures,
+                clusters=clusters, **kw
+            )
+        else:
+            fb, segs, it = render_wavefront_step(
+                sph, quad, res, textures, cam_scalars, chunk_seed(seed, chunk_idx), **kw
+            )
+            iters += it
+        seg_parts.append(segs)
+        done += step
+        if metrics is not None:
+            metrics.update(done)
+        if progress:
+            print(f"spp {done}/{spp}", flush=True)
+        yield chunk_idx, done, fb
+        chunk_idx += 1
+    if metrics is not None:
+        if path == "persistent":
+            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
+                           warp_slots=sum(warp_slots(s) for s in seg_parts))
+        else:
+            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts), iterations=iters)
+
+
 def render_image(
     scene: Scene,
     cam: Camera,
@@ -273,7 +383,7 @@ def render_image(
     """Render the full image; returns linear mean radiance (H, W, 3) float32
     on `device`. CUDA runs the kernels; CPU runs their plain twins. The
     scene takes `render_path(scene)`; `wavefront` sizes the persistent
-    path's lanes only.
+    path's lanes only. The spp budget runs in `render_chunks`' chunks.
 
     bilinear_stochastic (scenes with `bilinear_textures`, as in the JAX
     driver): None (default) filters images by the unbiased stochastic
@@ -294,64 +404,15 @@ def render_image(
     pass) and with traced-segment totals after the last (one device sync);
     a clustered render also records its host clustering seconds, the BVH
     builder and the cluster table's section lengths."""
-    path = render_path(scene)
     dev = resolve_device(device)
-    if path == "large_scene":
-        return _render_large_scene(scene.to(dev), cam, settings, seed=seed, progress=progress,
-                                   metrics=metrics)
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-    n_pix = w * h
-    frame = camera_frame(cam, w, h)
-    cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
-    clusters = None
-    if path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
-        scene, clusters = _clustered(scene, cam, dev, metrics)
-    scene = scene.to(dev)
-    sph, quad, res = pack_persistent_tables(scene)
-    textures = texture_tables(scene, quad_derived(scene),
-                              stochastic=path == "persistent" and bilinear_stochastic is not False)
-    if path == "wavefront_step":
-        wavefront = max(STEP_WAVEFRONT_MIN, min(n_pix, STEP_WAVEFRONT_MAX))
-
-    chunk = spp_chunk_for(n_pix, spp, wavefront, log_budget_bytes)
-    if metrics is not None:
-        n, num_slots, _ = strided_schedule(n_pix, chunk, wavefront)
-        metrics.wavefront_lanes = n
-        metrics.retirement_log_mb = 3 * num_slots * n * 4 / 2**20
-    acc = torch.zeros(n_pix, 3, dtype=torch.float32, device=dev)
-    seg_parts = []
-    iters = 0
-    done = 0
-    chunk_idx = 0
-    while done < spp:
-        step = min(chunk, spp - done)
-        kw = dict(width=w, height=h, spp=step, wavefront_size=wavefront,
-                  max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
-        if path == "persistent":
-            fb, segs = render_wavefront_regen(
-                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures,
-                clusters=clusters, **kw
-            )
-        else:
-            fb, segs, it = render_wavefront_step(
-                sph, quad, res, textures, cam_scalars, chunk_seed(seed, chunk_idx), **kw
-            )
-            iters += it
+    w, h = settings.width, settings.height
+    acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
+    for _, _, fb in render_chunks(scene, cam, settings, device=dev, seed=seed,
+                                  wavefront=wavefront, log_budget_bytes=log_budget_bytes,
+                                  progress=progress, metrics=metrics,
+                                  bilinear_stochastic=bilinear_stochastic):
         acc += fb
-        seg_parts.append(segs)
-        done += step
-        chunk_idx += 1
-        if metrics is not None:
-            metrics.update(done)
-        if progress:
-            print(f"spp {done}/{spp}", flush=True)
-    if metrics is not None:
-        if path == "persistent":
-            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
-                           warp_slots=sum(warp_slots(s) for s in seg_parts))
-        else:
-            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts), iterations=iters)
-    return (acc / float(spp)).reshape(h, w, 3)
+    return (acc / float(settings.samples_per_pixel)).reshape(h, w, 3)
 
 
 def pass_camera_rays(frame, seed: int, *, width: int, height: int, k: int):
@@ -394,44 +455,61 @@ def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, wi
     return rad.reshape(k, n, 3).sum(0), segs
 
 
-def _render_large_scene(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
-                        progress: bool = False, metrics=None):
-    """The large-scene path (port of raytracer_tpu/render/driver.py:290-344):
-    the scene clustered on the host once per render (`cluster_for_render`:
-    the clustering cached per geometry, the permutation applied to `scene`),
-    then spp / k passes of k samples per pixel over the permuted scene, so
-    prim ids and shading are that scene's. Returns the linear mean radiance
-    (H, W, 3) on the scene's device; `metrics` also records the host
-    clustering seconds, the BVH builder and the cluster table's section
-    lengths."""
+def _large_scene_chunks(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
+                        k: int | None = None, start_chunk: int = 0, progress: bool = False,
+                        metrics=None):
+    """The large-scene path's passes as `render_chunks` yields them: the
+    scene clustered on the host once (`cluster_for_render`: the clustering
+    cached per geometry, the permutation applied to `scene`), then passes
+    `start_chunk`, ... of k samples per pixel (default samples_per_pass_for;
+    the last pass takes what is left) over the permuted scene, so prim ids
+    and shading are that scene's. Yields (pass index, samples per pixel
+    done after it, the pass's (n_pixels, 3) radiance sum); `metrics` also
+    records the host clustering seconds, the BVH builder and the cluster
+    table's section lengths."""
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n = w * h
     dev = scene.sph_center.device
     scene, clusters = _clustered(scene, cam, dev, metrics)
     tables = (clusters, *scene_tables(scene))
     frame = camera_frame(cam, w, h).to(dev)
-    k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)
-    passes = spp // k
-    acc = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    if k is None:
+        k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)
+    passes = -(-spp // k)
     seg_parts = []
+    done = min(spp, start_chunk * k)
     if metrics is not None:
         metrics.wavefront_lanes = k * n
-    for p in range(passes):
+    for p in range(start_chunk, passes):
+        step = min(k, spp - done)
         fb, segs = _large_scene_pass(
-            scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=k,
+            scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=step,
             max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
         )
-        acc += fb
         seg_parts.append(segs)
+        done += step
         if metrics is not None:
-            metrics.update((p + 1) * k)
+            metrics.update(done)
         if progress:
-            print(f"pass {p + 1}/{passes} ({(p + 1) * k}/{spp} spp)", flush=True)
+            print(f"pass {p + 1}/{passes} ({done}/{spp} spp)", flush=True)
+        yield p, done, fb
     if metrics is not None:
         # A pass runs one bounce iteration per segment of its deepest lane.
-        metrics.update(passes * k, segments=sum(int(s.sum()) for s in seg_parts),
-                       iterations=sum(int(s.max()) for s in seg_parts), passes=passes)
-    return (acc / float(spp)).reshape(h, w, 3)
+        metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
+                       iterations=sum(int(s.max()) for s in seg_parts), passes=len(seg_parts))
+
+
+def _render_large_scene(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
+                        progress: bool = False, metrics=None):
+    """The large-scene path (port of raytracer_tpu/render/driver.py:290-344)
+    over `_large_scene_chunks`' passes. Returns the linear mean radiance
+    (H, W, 3) on the scene's device."""
+    w, h = settings.width, settings.height
+    acc = torch.zeros(w * h, 3, dtype=torch.float32, device=scene.sph_center.device)
+    for _, _, fb in _large_scene_chunks(scene, cam, settings, seed=seed, progress=progress,
+                                        metrics=metrics):
+        acc += fb
+    return (acc / float(settings.samples_per_pixel)).reshape(h, w, 3)
 
 
 def render_scene(scene: Scene, cam: Camera, settings: RenderSettings, **kw) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""Structured render metrics (port of raytracer_tpu/utils/metrics.py, without
-the jax profiler hooks).
+"""Structured render metrics, device-memory statistics and the profiler
+trace (port of raytracer_tpu/utils/metrics.py).
 
 The driver updates `done_spp` per chunk and adds traced-segment counts once
 at the end of the render (one device sync). `warp_slots` is the SIMT
@@ -12,10 +12,18 @@ and the large-scene path its `passes`; their lane occupancy is segments /
 host seconds its clustering took (`cluster_s`, ~0 when cached), the BVH
 builder ("native" or "numpy") and the cluster table's section lengths
 [sphere supers, sphere fine, quad supers, quad fine].
+
+`device_memory_stats`, `save_memory_profile` and `profiler_trace` serve the
+CLI's report, `--memory-profile` and `--profile`: the CUDA caching
+allocator's counters and live blocks stand where the JAX package reads the
+runtime's memory statistics and its live arrays.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -91,3 +99,82 @@ def warp_slots(segments) -> int:
     pad = (-n) % WARP
     s = torch.nn.functional.pad(segments.to(torch.int64), (0, pad))
     return int(s.reshape(-1, WARP).max(dim=1).values.sum()) * WARP
+
+
+def _cuda_device(device):
+    """`device` as a torch.device when it is a CUDA device (None: the
+    current one, when a card is present), else None."""
+    if device is None:
+        return torch.device("cuda") if torch.cuda.is_available() else None
+    dev = torch.device(device)
+    return dev if dev.type == "cuda" else None
+
+
+def device_memory_stats(device=None) -> dict:
+    """Device memory of the render's `device` (default: the current CUDA
+    device) in MiB: the peak the allocator reached (`peak_hbm_mb`), what
+    it holds now (`hbm_in_use_mb`), the card's total (`hbm_limit_mb`) and
+    the bytes of its live blocks (`live_buffers_mb`). {} on the CPU."""
+    dev = _cuda_device(device)
+    if dev is None:
+        return {}
+    _, total = torch.cuda.mem_get_info(dev)
+    live = torch.cuda.memory_stats(dev).get("active_bytes.all.current", 0)
+    return {
+        "peak_hbm_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "hbm_in_use_mb": torch.cuda.memory_allocated(dev) / 2**20,
+        "hbm_limit_mb": total / 2**20,
+        "live_buffers_mb": live / 2**20,
+    }
+
+
+def save_memory_profile(path: str, device=None) -> bool:
+    """Write a JSON device-memory report of `device`: the caching
+    allocator's live blocks (`torch.cuda.memory_snapshot`), largest first
+    (at most 200), their total, the card's name and device_memory_stats.
+    Returns False, writing nothing, when `device` is not a CUDA device."""
+    dev = _cuda_device(device)
+    if dev is None:
+        return False
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks = [
+        {"mb": b["size"] / 2**20, "segment_type": seg.get("segment_type"),
+         "stream": seg.get("stream")}
+        for seg in torch.cuda.memory_snapshot()
+        if seg["device"] == index
+        for b in seg["blocks"]
+        if b["state"] == "active_allocated"
+    ]
+    blocks.sort(key=lambda b: -b["mb"])
+    report = {
+        "total_mb": sum(b["mb"] for b in blocks),
+        "num_blocks": len(blocks),
+        "device": torch.cuda.get_device_name(dev),
+        "blocks": blocks[:200],
+        **device_memory_stats(dev),
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    return True
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Profile the block with torch.profiler (CPU activity, and CUDA
+    activity when a card is present) and write its Chrome trace to
+    `log_dir`/trace_<pid>_<time>.json on exit; a no-op when `log_dir` is
+    None. Open the trace in Perfetto or chrome://tracing."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

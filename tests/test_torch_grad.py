@@ -233,7 +233,7 @@ def test_inverse_renderer_steps_on_cpu():
         assert "optimizer" in timings and all(np.isfinite(losses))
         assert losses[-1] < losses[0], (backend, losses)
         assert not torch.equal(params["tex_c0"].detach(), before)
-    for flag in ("boundary", "shadow_edges", "mirror_edges", "refracted_edges"):
+    for flag in ("shadow_edges", "mirror_edges", "refracted_edges"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pgrad.make_inverse_renderer(scene, cam, target, device="cpu", **{flag: True}, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -278,3 +278,104 @@ def test_scene_support_gates():
     assert render_path(scene) == "persistent"
     img = render_image(scene, cam, st, device="cpu")
     assert img.shape == (st.height, 8, 3) and bool(torch.isfinite(img).all())
+
+
+def _trace_inputs(scene_cam, width, spp, seed):
+    """Camera rays of `spp` samples per pixel (sample id L at pixel L mod
+    n_pixels) and the counter-RNG shading uniforms of those ids."""
+    cam = scene_cam
+    height = width
+    n = width * height
+    sid = torch.arange(spp * n)
+    pix = sid % n
+    o, d = pcam.camera_rays(pcam.camera_frame(cam, width, height), pix % width, pix // width,
+                            prng.camera_uniforms(seed, sid))
+    return o, d, lambda bounce, lanes: prng.bounce_uniforms(seed, lanes, bounce)
+
+
+def test_trace_without_roulette_is_unchanged():
+    """`trace` with russian_roulette off is the estimator it was before the
+    option: bit-equal to the tape kernel's twin (trace_tape_plain, pinned to
+    JAX by test_torch_tape.py) on the same samples, and to `trace` with
+    roulette on but never reaching its start depth."""
+    scene = mixed_scene(pscene.SceneBuilder)
+    cam, _ = pcam.make_camera(16 / 9, 32, **CAM_KW)
+    width, height, depth, seed = 32, 18, 6, 77
+    n = width * height
+    sid = torch.arange(n)
+    o, d = pcam.camera_rays(pcam.camera_frame(cam, width, height), sid % width, sid // width,
+                            prng.camera_uniforms(seed, sid))
+    uni = lambda bounce, lanes: prng.bounce_uniforms(seed, lanes, bounce)  # noqa: E731
+    off, segs = pwf.trace(scene, o, d, cam.background, uni, max_depth=depth,
+                          return_segments=True)
+    sph, quad, res = ppk.pack_persistent_tables(scene)
+    cam_s = ppk.pack_camera_scalars_bg(pcam.camera_frame(cam, width, height), cam.background)
+    rad3, _, segs3 = pwf.trace_tape_plain(sph, quad, res, cam_s, seed, n, width=width,
+                                          height=height, max_depth=depth, sky_gradient=False)
+    assert torch.equal(off, rad3.T) and torch.equal(segs, segs3)
+    never = pwf.trace(scene, o, d, cam.background, uni, max_depth=depth, russian_roulette=True,
+                      rr_start_depth=depth + 1,
+                      rr_uniform=lambda b, lanes: prng.rr_uniforms(seed, lanes, b, depth))
+    assert torch.equal(off, never)
+    with pytest.raises(ValueError, match="rr_uniform"):
+        pwf.trace(scene, o, d, cam.background, uni, max_depth=depth, russian_roulette=True)
+
+
+def test_roulette_step_matches_jax_formula():
+    """The roulette step on given throughputs, alive masks, depths and coins
+    equals the JAX package's rule (raytracer_tpu/integrator/wavefront.py:
+    477-483) evaluated in jnp, bit for bit."""
+    rng = np.random.default_rng(3)
+    n = 4096
+    tp = rng.uniform(0.0, 1.2, (n, 3)).astype(np.float32)
+    tp[:64] = 0.0  # q clamps at the floor
+    alive = rng.uniform(size=n) < 0.8
+    depth = rng.integers(0, 9, n).astype(np.int32)
+    coin = rng.uniform(size=n).astype(np.float32)
+    for start, hi in ((5, 0.95), (1, 0.75)):
+        q = jnp.clip(jnp.max(tp, axis=-1), 0.05, hi)
+        rr_on = alive & (depth >= start)
+        want_alive = alive & (~rr_on | (coin < q))
+        want_tp = jnp.where((rr_on & want_alive)[:, None], tp / q[:, None], tp)
+        got_alive, got_tp = pwf.roulette(torch.from_numpy(tp), torch.from_numpy(alive),
+                                         torch.from_numpy(depth), torch.from_numpy(coin),
+                                         start=start, lo=0.05, hi=hi)
+        np.testing.assert_array_equal(got_alive.numpy(), np.asarray(want_alive))
+        np.testing.assert_array_equal(got_tp.numpy(), np.asarray(want_tp))
+
+
+def test_trace_roulette_unbiased_against_jax():
+    """In a closed diffuse box lit by an emitter (every path long), the
+    port's trace with russian roulette from depth 2 has the image mean of
+    its trace without it and of JAX's trace(russian_roulette=True), each
+    within 4 sigma, and traces fewer segments."""
+    def box(builder_cls):
+        b = builder_cls(0)
+        b.add_sphere((0, 0, 0), 10.0, b.lambertian((0.7, 0.7, 0.7)))
+        b.add_sphere((0, 3, -4), 2.0, b.diffuse_light((2.0, 2.0, 2.0)))
+        return b.build()
+
+    width, spp, depth, seed = 16, 16, 8, 9
+    cam_kw = dict(look_from=(0, 0, 5), look_at=(0, 0, 0))
+    cam, _ = pcam.make_camera(1.0, width, **cam_kw)
+    o, d, uni = _trace_inputs(cam, width, spp, seed)
+    scene = box(pscene.SceneBuilder)
+    stats = {}
+    for label, kw in (("off", {}), ("rr", dict(
+            russian_roulette=True, rr_start_depth=2, rr_max_q=0.75,
+            rr_uniform=lambda b, lanes: prng.rr_uniforms(seed, lanes, b, depth)))):
+        rad, segs = pwf.trace(scene, o, d, cam.background, uni, max_depth=depth,
+                              return_segments=True, **kw)
+        per = rad.sum(dim=1).double().numpy()
+        stats[label] = (per.mean(), per.std() / np.sqrt(per.size), int(segs.sum()))
+    jcamera, _ = jcam.make_camera(1.0, width, **cam_kw)
+    rad = jwf.trace(box(jscene.SceneBuilder), jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                    jax.random.PRNGKey(seed), jcamera.background, max_depth=depth,
+                    russian_roulette=True, rr_start_depth=2, rr_max_q=0.75)
+    per = np.asarray(rad).sum(axis=1).astype(np.float64)
+    stats["jax_rr"] = (per.mean(), per.std() / np.sqrt(per.size), 0)
+    m_rr, se_rr, segs_rr = stats["rr"]
+    for other in ("off", "jax_rr"):
+        m, se, _ = stats[other]
+        assert abs(m_rr - m) < 4 * np.hypot(se_rr, se), stats
+    assert segs_rr < stats["off"][2], stats
