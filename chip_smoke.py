@@ -48,7 +48,20 @@ counters reset just before and read just after:
   diff/opt_checkpoint.py's run_optimization stopped and resumed on the
   card;
 * the profiled CLI (phase 13): --profile and --memory-profile on the
-  main path, the trace naming kernel 2 among its CUDA kernels.
+  main path, the trace naming kernel 2 among its CUDA kernels;
+* the full-gradient step (phase 14, the JAX package's `grad_full`,
+  bench.py:333-352): make_inverse_renderer(boundary=True,
+  shadow_edges=True) on rand_spheres at 400x225, 8 spp, depth 50, training
+  sph_center, sph_radius and tex_c0, three bucketed Adam steps after one
+  warm-up step: kernel 3 the forward, kernel 1 the shadow term's receiver
+  search and every bounce of both terms' edge traces (each of the first
+  counted step's kernel-1 calls held against its twin and timed at its
+  own rays, split by term);
+* the other edge estimators and the trainable camera (phase 15): the
+  mirror (its visibility probe a kernel-1 launch), refracted and
+  exhaustive shadow gradients on their test scenes on the card against
+  the CPU, and one bucketed step with trainable_camera=("look_from",
+  "fov_radians").
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -190,6 +203,10 @@ CHECKPOINT_FIRST_CHUNKS = 2
 # start), and the small shapes of its card-vs-CPU checks.
 BOUNDARY_STEPS = 5
 EDGE_CHECK_SIZE = (24, 20)
+# Phase 14: the full-gradient step's trainables and its counted steps (one
+# warm-up step before them).
+GRAD_FULL_TRAINABLE = ("sph_center", "sph_radius", "tex_c0")
+GRAD_FULL_STEPS = 3
 
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
@@ -629,22 +646,23 @@ class HitRecorder:
             self.kept.append(i)
         return self.real(sph, quad, o, d)
 
-    def timed_sum(self, plain=True):
-        """Kernel 1 timed at every recorded call's own inputs (device time
-        behind a spin kernel), with its bound and, with `plain`, its twin's
-        time: {launches, rays, ms, plain_ms, bound_ms, bound_by} summed
-        over the calls ("operations" when the operations bound most of
-        them)."""
+    def timed_sum(self, plain=True, lo=0, hi=None):
+        """Kernel 1 timed at every recorded call's own inputs (calls lo to
+        hi, all by default; device time behind a spin kernel), with its
+        bound and, with `plain`, its twin's time: {launches, rays, ms,
+        plain_ms, bound_ms, bound_by} summed over the calls ("operations"
+        when the operations bound most of them)."""
         ms = plain_ms = bound_ms = 0.0
         by = {"operations": 0, "bytes": 0}
-        for sph, quad, o, d in self.calls:
+        calls = self.calls[lo:hi]
+        for sph, quad, o, d in calls:
             ms += time_device(lambda: self.ik.intersect(sph, quad, o, d), reps=10, warm=2)
             if plain:
                 plain_ms += time_cuda(lambda: self.ik.intersect_plain(sph, quad, o, d), reps=1)
             b = bound(hit_ops(o.shape[0], sph.shape[0], quad.shape[0]), o.shape[0] * (24 + 8))
             bound_ms += b[0]
             by[b[1]] += 1
-        return dict(launches=len(self.calls), rays=sum(self.counts), ms=ms,
+        return dict(launches=len(calls), rays=sum(self.counts[lo:hi]), ms=ms,
                     plain_ms=plain_ms if plain else None, bound_ms=bound_ms,
                     bound_by=max(by, key=by.get))
 
@@ -1514,6 +1532,260 @@ def boundary_phase(train_kw, smi):
     return rec
 
 
+@contextlib.contextmanager
+def mark_calls(module, name, hits, marks):
+    """While it is open, each call of module.name (a function the module
+    imported) appends to `marks` the number of kernel-1 calls that `hits`
+    (a HitRecorder) had recorded before it."""
+    real = getattr(module, name)
+
+    def marked(*args, **kwargs):
+        marks.append(len(hits.counts))
+        return real(*args, **kwargs)
+
+    setattr(module, name, marked)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def grad_full_phase(train_kw, smi):
+    """Phase 14: the JAX package's `grad_full` step on the card:
+    make_inverse_renderer(boundary=True, shadow_edges=True, backend=
+    "bucketed") on rand_spheres at 400x225, 8 spp, depth 50, training
+    GRAD_FULL_TRAINABLE from phase 7's start (texture colors halved, the
+    target rendered from the true scene), at the production edge budgets
+    (boundary_config, shadow_config).
+
+    One warm-up step, then GRAD_FULL_STEPS counted steps, each printed with
+    its wall split (tape forward, loss/cotangent, replay forward, backward,
+    edges/boundary, edges/shadow, optimizer); kernel 3's launches (one a
+    step) and kernel 1's counted. Every kernel-1 call of the first counted
+    step is recorded and held against its twin bit for bit, then timed at
+    its own rays and split by term: the boundary term's traces, the shadow
+    term's receiver search (one ray a pixel) and its traces. The loss and
+    every gradient must be finite."""
+    import torch
+
+    from raytracer_tpu_torch.diff import shadow_edge
+    from raytracer_tpu_torch.diff.grad import boundary_config, make_inverse_renderer, \
+        render_linear_diff, shadow_config
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to(train_kw["device"]), cam, 7, width=st.width,
+                                    height=st.height,
+                                    samples_per_pass=st.samples_per_pixel,
+                                    max_depth=st.max_depth)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    bcfg, scfg = boundary_config(scene), shadow_config(scene, st.width, st.height)
+    params, _, step = make_inverse_renderer(start, cam, target, trainable=GRAD_FULL_TRAINABLE,
+                                            backend="bucketed", boundary=True,
+                                            shadow_edges=True, **train_kw)
+    t0 = time.perf_counter()
+    step(TRAIN_SEEDS[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    steps, marks = [], []
+    ik.LAUNCHES = 0
+    pk.LAUNCHES_TAPE = 0
+    torch.cuda.synchronize()
+    for i, seed in enumerate(TRAIN_SEEDS[1:1 + GRAD_FULL_STEPS]):
+        recorder = HitRecorder(ik) if i == 0 else contextlib.nullcontext()
+        timings = {}
+        with recorder, (mark_calls(shadow_edge, "intersect_scene", recorder, marks) if i == 0
+                        else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            loss = float(step(seed, timings))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if i == 0:
+            hits = recorder
+        if not (math.isfinite(loss) and all(bool(torch.isfinite(p.grad).all())
+                                            for p in params.values())):
+            fail(f"phase 14 grad_full step {seed}: loss {loss} or its gradients not finite")
+        steps.append(dict(loss=loss, wall_s=wall, **timings))
+        s_ = steps[-1]
+        print(f"phase 14 grad_full step {i}: loss {loss:.6g}, wall {wall:.4f} s = tape forward "
+              f"{s_['tape_forward']:.4f} + loss/cotangent {s_['loss_cotangent']:.4f} + replay "
+              f"forward {s_['replay_forward']:.4f} + backward {s_['backward']:.4f} + "
+              f"edges/boundary {s_['edges/boundary']:.4f} + edges/shadow "
+              f"{s_['edges/shadow']:.4f} + optimizer {s_['optimizer']:.4f} s (edges "
+              f"{s_['edges'] / wall:.1%}); {smi}", flush=True)
+    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE)
+    if launches["persistent_tape"] != GRAD_FULL_STEPS or launches["closest_hit"] <= 0:
+        fail(f"phase 14: launches {launches} in {GRAD_FULL_STEPS} grad_full steps")
+    n_pix = st.width * st.height
+    shadow_rays = scfg.receivers * scfg.sources_per_receiver * scfg.samples_per_sphere \
+        * scfg.spp_edge
+    split = marks[0] if len(marks) == 1 else -1
+    if not (0 < split < len(hits.counts) - 1 and hits.counts[split] == n_pix
+            and hits.counts[split + 1] == shadow_rays
+            and hits.counts[0] == scene.num_spheres * bcfg.samples_per_sphere * bcfg.spp_edge):
+        fail(f"phase 14: kernel-1 calls {hits.counts}, shadow term from call {marks}; expected "
+             f"{n_pix} receiver rays, then {shadow_rays} first-bounce shadow rays")
+    held = hold_hits(hits)
+    k1 = {"boundary": hits.timed_sum(hi=split),
+          "shadow_receivers": hits.timed_sum(lo=split, hi=split + 1),
+          "shadow_traces": hits.timed_sum(lo=split + 1)}
+    k1["all"] = {key: sum(v[key] for v in k1.values()) for key in ("launches", "rays", "ms",
+                                                                  "plain_ms", "bound_ms")}
+    rec = dict(steps=steps, warm_up_s=warm_s, launches=launches, closest_hit=k1, held=held,
+               rays_per_launch=hits.counts, shadow_from_call=split,
+               boundary_config=bcfg._asdict(), shadow_config=scfg._asdict(),
+               trainable=GRAD_FULL_TRAINABLE)
+    del hits.calls
+    print(f"phase 14 grad_full: {GRAD_FULL_STEPS} bucketed steps after a {warm_s:.3f} s warm-up, "
+          f"launches {json.dumps(launches)}; kernel 1 in the first counted step, every call "
+          f"bit-equal to its twin ({json.dumps(held)}), by CUDA events at each call's own rays: "
+          f"{json.dumps(k1)}; rays per launch {hits.counts}; {smi}", flush=True)
+    return rec
+
+
+def edge_term_devices(make_fn, scene, cam, leaves, cam_leaves, size, seed, ct_seed):
+    """An edge term's gradient of sum(ct * image) for one seeded cotangent
+    image in `leaves` and the camera tensors `cam_leaves`, on the card and
+    on the CPU: ([gradients on the card], [on the CPU], all moved to the
+    CPU), and the kernel-1 calls of the card's run (a HitRecorder)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.diff.grad import split_scene
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+
+    w, h = size
+    ct = torch.from_numpy(np.random.default_rng(ct_seed).uniform(-1, 1, (h, w, 3))
+                          .astype(np.float32))
+    out = []
+    for i, dev in enumerate(("cuda", "cpu")):
+        params, rebuild = split_scene(scene.to(dev), leaves)
+        camera = dataclasses.replace(cam, **{f: getattr(cam, f).detach().clone()
+                                             .requires_grad_(True) for f in cam_leaves})
+        fn = make_fn(rebuild)
+        recorder = HitRecorder(ik) if i == 0 else contextlib.nullcontext()
+        with recorder:
+            grads = torch.autograd.grad(
+                (fn(params, camera, seed) * ct.to(dev)).sum(),
+                [params[k] for k in leaves] + [getattr(camera, f) for f in cam_leaves])
+        if i == 0:
+            hits = recorder
+        out.append([g.cpu() for g in grads])
+    return out, hits
+
+
+def other_edges_phase(train_kw, smi):
+    """Phase 15: the mirror, refracted and shadow gradients on the card
+    against the CPU on their test scenes (tests/test_torch_*_edge.py), each
+    leaf within rtol 1e-4 (mirror, exhaustive shadow: deterministic edge
+    radiances) or 1e-3 (refracted: the Newton roots round apart by ~1e-5
+    px, and its glass paths are random), atol 1e-6 of the leaf's largest
+    entry; the mirror term's visibility probe must be a kernel-1 launch on
+    the card (its first recorded call, one ray a (mirror, sphere, sample)).
+    Then one bucketed step with trainable_camera=("look_from",
+    "fov_radians") and the boundary term at phase 7's shape: finite,
+    non-zero camera gradients. Returns the readings."""
+    import torch
+
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
+    from raytracer_tpu_torch.diff.mirror_edge import MirrorEdgeConfig, make_mirror_boundary_fn
+    from raytracer_tpu_torch.diff.refracted_edge import RefractedEdgeConfig, \
+        make_refracted_boundary_fn
+    from raytracer_tpu_torch.diff.shadow_edge import make_shadow_boundary_fn
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    b = SceneBuilder(0)
+    b.add_quad((-2.0, -2.0, -3.0), (4, 0, 0), (0, 4, 0), b.metal((0.9, 0.9, 0.9), fuzz=0.0))
+    b.add_sphere((0.6, 0.3, 1.6), 1.0, b.lambertian((0.05, 0.05, 0.05)))
+    mirror = b.build()
+    mcam, _ = make_camera(1.0, 32, fov_degrees=60, look_from=(0, 0, 0), look_at=(0, 0, -3),
+                          background=(1.0, 1.0, 1.0))
+    b = SceneBuilder(0)
+    b.add_sphere((0, 0, -2.0), 0.8, b.dielectric(1.5))
+    b.add_quad((-0.5, -0.5, -4.0), (1.0, 0, 0), (0, 1.0, 0), b.lambertian((0.05, 0.05, 0.05)))
+    glass = b.build()
+    gcam, _ = make_camera(1.0, 48, fov_degrees=40, look_from=(0, 0, 1), look_at=(0, 0, -2),
+                          background=(1.0, 1.0, 1.0))
+    b = SceneBuilder(0)
+    white = b.lambertian((0.73, 0.73, 0.73))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), white)
+    b.add_quad((-1, 3, -1), (2, 0, 0), (0, 0, 2), b.diffuse_light((15, 15, 15)))
+    b.add_quad((-0.6, 1.5, -0.6), (1.2, 0, 0), (0, 0, 1.2), white)
+    b.add_sphere((1.2, 1.5, 0.6), 0.4, white)
+    shadow = b.build()
+    scam, _ = make_camera(1.0, 24, fov_degrees=38, look_from=(3.5, 1.0, 0.0),
+                          look_at=(0.0, 0.0, 0.0), background=(0, 0, 0))
+    cases = (
+        ("mirror", lambda r: make_mirror_boundary_fn(
+            r, width=32, height=32, max_depth=2,
+            config=MirrorEdgeConfig(samples_per_contour=64, spp_edge=2)),
+         mirror, mcam, ("sph_center", "sph_radius"), ("look_from", "look_at", "fov_radians"),
+         (32, 32), 1e-4),
+        ("refracted", lambda r: make_refracted_boundary_fn(
+            r, width=48, height=48, max_depth=6,
+            config=RefractedEdgeConfig(samples_per_quad_edge=16, spp_edge=4)),
+         glass, gcam, ("quad_q", "quad_u", "quad_v"), (), (48, 48), 1e-3),
+        ("shadow", lambda r: make_shadow_boundary_fn(r, width=24, height=24, max_depth=2),
+         shadow, scam, ("quad_q", "quad_u", "quad_v", "sph_center", "sph_radius"), (),
+         (24, 24), 1e-4),
+    )
+    out, bad = {}, []
+    for label, make_fn, scene, cam, leaves, cam_leaves, size, rtol in cases:
+        ik.LAUNCHES = 0
+        (g_card, g_cpu), hits = edge_term_devices(make_fn, scene, cam, leaves, cam_leaves, size,
+                                                  31, 1)
+        rel = {}
+        for name, gk, gc in zip(leaves + cam_leaves, g_card, g_cpu):
+            top = float(gc.abs().max())
+            rel[name] = float((gk - gc).abs().max()) / max(top, 1e-30)
+            if top <= 0 or not torch.allclose(gk, gc, rtol=rtol, atol=1e-6 * top):
+                bad.append(f"{label}: {name} CUDA vs CPU beyond rtol {rtol} (largest entry "
+                           f"{top:.4g}, off by {rel[name]:.3g} of it)")
+        out[label] = dict(rel_to_max=rel, closest_hit_launches=ik.LAUNCHES,
+                          closest_hit_calls=len(hits.counts), rays=sum(hits.counts))
+        if label == "mirror":
+            probe = 1 * 1 * 64
+            out[label]["probe_rays"] = hits.counts[0]
+            if hits.counts[0] != probe or ik.LAUNCHES != len(hits.counts):
+                bad.append(f"mirror: kernel-1 calls {hits.counts}, launches {ik.LAUNCHES}; the "
+                           f"probe of {probe} rays must be a launch on the card")
+        del hits.calls
+    # One bucketed step with a trainable camera (and the boundary term, whose
+    # projections give the camera silhouette gradients too).
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to(train_kw["device"]), cam, 7, width=st.width,
+                                    height=st.height,
+                                    samples_per_pass=st.samples_per_pixel, max_depth=st.max_depth)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    params, _, step = make_inverse_renderer(start, cam, target, backend="bucketed",
+                                            boundary=True,
+                                            trainable_camera=("look_from", "fov_radians"),
+                                            **train_kw)
+    timings = {}
+    t0 = time.perf_counter()
+    loss = float(step(TRAIN_SEEDS[0], timings))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cam_grads = {k: p.grad.tolist() for k, p in params["camera"].items()}
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in params["camera"].values())
+    if not (math.isfinite(loss) and finite and any(
+            float(p.grad.abs().max()) > 0 for p in params["camera"].values())):
+        bad.append(f"camera step: loss {loss}, camera gradients {cam_grads}")
+    out["camera_step"] = dict(loss=loss, wall_s=wall, camera_grads=cam_grads, **timings)
+    if bad:
+        fail(f"phase 15: {bad}; readings {json.dumps(out)}")
+    print(f"phase 15 the mirror, refracted and shadow terms CUDA vs CPU and a trainable-camera "
+          f"step: {json.dumps(out)}; {smi}", flush=True)
+    return out
+
+
 def profile_phase(cli):
     """Phase 13: the CLI with --profile and --memory-profile on the main
     path, run in its own directory under OUT_DIR with the allocator's peak
@@ -2130,6 +2402,15 @@ def main() -> int:
     print(f"phase 13 the CLI with --profile --memory-profile, rand_spheres 400x225@500spp "
           f"depth 50: {json.dumps(prof)}; {smi}", flush=True)
 
+    # ---- phase 14: the full-gradient step (grad_full), counted ----
+    phase_start["14"] = time.perf_counter()
+    full = grad_full_phase(train_kw, smi)
+    record["grad_full"] = full
+
+    # ---- phase 15: the mirror, refracted and shadow terms; the camera ----
+    phase_start["15"] = time.perf_counter()
+    record["other_edges"] = other_edges_phase(train_kw, smi)
+
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
@@ -2237,6 +2518,10 @@ def main() -> int:
                 "launches_in_all_steps", "camera_rays_per_trace")},
             "edge_term_path": f"training, bucketed backend with boundary=True: the edge traces "
                               f"of one step (phase 12), {BOUNDARY_STEPS} steps",
+            "grad_full": dict(full["closest_hit"], launches_in_all_steps=full["launches"][
+                "closest_hit"]),
+            "grad_full_path": f"training, grad_full (boundary and shadow_edges, phase 14): the "
+                              f"first of {GRAD_FULL_STEPS} counted steps, by term",
         },
         {
             "name": "closest_hit_clustered",
@@ -2305,6 +2590,7 @@ def main() -> int:
             "warp_occupancy": k3t["warp_occupancy"],
             "textured": k3_textured,
             "launches_in_boundary_steps": bnd["launches"]["persistent_tape"],
+            "launches_in_grad_full_steps": full["launches"]["persistent_tape"],
         },
         {
             "name": "culled_closest_hit",

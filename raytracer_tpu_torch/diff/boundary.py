@@ -132,25 +132,32 @@ def quad_edge_points(q, u, v, tau):
     return p, dp
 
 
-def _trace_edge_radiance(scene, frame: CameraFrame, x_px, seed: int, *, background,
-                         max_depth: int, sky_gradient: bool, spp_edge: int):
-    """Mean path-traced radiance (K, 3) through continuous pixel coordinates
-    x_px (K, 2), spp_edge paths a point. Lane L of the batch (point L mod
+def trace_edge_rays(scene, origin, direction, seed: int, *, background, max_depth: int,
+                    sky_gradient: bool, spp_edge: int):
+    """Mean path-traced radiance (K, 3) of spp_edge paths from each of the
+    rays (origin (K, 3), direction (K, 3)). Lane L of the batch (ray L mod
     K) is sample id L under `seed`, so two calls with the same seed share
-    every lane's uniforms and coins (common random numbers for the in/out
+    every lane's uniforms and coins (common random numbers for an in/out
     pair). Pure forward: `trace`'s default hit (kernel 1 on CUDA tensors),
     russian roulette from depth 5 with its survival capped at 0.75."""
-    k_rep = x_px.repeat(spp_edge, 1)
-    target = frame.pixel00 + k_rep[:, 0:1] * frame.pixel_du + k_rep[:, 1:2] * frame.pixel_dv
-    origin = frame.center.expand_as(target)
     rad = trace(
-        scene, origin, target - origin, background,
+        scene, origin.repeat(spp_edge, 1), direction.repeat(spp_edge, 1), background,
         lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
         max_depth=max_depth, sky_gradient=sky_gradient,
         russian_roulette=True, rr_max_q=0.75,
         rr_uniform=lambda bounce, lanes: ctr_rng.rr_uniforms(seed, lanes, bounce, max_depth),
     )
-    return rad.reshape(spp_edge, x_px.shape[0], 3).mean(dim=0)
+    return rad.reshape(spp_edge, origin.shape[0], 3).mean(dim=0)
+
+
+def _trace_edge_radiance(scene, frame: CameraFrame, x_px, seed: int, *, background,
+                         max_depth: int, sky_gradient: bool, spp_edge: int):
+    """trace_edge_rays of the camera rays through continuous pixel
+    coordinates x_px (K, 2)."""
+    target = frame.pixel00 + x_px[:, 0:1] * frame.pixel_du + x_px[:, 1:2] * frame.pixel_dv
+    origin = frame.center.expand_as(target)
+    return trace_edge_rays(scene, origin, target - origin, seed, background=background,
+                           max_depth=max_depth, sky_gradient=sky_gradient, spp_edge=spp_edge)
 
 
 def _proj2(frame):
@@ -298,19 +305,25 @@ def make_boundary_image_fn(
                 w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
                 terms.append((x_fn, w, n_hat))
 
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        cam_leaves = {f: getattr(cam, f).detach().requires_grad_(True) for f in cam_names}
-        camera = dataclasses.replace(cam, **cam_leaves)
-        inputs = list(leaves.values()) + list(cam_leaves.values())
-        if not terms or not inputs:
-            return [torch.zeros_like(t) for t in inputs]
-        with torch.enable_grad():
-            total = sum((w * (x_fn(leaves, camera) * n_hat).sum(dim=-1)).sum()
-                        for x_fn, w, n_hat in terms)
-            grads = torch.autograd.grad(total, inputs, allow_unused=True)
-        return [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
+        if not terms:
+            return edge_leaf_grads(params, cam, cam_names, None)
+        return edge_leaf_grads(
+            params, cam, cam_names,
+            lambda leaves, camera: sum((w * (x_fn(leaves, camera) * n_hat).sum(dim=-1)).sum()
+                                       for x_fn, w, n_hat in terms))
 
-    class BoundaryImage(torch.autograd.Function):
+    return edge_image_fn(rebuild, width, height, edge_cotangent, "boundary")
+
+
+def edge_image_fn(rebuild, width: int, height: int, cotangent, name: str):
+    """The zero-valued edge image of an edge estimator: image(params, cam,
+    seed) -> (H, W, 3) zeros on the scene's device, whose backward against
+    a cotangent image `ct` gives `cotangent(params, cam, cam_names, seed,
+    ct)`: the gradients of the tensors of `params` in order, then of the
+    camera tensors `cam_names` (those that require grad). The function is
+    named `<name>_image`; the bucketed step times it as `edges/<name>`."""
+
+    class EdgeImage(torch.autograd.Function):
         @staticmethod
         def forward(ctx, seed, names, cam_names, cam, device, *tensors):
             ctx.seed, ctx.names, ctx.cam_names, ctx.cam = seed, names, cam_names, cam
@@ -323,15 +336,31 @@ def make_boundary_image_fn(
             n = len(ctx.names)
             params = dict(zip(ctx.names, tensors[:n]))
             cam = dataclasses.replace(ctx.cam, **dict(zip(ctx.cam_names, tensors[n:])))
-            grads = edge_cotangent(params, cam, ctx.cam_names, ctx.seed, ct)
+            grads = cotangent(params, cam, ctx.cam_names, ctx.seed, ct)
             return (None, None, None, None, None, *grads)
 
-    def boundary_image(params: dict, cam: Camera, seed: int):
+    def image(params: dict, cam: Camera, seed: int):
         names = tuple(params)
         cam_names = tuple(f for f in CAMERA_FIELDS if getattr(cam, f).requires_grad)
         device = rebuild({k: v.detach() for k, v in params.items()}).sph_center.device
-        return BoundaryImage.apply(int(seed), names, cam_names, cam, device,
-                                   *(params[k] for k in names),
-                                   *(getattr(cam, f) for f in cam_names))
+        return EdgeImage.apply(int(seed), names, cam_names, cam, device,
+                               *(params[k] for k in names),
+                               *(getattr(cam, f) for f in cam_names))
 
-    return boundary_image
+    image.__name__ = image.__qualname__ = f"{name}_image"
+    return image
+
+
+def edge_leaf_grads(params: dict, cam: Camera, cam_names, scalar_fn):
+    """Gradients of scalar_fn(leaves, camera) in fresh leaves made from
+    `params`' tensors and the camera tensors `cam_names` (in that order),
+    zeros where it does not reach one; scalar_fn None gives zeros."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    cam_leaves = {f: getattr(cam, f).detach().requires_grad_(True) for f in cam_names}
+    inputs = list(leaves.values()) + list(cam_leaves.values())
+    if scalar_fn is None or not inputs:
+        return [torch.zeros_like(t) for t in inputs]
+    with torch.enable_grad():
+        total = scalar_fn(leaves, dataclasses.replace(cam, **cam_leaves))
+        grads = torch.autograd.grad(total, inputs, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]

@@ -29,13 +29,21 @@ compile cache. The eager replay instead works at each bounce on the lanes
 still alive, so its work follows the real lane-bounces with no padding;
 the gradient is the same sum.
 
-With `edge_image_fns` (diff/boundary.py's zero-valued edge images), the
-step adds their gradients as VJPs against the forward's image cotangent
-(`compose_edges`, JAX `_compose_edges`).
+With `edge_image_fns` (the zero-valued edge images of diff/boundary.py,
+shadow_edge.py, mirror_edge.py and refracted_edge.py), the step adds their
+gradients as VJPs against the forward's image cotangent (`compose_edges`,
+JAX `_compose_edges`).
+
+With `rebuild_camera` (from `split_camera`) the camera is trainable: its
+leaves live under params[CAMERA_PARAM_KEY], the tape forward packs the
+camera from their values, and the replay and the edge terms rebuild it
+from them, so their gradients flow through camera_rays and the edge
+estimators' projections.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -59,6 +67,72 @@ from raytracer_tpu_torch.ops.persistent_kernel import (
 EDGE_SEED_STREAM = 6070
 
 
+# Reserved key of the camera leaves when the camera is trainable.
+CAMERA_PARAM_KEY = "camera"
+
+
+def split_camera(cam: Camera, trainable=("look_from", "look_at")):
+    """(camera params, rebuild_camera): fresh leaves that require grad for
+    the camera fields `trainable`, and rebuild_camera(cparams) -> the
+    camera with those fields replaced; the camera analog of
+    diff.grad.split_scene."""
+    cparams = {name: getattr(cam, name).detach().clone().requires_grad_(True)
+               for name in trainable}
+
+    def rebuild_camera(cp):
+        return dataclasses.replace(cam, **cp)
+
+    return cparams, rebuild_camera
+
+
+def _scene_and_camera(params: dict, rebuild, rebuild_camera, cam_default: Camera):
+    """(Scene, Camera) from a params dict that may carry camera leaves
+    under CAMERA_PARAM_KEY."""
+    if rebuild_camera is None:
+        return rebuild(params), cam_default
+    sp = {k: v for k, v in params.items() if k != CAMERA_PARAM_KEY}
+    return rebuild(sp), rebuild_camera(params[CAMERA_PARAM_KEY])
+
+
+def _skip_depth1(sky_gradient: bool, rebuild_camera) -> bool:
+    """Lanes of depth 1 missed at once: their radiance is the flat
+    background, which no scene parameter touches, so their replay is a
+    zero gradient, unless the background depends on the ray (the sky
+    gradient) or the camera and its background are trainable."""
+    return not sky_gradient and rebuild_camera is None
+
+
+def flat_leaves(params: dict) -> list:
+    """(key path, tensor) of every leaf of `params`, the camera leaves
+    under params[CAMERA_PARAM_KEY] after the scene's."""
+    out = []
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.extend(((k, c), t) for c, t in v.items())
+        else:
+            out.append(((k,), v))
+    return out
+
+
+def nest_like(params: dict, values) -> dict:
+    """`values` (one per leaf, flat_leaves' order; None for zeros) in the
+    nesting of `params`."""
+    out = {}
+    for (path, t), g in zip(flat_leaves(params), values):
+        g = torch.zeros_like(t) if g is None else g
+        if len(path) == 1:
+            out[path[0]] = g
+        else:
+            out.setdefault(path[0], {})[path[1]] = g
+    return out
+
+
+def edge_name(fn) -> str:
+    """The name an edge image is timed under: `edges/<name>` for an image
+    function named `<name>_image` (diff/boundary.py:edge_image_fn)."""
+    return fn.__name__.removesuffix("_image")
+
+
 def edge_seed(seed: int, i: int) -> int:
     """Seed of edge term i in a step seeded `seed`: the scan and bucketed
     backends give edge term i the same seed, and none of them shares the
@@ -66,18 +140,34 @@ def edge_seed(seed: int, i: int) -> int:
     return int(ctr_rng.hash_i32(seed, EDGE_SEED_STREAM, i + 1))
 
 
-def compose_edges(edge_image_fns, params: dict, cam: Camera, seed: int, ct_img):
-    """Gradients, keyed like `params`, of sum over i of sum(fn_i(params,
+def compose_edges(edge_image_fns, params: dict, cam: Camera, seed: int, ct_img,
+                  rebuild_camera=None, clock=None):
+    """Gradients, nested like `params`, of sum over i of sum(fn_i(params,
     cam, edge_seed(seed, i)) * ct_img): for zero-valued edge images
     fn(params, cam, seed) -> (H, W, 3), exactly their first-order share of
     a loss whose image cotangent is `ct_img` (the scan backend adds the
     same images to its render before the loss; the two agree because the
-    images are zero)."""
-    total = sum((fn(params, cam, edge_seed(seed, i)) * ct_img).sum()
-                for i, fn in enumerate(edge_image_fns))
-    grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
-    return {name: torch.zeros_like(p) if g is None else g
-            for (name, p), g in zip(params.items(), grads)}
+    images are zero). With `rebuild_camera` the camera is rebuilt from
+    params[CAMERA_PARAM_KEY]. Each term runs under a record_function
+    `edges/<name>`, and `clock` (a PhaseClock) laps it under that name
+    and under "edges"."""
+    leaves = [t for _, t in flat_leaves(params)]
+    if rebuild_camera is None:
+        sp, cam_p = params, cam
+    else:
+        sp = {k: v for k, v in params.items() if k != CAMERA_PARAM_KEY}
+        cam_p = rebuild_camera(params[CAMERA_PARAM_KEY])
+    total = [None] * len(leaves)
+    for i, fn in enumerate(edge_image_fns):
+        name = f"edges/{edge_name(fn)}"
+        with torch.profiler.record_function(name):
+            grads = torch.autograd.grad((fn(sp, cam_p, edge_seed(seed, i)) * ct_img).sum(),
+                                        leaves, allow_unused=True)
+            total = [a if g is None else (g if a is None else a + g)
+                     for a, g in zip(total, grads)]
+        if clock is not None:
+            clock.lap(name, "edges")
+    return nest_like(params, total)
 
 
 class PhaseClock:
@@ -89,13 +179,15 @@ class PhaseClock:
         self.device = device
         self.t = time.perf_counter() if timings is not None else 0.0
 
-    def lap(self, name: str):
+    def lap(self, *names: str):
+        """Add the seconds since the last lap under each of `names`."""
         if self.timings is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + (now - self.t)
+        for name in names:
+            self.timings[name] = self.timings.get(name, 0.0) + (now - self.t)
         self.t = now
 
 
@@ -118,17 +210,17 @@ def finish(radiance, tape, target, *, samples_per_pass: int):
     return loss, ct_lane, lane_depth, ct_img
 
 
-def replay_loss(params, rebuild, cam: Camera, seed: int, tape, ct_lane, lanes, *,
+def replay_loss(scene, cam: Camera, seed: int, tape, ct_lane, lanes, *,
                 width: int, height: int, max_depth: int, sky_gradient: bool):
     """sum(radiance * ct_lane) over the sample ids `lanes`, the radiance
-    replayed with autograd from `tape` and the counter-RNG uniforms: its
-    gradient in `params` is those lanes' share of the loss gradient."""
+    replayed with autograd from `tape` and the counter-RNG uniforms in
+    `scene` and `cam` (built from the parameters): its gradient in them is
+    those lanes' share of the loss gradient."""
     dev = tape.device
     n = width * height
     pix = lanes % n
     frame = camera_frame(cam, width, height).to(dev)
     o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, lanes))
-    scene = rebuild(params)
     rad = trace(
         scene, o, d, cam.background.to(dev),
         lambda bounce, idx: ctr_rng.bounce_uniforms(seed, lanes[idx], bounce),
@@ -149,21 +241,26 @@ def make_bucketed_grad_fn(
     max_depth: int,
     sky_gradient: bool = False,
     edge_image_fns=(),
+    rebuild_camera=None,
 ):
     """Build `step(params, seed, timings=None) -> (loss, grads)`: the loss of
     one tape-forward render against `target` (H, W, 3) and its gradient in
     every tensor of `params` (as from diff.grad.split_scene; `rebuild(params)
-    -> Scene`). Runs on target's device: CUDA launches the tape kernel, CPU
-    takes its twin. `seed` is an int; the JAX package derives it from its key
-    as `jax.random.randint(key, (), 0, 2**31 - 1)`.
+    -> Scene`), nested like `params`. Runs on target's device: CUDA launches
+    the tape kernel, CPU takes its twin. `seed` is an int; the JAX package
+    derives it from its key as `jax.random.randint(key, (), 0, 2**31 - 1)`.
 
     `edge_image_fns`: zero-valued edge images fn(params, cam, seed) (diff/
-    boundary.py) whose gradients `compose_edges` adds after the interior
-    step, against the forward's image cotangent.
+    boundary.py, shadow_edge.py, mirror_edge.py, refracted_edge.py) whose
+    gradients `compose_edges` adds after the interior step, against the
+    forward's image cotangent. `rebuild_camera` (split_camera) makes the
+    camera trainable: `params` then carries its leaves under
+    CAMERA_PARAM_KEY.
 
     With a `timings` dict the step syncs the device at each phase's end and
     adds the phase's wall seconds under "tape_forward", "loss_cotangent",
-    "replay_forward", "backward" and, with edge terms, "edges"."""
+    "replay_forward", "backward" and, with edge terms, "edges" (their sum)
+    and "edges/<name>" for each."""
     dev = target.device
     k = samples_per_pass
     total = k * width * height
@@ -171,13 +268,14 @@ def make_bucketed_grad_fn(
     def step(params, seed: int, timings=None):
         clock = PhaseClock(timings, dev)
         with torch.no_grad():
-            scene = rebuild({name: p.detach() for name, p in params.items()})
+            detached = nest_like(params, [t.detach() for _, t in flat_leaves(params)])
+            scene, cam_p = _scene_and_camera(detached, rebuild, rebuild_camera, cam)
             reason = unsupported_reason(scene)
             if reason is not None:
                 raise NotImplementedError(reason)
             sph, quad, res = pack_persistent_tables(scene)
             cam_s = pack_camera_scalars_bg(
-                camera_frame(cam, width, height), cam.background
+                camera_frame(cam_p, width, height), cam_p.background
             ).to(dev)
             rad3, tape, _ = render_persistent_tape(
                 sph, quad, res, cam_s, seed, total, width=width, height=height,
@@ -187,29 +285,25 @@ def make_bucketed_grad_fn(
             clock.lap("tape_forward")
             loss, ct_lane, lane_depth, ct_img = finish(rad3.T, tape, target, samples_per_pass=k)
             lanes = torch.arange(total, device=dev)
-            if not sky_gradient:
+            if _skip_depth1(sky_gradient, rebuild_camera):
                 lanes = lanes[lane_depth > 1]
             clock.lap("loss_cotangent")
-        leaves = list(params.values())
+        leaves = [t for _, t in flat_leaves(params)]
+        scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
         replay = replay_loss(
-            params, rebuild, cam, seed, tape, ct_lane, lanes,
+            scene, cam_p, seed, tape, ct_lane, lanes,
             width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
         )
         clock.lap("replay_forward")
-        grads = (
-            torch.autograd.grad(replay, leaves, allow_unused=True)
-            if replay.requires_grad else [None] * len(leaves)
-        )
-        grads = {
-            name: torch.zeros_like(p) if g is None else g
-            for (name, p), g in zip(params.items(), grads)
-        }
+        grads = nest_like(params, torch.autograd.grad(replay, leaves, allow_unused=True)
+                          if replay.requires_grad else [None] * len(leaves))
         clock.lap("backward")
         if edge_image_fns:
             with torch.profiler.record_function("edges"):
-                edge = compose_edges(edge_image_fns, params, cam, seed, ct_img)
-            grads = {name: g + edge[name] for name, g in grads.items()}
-            clock.lap("edges")
+                edge = compose_edges(edge_image_fns, params, cam, seed, ct_img,
+                                     rebuild_camera=rebuild_camera, clock=clock)
+            grads = nest_like(params, [g + e for (_, g), (_, e) in
+                                       zip(flat_leaves(grads), flat_leaves(edge))])
         return loss, grads
 
     return step

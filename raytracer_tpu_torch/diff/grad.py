@@ -19,15 +19,27 @@ Two backends compute the same estimator:
 * "bucketed": diff/bucketed.py, whose forward is the tape kernel and whose
   gradient replays the tape.
 
-`boundary=True` adds the silhouette term that interior autodiff cannot see
-(diff/boundary.py: primary-visibility edge sampling of sphere contours and
-quad edges): the scan backend adds its zero-valued image to the render
-before the loss, the bucketed backend composes it by VJP against the
-forward's image cotangent (diff/bucketed.py:compose_edges).
+Visibility boundaries, which interior autodiff cannot see, are opt-in edge
+terms, each a zero-valued image whose backward injects its gradient:
 
-Not ported yet (ROADMAP Queue 1 #10): the other visibility-boundary
-estimators (`shadow_edges`, `mirror_edges`, `refracted_edges`) and the
-trainable camera.
+* `boundary=True`: primary silhouettes (diff/boundary.py: sphere contours
+  and quad edges seen from the camera);
+* `shadow_edges=True`: first-bounce shadow edges cast by quads and
+  spheres onto diffuse receivers, and area-light rims seen from them
+  (diff/shadow_edge.py);
+* `mirror_edges=True`: sphere silhouettes seen in flat metal mirrors
+  (diff/mirror_edge.py);
+* `refracted_edges=True`: quad blockers seen through dielectric spheres
+  (diff/refracted_edge.py, a specular-manifold Newton solve).
+
+The scan backend adds their images to the render before the loss, the
+bucketed backend composes them by VJP against the forward's image
+cotangent (diff/bucketed.py:compose_edges). As in the JAX package, other
+discontinuities (deeper-bounce shadow edges, multi-mirror and mirror-glass
+paths, sphere blockers behind glass, TIR-cone crossings, caustic folds
+beyond the two Newton inits) are not sampled: their terms are zero, with
+no warning. `trainable_camera` (bucketed backend) trains camera fields
+under params["camera"] (diff/bucketed.py:split_camera).
 """
 
 from __future__ import annotations
@@ -40,7 +52,17 @@ import torch
 
 from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
 from raytracer_tpu_torch.diff.boundary import EdgeSamplingConfig, make_boundary_image_fn
-from raytracer_tpu_torch.diff.bucketed import PhaseClock, edge_seed, make_bucketed_grad_fn
+from raytracer_tpu_torch.diff.bucketed import (
+    CAMERA_PARAM_KEY,
+    PhaseClock,
+    edge_seed,
+    flat_leaves,
+    make_bucketed_grad_fn,
+    split_camera,
+)
+from raytracer_tpu_torch.diff.mirror_edge import make_mirror_boundary_fn
+from raytracer_tpu_torch.diff.refracted_edge import make_refracted_boundary_fn
+from raytracer_tpu_torch.diff.shadow_edge import ShadowEdgeConfig, make_shadow_boundary_fn
 from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.integrator.wavefront import trace
@@ -49,8 +71,6 @@ from raytracer_tpu_torch.render.driver import resolve_device
 
 # Scene leaves commonly optimized in inverse rendering.
 DEFAULT_TRAINABLE = ("sph_center", "sph_radius", "mat_albedo", "mat_fuzz", "tex_c0")
-
-_EDGE_ITEM = "ROADMAP Queue 1 #10, edge estimators"
 
 
 def split_scene(scene: Scene, trainable=DEFAULT_TRAINABLE):
@@ -70,9 +90,12 @@ def split_scene(scene: Scene, trainable=DEFAULT_TRAINABLE):
 def params_from_arrays(arrays: dict, device="cpu") -> dict:
     """Leaf tensors (float32, requiring grad) from numpy-convertible arrays
     keyed by field name, for instance the JAX package's split_scene params
-    as `np.asarray`: the counterpart of geometry.scene.scene_from_arrays."""
+    as `np.asarray`: the counterpart of geometry.scene.scene_from_arrays.
+    A dict under CAMERA_PARAM_KEY (the JAX package's split_camera params)
+    becomes the camera leaves, on the CPU like every camera tensor."""
     return {
-        name: torch.tensor(np.asarray(a, np.float32), device=device).requires_grad_(True)
+        name: (params_from_arrays(a) if name == CAMERA_PARAM_KEY else
+               torch.tensor(np.asarray(a, np.float32), device=device).requires_grad_(True))
         for name, a in arrays.items()
     }
 
@@ -171,6 +194,19 @@ def boundary_config(scene: Scene) -> EdgeSamplingConfig:
     return EdgeSamplingConfig()
 
 
+def shadow_config(scene: Scene, width: int, height: int) -> ShadowEdgeConfig:
+    """The shadow-edge budget of make_inverse_renderer(shadow_edges=True):
+    the exhaustive default (every pixel a receiver, every source) up to
+    2^14 pixels and 64 primitives; past either, 1024 receivers drawn by
+    the loss cotangent, 4 sources each by projected solid angle, 16
+    samples a sphere contour and 8 a quad edge (the JAX package's budget,
+    diff/grad.py:223-249)."""
+    if width * height > (1 << 14) or scene.num_spheres + scene.num_quads > 64:
+        return ShadowEdgeConfig(receivers=1024, sources_per_receiver=4,
+                                samples_per_sphere=16, samples_per_quad_edge=8)
+    return ShadowEdgeConfig()
+
+
 def make_inverse_renderer(
     scene: Scene,
     cam: Camera,
@@ -199,51 +235,57 @@ def make_inverse_renderer(
     gradients of one render (backend "scan" or "bucketed") and updates the
     params in place. With a `timings` dict each phase's wall seconds are
     added to it (see the backends), the update under "optimizer".
-    `boundary=True` adds the edge-sampled silhouette gradients of
-    diff/boundary.py (needed when the trainables move geometry whose
-    silhouettes are in view), at a reduced budget on scenes of more than
-    64 primitives (`boundary_config`).
+
+    The edge terms (boundary, shadow_edges, mirror_edges, refracted_edges;
+    see the module docstring) are built in that order, term i seeded by
+    diff.bucketed.edge_seed(seed, i) on both backends. `boundary` runs at
+    a reduced budget on scenes of more than 64 primitives
+    (`boundary_config`), `shadow_edges` importance-subsampled past 2^14
+    pixels or 64 primitives (`shadow_config`). `trainable_camera` (camera
+    field names, e.g. ("look_from", "fov_radians")) puts those leaves
+    under params["camera"] (diff/bucketed.py:split_camera); it needs the
+    bucketed backend.
     The default device is CUDA, which raises without a card."""
-    for flag, name in (
-        (shadow_edges, "shadow_edges"), (mirror_edges, "mirror_edges"),
-        (refracted_edges, "refracted_edges"),
-    ):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet ({_EDGE_ITEM})")
-    if trainable_camera:
-        raise NotImplementedError(
-            "trainable_camera is not ported yet (ROADMAP Queue 1 #10, split_camera)"
-        )
+    if backend not in ("scan", "bucketed"):
+        raise ValueError(f"unknown backend {backend!r}; use 'scan' or 'bucketed'")
+    if trainable_camera and backend != "bucketed":
+        raise ValueError("trainable_camera requires backend='bucketed'")
     dev = resolve_device(device)
     scene = scene.to(dev)
     target = torch.as_tensor(target, dtype=torch.float32).to(dev)
     params, rebuild = split_scene(scene, trainable)
-    optimizer = torch.optim.Adam(
-        list(params.values()), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
-    )
+    rebuild_camera = None
+    if trainable_camera:
+        params[CAMERA_PARAM_KEY], rebuild_camera = split_camera(cam, trainable_camera)
+    leaves = [t for _, t in flat_leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
     render_kw = dict(
         width=width, height=height, samples_per_pass=samples_per_pass,
         max_depth=max_depth, sky_gradient=sky_gradient,
     )
-    edge_fns = ()
+    edge_kw = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient)
+    edge_fns = []
     if boundary:
-        edge_fns = (make_boundary_image_fn(
-            rebuild, width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
-            config=boundary_config(scene),
-        ),)
+        edge_fns.append(make_boundary_image_fn(rebuild, config=boundary_config(scene), **edge_kw))
+    if shadow_edges:
+        edge_fns.append(make_shadow_boundary_fn(
+            rebuild, config=shadow_config(scene, width, height), **edge_kw))
+    if mirror_edges:
+        edge_fns.append(make_mirror_boundary_fn(rebuild, **edge_kw))
+    if refracted_edges:
+        edge_fns.append(make_refracted_boundary_fn(rebuild, **edge_kw))
     if backend == "bucketed":
-        grad_fn = make_bucketed_grad_fn(rebuild, cam, target, edge_image_fns=edge_fns,
-                                        **render_kw)
-    elif backend == "scan":
-        grad_fn = make_scan_grad_fn(rebuild, cam, target, edge_image_fns=edge_fns, **render_kw)
+        grad_fn = make_bucketed_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
+                                        rebuild_camera=rebuild_camera, **render_kw)
     else:
-        raise ValueError(f"unknown backend {backend!r}; use 'scan' or 'bucketed'")
+        grad_fn = make_scan_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
+                                    **render_kw)
 
     def step(seed: int, timings=None):
         loss, grads = grad_fn(params, seed, timings)
         t0 = time.perf_counter()
-        for name, p in params.items():
-            p.grad = grads[name]
+        for (_, p), (_, g) in zip(flat_leaves(params), flat_leaves(grads)):
+            p.grad = g
         optimizer.step()
         if timings is not None:
             if dev.type == "cuda":

@@ -1,7 +1,7 @@
 """Profile one inverse-rendering gradient step on a CUDA device.
 
     python -m raytracer_tpu_torch.utils.profile_grad [--backend bucketed|scan]
-        [--boundary] [--out out/grad_trace.json]
+        [--boundary] [--grad-full] [--out out/grad_trace.json]
 
 The training shape of chip_smoke.py phase 7: rand_spheres at 400x225,
 8 spp, depth 50, its texture colors halved, the target rendered from the
@@ -11,11 +11,14 @@ line: the step's wall seconds and phase split, the device's busy time (the
 union of its kernels' intervals) and idle share of the profiled window, and
 the device time of the top kernels and of the top autograd operators; writes
 the Chrome trace to --out. With `--boundary` the step adds the silhouette
-edge term (make_inverse_renderer(boundary=True)); on the bucketed backend
-the line then also reads the edge term's window (its `edges` record
-function): its seconds, the device's busy time and idle share in it, its
-CUDA kernel launches and the closest-hit kernel's share. Needs a CUDA
-device: it fails without one.
+edge term (make_inverse_renderer(boundary=True)); `--grad-full` profiles
+the JAX package's `grad_full` step instead (bench.py:333-352: boundary and
+shadow_edges, training sph_center, sph_radius and tex_c0). On the bucketed
+backend the line then also reads the edge terms' window (the `edges`
+record function) and each term's own (`edges/boundary`, `edges/shadow`):
+its seconds, the device's busy time and idle share in it, its CUDA kernel
+launches and the closest-hit kernel's share. Needs a CUDA device: it fails
+without one.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="bucketed", choices=("bucketed", "scan"))
     ap.add_argument("--boundary", action="store_true", help="add the silhouette edge term")
+    ap.add_argument("--grad-full", action="store_true",
+                    help="the silhouette and shadow edge terms, training sph_center, "
+                         "sph_radius and tex_c0")
     ap.add_argument("--out", default="out/grad_trace.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -65,8 +71,10 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         target = render_linear_diff(scene.to("cuda"), cam, 7, **kw)
     start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5)
+    full = dict(boundary=True, shadow_edges=True,
+                trainable=("sph_center", "sph_radius", "tex_c0")) if args.grad_full else {}
     _, _, step = make_inverse_renderer(start, cam, target, backend=args.backend,
-                                       boundary=args.boundary, device="cuda", **kw)
+                                       **{"boundary": args.boundary, **full}, device="cuda", **kw)
     for seed in (1, 2):
         step(seed)
     torch.cuda.synchronize()
@@ -79,7 +87,10 @@ def main(argv=None) -> dict:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     prof.export_chrome_trace(args.out)
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Device events, without the device-side ranges of record_function
+    # (user annotations such as `edges/shadow`), which span their window.
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("edges")]
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
     by_kernel: dict = {}
     for e in kernels:
@@ -92,25 +103,27 @@ def main(argv=None) -> dict:
                      key=lambda t: -t[1])[:TOP]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    window = [e for e in prof.events() if e.name == "edges"
-              and e.device_type == torch.autograd.DeviceType.CPU]
     edges = {}
-    if window:
-        lo, hi = window[0].time_range.start, window[0].time_range.end
-        inside = [e for e in kernels if lo <= e.time_range.start < hi]
-        busy_e = busy_us([(e.time_range.start, e.time_range.end) for e in inside]) / 1e6
-        hit = [e for e in inside if "intersect_kernel" in e.name]
-        launches_host = [e for e in prof.events() if e.name.startswith(("cudaLaunch", "cuLaunch"))
-                         and lo <= e.time_range.start < hi]
-        edges = {"edges_window_s": (hi - lo) / 1e6, "edges_device_busy_s": busy_e,
-                 "edges_device_idle_share": 1.0 - busy_e / ((hi - lo) / 1e6),
-                 "edges_kernel_launches": len(inside),
-                 "edges_cuda_launch_calls": len(launches_host),
-                 "edges_closest_hit_launches": len(hit),
-                 "edges_closest_hit_ms": sum(e.time_range.elapsed_us() for e in hit) / 1e3}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not (
+                e.name == "edges" or e.name.startswith("edges/")):
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        inside = [k for k in kernels if lo <= k.time_range.start < hi]
+        busy_e = busy_us([(k.time_range.start, k.time_range.end) for k in inside]) / 1e6
+        hit = [k for k in inside if "intersect_kernel" in k.name]
+        launches_host = [k for k in prof.events() if k.name.startswith(("cudaLaunch", "cuLaunch"))
+                         and lo <= k.time_range.start < hi]
+        key = e.name.replace("/", "_")
+        edges.update({f"{key}_window_s": (hi - lo) / 1e6, f"{key}_device_busy_s": busy_e,
+                      f"{key}_device_idle_share": 1.0 - busy_e / ((hi - lo) / 1e6),
+                      f"{key}_kernel_launches": len(inside),
+                      f"{key}_cuda_launch_calls": len(launches_host),
+                      f"{key}_closest_hit_launches": len(hit),
+                      f"{key}_closest_hit_ms": sum(k.time_range.elapsed_us() for k in hit) / 1e3})
     report = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "backend": args.backend,
-        "boundary": args.boundary, **edges,
+        "boundary": args.boundary, "grad_full": args.grad_full, **edges,
         "shape": [st.width, st.height, st.samples_per_pixel, st.max_depth],
         "wall_s": wall, "phases_s": timings, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall, "kernel_launches": len(kernels),

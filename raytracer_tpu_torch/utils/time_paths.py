@@ -27,7 +27,12 @@ each path run once before its timed runs):
   cached;
 * `bucketed_step`, `scan_step`: one `make_inverse_renderer` Adam step of
   each backend on rand_spheres at 400x225, 8 spp, depth 50 from texture
-  colors halved (chip_smoke.py phase 7's shape), ended by a device sync.
+  colors halved (chip_smoke.py phase 7's shape), ended by a device sync;
+  `boundary_step` the bucketed step with `boundary=True` (phase 12),
+  `grad_full_step` with `boundary=True, shadow_edges=True`, training
+  sph_center, sph_radius and tex_c0 (phase 14, the JAX package's
+  `grad_full`). Each step is built at its path's first (warm) run, so a
+  checkout without an option fails only on the path that needs it.
 
 The CLI's own report gives the CLI walls; the others are host seconds
 around the call. The culled paths also report each run's host clustering
@@ -122,14 +127,26 @@ def path_runners(out_dir: Path) -> dict:
                                     height=t_st.height, samples_per_pass=t_st.samples_per_pixel,
                                     max_depth=t_st.max_depth)
     start = dataclasses.replace(t_scene, tex_c0=t_scene.tex_c0 * 0.5)
-    for backend in ("bucketed", "scan"):
-        _, _, step = make_inverse_renderer(
-            start, t_cam, target, backend=backend, width=t_st.width, height=t_st.height,
-            samples_per_pass=t_st.samples_per_pixel, max_depth=t_st.max_depth,
-            learning_rate=1e-2, device="cuda")
-        seeds = iter(range(101, 10**6))
-        runners[f"{backend}_step"] = lambda step=step, seeds=seeds: dict(wall_s=_synced(
-            lambda: step(next(seeds))))
+
+    def step_runner(**options):
+        built, seeds = [], iter(range(101, 10**6))
+
+        def run():
+            if not built:
+                built.append(make_inverse_renderer(
+                    start, t_cam, target, width=t_st.width, height=t_st.height,
+                    samples_per_pass=t_st.samples_per_pixel, max_depth=t_st.max_depth,
+                    learning_rate=1e-2, device="cuda", **options)[2])
+            return dict(wall_s=_synced(lambda: built[0](next(seeds))))
+
+        return run
+
+    runners["bucketed_step"] = step_runner(backend="bucketed")
+    runners["scan_step"] = step_runner(backend="scan")
+    runners["boundary_step"] = step_runner(backend="bucketed", boundary=True)
+    runners["grad_full_step"] = step_runner(
+        backend="bucketed", boundary=True, shadow_edges=True,
+        trainable=("sph_center", "sph_radius", "tex_c0"))
     return runners
 
 

@@ -1,9 +1,10 @@
 """The port's gradient step against the JAX package: the tape-forward step
 (diff/bucketed.py) against JAX `make_bucketed_grad_fn(forward="kernel")` run
-in Pallas interpret mode with the same int seed, the compacting replay
-against one full-depth replay, the scan backend against the tape-forward
-step, torch Adam against optax.adam, and split_scene / rebuild /
-params_from_arrays."""
+in Pallas interpret mode with the same int seed, with and without a
+trainable camera, the compacting replay against one full-depth replay, the
+scan backend against the tape-forward step, torch Adam against optax.adam,
+split_scene / rebuild / params_from_arrays (camera leaves included), and
+make_inverse_renderer with every edge term on both backends."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from raytracer_tpu.core import camera as jcam
 from raytracer_tpu.diff.bucketed import make_bucketed_grad_fn as jax_make_bucketed_grad_fn
+from raytracer_tpu.diff.bucketed import split_camera as jax_split_camera
 from raytracer_tpu.diff.grad import split_scene as jax_split_scene
 from raytracer_tpu.geometry import scene as jscene
 from raytracer_tpu_torch.core import camera as pcam
@@ -32,6 +34,7 @@ torch.set_num_threads(1)
 # tests/test_ktape.py's gradient size.
 W, H, SPP, DEPTH = 32, 18, 2, 6
 GEOMETRY = ("sph_center", "sph_radius")
+CAMERA_LEAVES = ("look_from", "fov_radians", "background")
 
 
 def target_image():
@@ -94,6 +97,100 @@ def test_bucketed_step_matches_jax_kernel_forward(jax_step):
                                        atol=1e-3 * np.abs(grads_j[name]).max(), err_msg=name)
         else:
             np.testing.assert_allclose(g.numpy(), grads_j[name], rtol=1e-4, atol=1e-8, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_camera_step():
+    """JAX kernel-forward bucketed step (interpret mode) on the mixed scene
+    with the camera's look_from, fov_radians and background trainable
+    under params["camera"]: (params as numpy, nested, loss, grads as
+    numpy, nested, the int seed)."""
+    scene = mixed_scene(jscene.SceneBuilder)
+    cam, _ = jcam.make_camera(16 / 9, 64, **CAM_KW)
+    params, rebuild = jax_split_scene(scene, GEOMETRY)
+    cam_params, rebuild_camera = jax_split_camera(cam, CAMERA_LEAVES)
+    params = {**params, "camera": cam_params}
+    key = jax.random.PRNGKey(8)
+    with pltpu.force_tpu_interpret_mode():
+        step = jax_make_bucketed_grad_fn(
+            rebuild, cam, jnp.asarray(target_image()), width=W, height=H,
+            samples_per_pass=SPP, max_depth=DEPTH, quant=256, forward="kernel",
+            scene_probe=scene, tape_rows=8, rebuild_camera=rebuild_camera,
+        )
+        loss, grads = step(params, key)
+    seed = int(jax.random.randint(key, (), 0, 2**31 - 1, jnp.int32))
+    as_np = jax.tree_util.Partial(jax.tree_util.tree_map, np.asarray)
+    return as_np(params), float(loss), as_np(grads), seed
+
+
+def test_bucketed_camera_grads_match_jax(jax_camera_step):
+    """params_from_arrays carries JAX's split_scene + split_camera params
+    across (camera leaves under "camera", on the CPU, requiring grad), and
+    the port's bucketed step with split_camera's rebuild gives JAX's loss
+    (rtol 1e-5), its geometry gradients at test_bucketed_step_matches_jax_
+    kernel_forward's bound (rtol 6e-3, atol 1e-4), and its camera
+    gradients at that bound relative to each leaf's largest entry (rtol
+    6e-3, atol 1e-4 of it; tests/test_unified_grad.py:92 holds JAX's own
+    backends within rtol 6e-3)."""
+    params_np, loss_j, grads_j, seed = jax_camera_step
+    params = pgrad.params_from_arrays(params_np)
+    assert set(params["camera"]) == set(CAMERA_LEAVES)
+    for name, t in params["camera"].items():
+        assert t.is_leaf and t.requires_grad and t.device.type == "cpu", name
+        assert torch.equal(t.detach(), torch.from_numpy(params_np["camera"][name])), name
+    scene = mixed_scene(pscene.SceneBuilder)
+    cam, _ = pcam.make_camera(16 / 9, 64, **CAM_KW)
+    _, rebuild = pgrad.split_scene(scene, GEOMETRY)
+    _, rebuild_camera = pbucketed.split_camera(cam, CAMERA_LEAVES)
+    step = pbucketed.make_bucketed_grad_fn(rebuild, cam, torch.from_numpy(target_image()),
+                                           width=W, height=H, samples_per_pass=SPP,
+                                           max_depth=DEPTH, rebuild_camera=rebuild_camera)
+    loss, grads = step(params, seed)
+    np.testing.assert_allclose(float(loss), loss_j, rtol=1e-5)
+    for name in GEOMETRY:
+        np.testing.assert_allclose(grads[name].numpy(), grads_j[name], rtol=6e-3, atol=1e-4,
+                                   err_msg=name)
+    for name in CAMERA_LEAVES:
+        want = grads_j["camera"][name]
+        assert np.abs(want).max() > 0, name
+        np.testing.assert_allclose(grads["camera"][name].numpy(), want, rtol=6e-3,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=f"camera.{name}")
+
+
+def test_bucketed_camera_grads_match_full_depth_replay(jax_camera_step):
+    """The port of tests/test_unified_grad.py:35: camera leaves under
+    params["camera"] get, through the bucketed replay (depth-1 lanes kept,
+    since the background is trainable), the gradients of one full-depth
+    replay of every lane that rebuilds the camera from the same leaves,
+    rtol 1e-5. The mixed scene's glass makes the interior camera
+    gradients non-zero."""
+    params_np, _, _, seed = jax_camera_step
+    params = pgrad.params_from_arrays(params_np)
+    scene = mixed_scene(pscene.SceneBuilder)
+    cam, _ = pcam.make_camera(16 / 9, 64, **CAM_KW)
+    _, rebuild = pgrad.split_scene(scene, GEOMETRY)
+    _, rebuild_camera = pbucketed.split_camera(cam, CAMERA_LEAVES)
+    target = torch.from_numpy(target_image())
+    _, grads = pbucketed.make_bucketed_grad_fn(
+        rebuild, cam, target, width=W, height=H, samples_per_pass=SPP, max_depth=DEPTH,
+        rebuild_camera=rebuild_camera)(params, seed)
+    scene_p = {k: params[k] for k in GEOMETRY}
+    with torch.no_grad():
+        cam_p = rebuild_camera({k: v.detach() for k, v in params["camera"].items()})
+        sph, quad, res = ppk.pack_persistent_tables(rebuild(scene_p))
+        cam_s = ppk.pack_camera_scalars_bg(pcam.camera_frame(cam_p, W, H), cam_p.background)
+        rad3, tape, _ = ppk.render_persistent_tape(sph, quad, res, cam_s, seed, SPP * W * H,
+                                                   width=W, height=H, max_depth=DEPTH)
+        _, ct_lane, lane_depth, _ = pbucketed.finish(rad3.T, tape, target, samples_per_pass=SPP)
+    assert int((lane_depth == 1).sum()) > 0
+    ref = full_depth_replay(scene_p, rebuild, rebuild_camera(params["camera"]), seed, tape,
+                            ct_lane)
+    leaves = [params[k] for k in GEOMETRY] + [params["camera"][k] for k in CAMERA_LEAVES]
+    ref_grads = torch.autograd.grad(ref, leaves)
+    got = [grads[k] for k in GEOMETRY] + [grads["camera"][k] for k in CAMERA_LEAVES]
+    for name, g, r in zip(GEOMETRY + CAMERA_LEAVES, got, ref_grads):
+        assert float(r.abs().max()) > 0, name
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-9, msg=name)
 
 
 def full_depth_replay(params, rebuild, cam, seed, tape, ct_lane):
@@ -216,8 +313,10 @@ def test_split_scene_rebuild_roundtrip():
 def test_inverse_renderer_steps_on_cpu():
     """make_inverse_renderer on the CPU: each backend takes Adam steps on
     the texture colors that lower the loss from a half-bright start toward
-    the target rendered from the true scene; unported options raise
-    NotImplementedError naming their ROADMAP item."""
+    the target rendered from the true scene; every edge term and the
+    trainable camera build on both backends (the camera on the bucketed
+    one only: scan raises ValueError) and take one step with finite
+    gradients; an unknown backend raises ValueError."""
     scene = mixed_scene(pscene.SceneBuilder)
     cam, _ = pcam.make_camera(16 / 9, 64, **CAM_KW)
     kw = dict(width=W, height=H, samples_per_pass=SPP, max_depth=DEPTH)
@@ -233,14 +332,54 @@ def test_inverse_renderer_steps_on_cpu():
         assert "optimizer" in timings and all(np.isfinite(losses))
         assert losses[-1] < losses[0], (backend, losses)
         assert not torch.equal(params["tex_c0"].detach(), before)
-    for flag in ("shadow_edges", "mirror_edges", "refracted_edges"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pgrad.make_inverse_renderer(scene, cam, target, device="cpu", **{flag: True}, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pgrad.make_inverse_renderer(scene, cam, target, device="cpu",
+    small = dict(kw, width=12, height=8, max_depth=3)
+    edges = dict(boundary=True, shadow_edges=True, mirror_edges=True, refracted_edges=True)
+    for backend in ("bucketed", "scan"):
+        camera = ("look_from",) if backend == "bucketed" else ()
+        params, opt, step = pgrad.make_inverse_renderer(
+            start, cam, target[:8, :12], trainable=("sph_center", "quad_q"), backend=backend,
+            device="cpu", trainable_camera=camera, **edges, **small)
+        timings = {}
+        assert np.isfinite(float(step(5, timings)))
+        grads = [p.grad for p in (params["sph_center"], params["quad_q"])]
+        if camera:
+            grads.append(params["camera"]["look_from"].grad)
+            assert any(t is params["camera"]["look_from"] for t in opt.param_groups[0]["params"])
+        assert all(bool(torch.isfinite(g).all()) for g in grads), backend
+        if backend == "bucketed":
+            names = ("boundary", "shadow", "mirror", "refracted")
+            assert {f"edges/{n}" for n in names} <= set(timings)
+            assert timings["edges"] == pytest.approx(sum(timings[f"edges/{n}"] for n in names))
+    with pytest.raises(ValueError, match="trainable_camera"):
+        pgrad.make_inverse_renderer(scene, cam, target, device="cpu", backend="scan",
                                     trainable_camera=("look_from",), **kw)
     with pytest.raises(ValueError, match="backend"):
         pgrad.make_inverse_renderer(scene, cam, target, device="cpu", backend="xla", **kw)
+
+
+def test_bucketed_shadow_edges_compose():
+    """The port of tests/test_unified_grad.py:141: boundary and shadow_edges
+    together through the bucketed backend give finite, non-zero blocker
+    gradients, and the shadow term moves them (the step without it
+    differs); the loss is the step's without the edge terms."""
+    b = pscene.SceneBuilder(0)
+    b.add_quad((-4, 0, -8), (8, 0, 0), (0, 0, 8), b.lambertian((0.7, 0.7, 0.7)))
+    b.add_sphere((0.0, 1.2, -4.0), 0.5, b.lambertian((0.4, 0.4, 0.8)))
+    b.add_sphere((0.0, 4.0, -4.0), 1.0, b.diffuse_light((12, 12, 12)))
+    scene = b.build()
+    cam, _ = pcam.make_camera(1.0, 24, fov_degrees=60, look_from=(0, 2.5, 2), look_at=(0, 0.5, -4))
+    kw = dict(width=24, height=24, samples_per_pass=2, max_depth=3, backend="bucketed",
+              device="cpu", trainable=("sph_center",))
+    run = {}
+    for shadow in (False, True):
+        params, _, step = pgrad.make_inverse_renderer(scene, cam, torch.zeros(24, 24, 3),
+                                                      boundary=True, shadow_edges=shadow, **kw)
+        loss = float(step(0))
+        run[shadow] = (loss, params["sph_center"].grad.clone())
+    loss, g = run[True]
+    assert np.isfinite(loss) and loss == run[False][0]
+    assert bool(torch.isfinite(g).all()) and float(g[0].abs().max()) > 0
+    assert not torch.equal(g, run[False][1])
 
 
 def test_inverse_renderer_defaults_to_cuda():

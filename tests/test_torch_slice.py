@@ -184,7 +184,9 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "assert {'raytracer_tpu_torch.diff.grad', 'raytracer_tpu_torch.diff.bucketed',\n"
         "        'raytracer_tpu_torch.diff.tape', 'raytracer_tpu_torch.diff.boundary',\n"
-        "        'raytracer_tpu_torch.diff.opt_checkpoint',\n"
+        "        'raytracer_tpu_torch.diff.opt_checkpoint', 'raytracer_tpu_torch.diff.shadow_edge',\n"
+        "        'raytracer_tpu_torch.diff.mirror_edge', 'raytracer_tpu_torch.diff.refracted_edge',\n"
+        "        'raytracer_tpu_torch.scripts.inverse_render_demo',\n"
         "        'raytracer_tpu_torch.render.checkpoint'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('raytracer_tpu.')]\n"
         "assert not bad, bad\n"
