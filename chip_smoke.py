@@ -61,7 +61,17 @@ counters reset just before and read just after:
   mirror (its visibility probe a kernel-1 launch), refracted and
   exhaustive shadow gradients on their test scenes on the card against
   the CPU, and one bucketed step with trainable_camera=("look_from",
-  "fov_radians").
+  "fov_radians");
+* the distributed paths (phase 16): the CLI with --shard on the render
+  path's shape at one NCCL rank (kernel 2 once, its PNG byte-equal to
+  phase 5's, its wall beside the plain CLI's in turns), the sharded
+  bucketed step at phase 7's shape (kernel 3 once; loss and gradients
+  bit-equal to the unsharded step's), render_large_scene_sharded (kernels
+  4 and 1 clustered) and render_image_sharded on rng-table perlin (kernel
+  5) at one rank bit-equal to the unsharded renders, and two gloo ranks
+  as two processes on the one card (`--gloo-rank`): their sharded render
+  bit-equal to the in-process sum of the ranks' partials, and
+  parallel/dryrun.py:dryrun_multichip(2, "cuda").
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -208,6 +218,12 @@ EDGE_CHECK_SIZE = (24, 20)
 GRAD_FULL_TRAINABLE = ("sph_center", "sph_radius", "tex_c0")
 GRAD_FULL_STEPS = 3
 
+# Phase 16: the gloo ranks' shape (two processes on the one card), and the
+# rounds of plain, --shard, --shard, plain CLI renders timed in turns.
+GLOO_SHAPE = dict(width=96, spp=8, max_depth=10)
+SHARD_ROUNDS = 2
+# Bytes of the main path's framebuffer all-reduce: 400x225 pixels x 3 float32.
+FRAMEBUFFER_SHAPE = (400 * 225, 3)
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -1836,6 +1852,267 @@ def profile_phase(cli):
                 wall_s=wall, render_wall_s=report["wall_s"])
 
 
+def gloo_rank(rank: int, coordinator: str, out_dir: Path) -> None:
+    """Phase 16's gloo rank `rank` of two, both on the one card (NCCL
+    refuses two ranks on one GPU; gloo's collectives take CUDA tensors).
+    It imports, loads the kernels and makes its CUDA context, says so
+    (out_dir/gloo_ready<rank>), waits for out_dir/gloo_go (the parent's
+    timed work is over), then runs
+    render_image_sharded on rand_spheres at GLOO_SHAPE, kernel 2's launches
+    counted around it, and dryrun_multichip(2, "cuda"), which raises on
+    any failed check. Writes out_dir/gloo_rank<rank>.json and, on rank 0,
+    the image (gloo_render.pt)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import build
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from raytracer_tpu_torch.parallel.mesh import close_group, init_group, make_mesh
+    from raytracer_tpu_torch.parallel.shard import render_image_sharded
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    build.load_kernels()
+    torch.zeros(1, device="cuda")
+    (out_dir / f"gloo_ready{rank}").touch()
+    deadline = time.perf_counter() + 300
+    while not (out_dir / "gloo_go").exists():
+        if time.perf_counter() > deadline:
+            raise TimeoutError("phase 16: the parent never released the gloo ranks")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    init_group("cuda", backend="gloo", coordinator=coordinator, process_id=rank,
+               num_processes=2)
+    try:
+        start_s = time.perf_counter() - t0
+        mesh = make_mesh(2, device="cuda")
+        scene, cam, st = get_scene("rand_spheres", **GLOO_SHAPE)
+        pk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_image_sharded(scene, cam, st, mesh, seed=0)
+        torch.cuda.synchronize()
+        rec = dict(render_wall_s=time.perf_counter() - t0, render_launches=pk.LAUNCHES,
+                   group_start_s=start_s, mesh=list(mesh.shape), backend=mesh.backend)
+        t0 = time.perf_counter()
+        rec["dryrun"] = dryrun_multichip(2, "cuda")
+        rec["dryrun_s"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(img.cpu(), out_dir / "gloo_render.pt")
+        (out_dir / f"gloo_rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        close_group()
+
+
+def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dict:
+    """Phase 16: the distributed paths.
+
+    Two gloo ranks start first, as two processes on the one card
+    (`gloo_rank`), and import while this process runs the untimed checks;
+    they wait until the timed work below is over.
+
+    NCCL at one rank, full width: render_large_scene_sharded on
+    rand_spheres_large 400x225@64spp d8 against _render_large_scene
+    (bit-equal, the same kernel-4 and clustered kernel-1 launches);
+    render_image_sharded on rng-table perlin against render_image
+    (bit-equal, the same kernel-5 launches); the sharded bucketed step at
+    phase 7's shape against make_bucketed_grad_fn's at the same seed (loss
+    and gradients bit-equal under torch's deterministic algorithms, which
+    fix autograd's scatter order; one kernel-3 launch); then, timed, the
+    two steps' walls in turns, the all-reduce of the 1.08 MB framebuffer
+    by CUDA events, and the CLI with --shard on rand_spheres
+    400x225@500spp d50 (its PNG byte-equal to phase 5's, one kernel-2
+    launch) beside the plain CLI in SHARD_ROUNDS rounds of plain, shard,
+    shard, plain, with its group start-up.
+
+    Then the gloo ranks run: the sharded render bit-equal to the sum of
+    its two ranks' partials computed here, and dryrun_multichip(2,
+    "cuda")."""
+    import dataclasses as dc
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.diff.bucketed import make_bucketed_grad_fn
+    from raytracer_tpu_torch.diff.grad import render_linear_diff, split_scene
+    from raytracer_tpu_torch.parallel.mesh import close_group, init_group, make_mesh
+    from raytracer_tpu_torch.parallel.shard import (
+        regen_partial,
+        render_image_sharded,
+        render_large_scene_sharded,
+    )
+    from raytracer_tpu_torch.parallel.train import make_sharded_bucketed_grad_fn
+    from raytracer_tpu_torch.render import driver
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    rec = {}
+    go = OUT_DIR / "gloo_go"
+    ready = [OUT_DIR / f"gloo_ready{r}" for r in range(2)]
+    for stale in (go, *ready, OUT_DIR / "gloo_render.pt", *OUT_DIR.glob("gloo_rank*.json")):
+        stale.unlink(missing_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        coord = f"localhost:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--gloo-rank",
+                               str(r), coord, str(OUT_DIR)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        init_group("cuda")
+        try:
+            mesh = make_mesh()
+            # The process's first NCCL group: the communicator's creation.
+            rec["first_group_s"] = time.perf_counter() - t0
+            # The large-scene path at one rank.
+            scene, cam, st = get_scene("rand_spheres_large", spp=64)
+            scene = scene.to("cuda")
+            imgs, large = {}, {}
+            for mode, fn in (
+                    ("plain", lambda: driver._render_large_scene(scene, cam, st, seed=0)),
+                    ("shard", lambda: render_large_scene_sharded(scene, cam, st, mesh, seed=0))):
+                imgs[mode], counts = counted(fn)
+                large[mode] = dict(launches=counts)
+                check_launches(f"the {mode} large-scene render", counts,
+                               ("culled", "closest_hit_clustered"))
+            if large["plain"]["launches"] != large["shard"]["launches"] or not torch.equal(
+                    imgs["plain"], imgs["shard"]):
+                fail(f"phase 16: large-scene sharded vs unsharded: {json.dumps(large)}")
+            rec["large_scene"] = large
+
+            # The wavefront-step path (kernel 5) at one rank.
+            scene, cam, st = get_scene("perlin", procedural_perlin=False)
+            step_rec = {}
+            for mode, fn in (
+                    ("plain", lambda: driver.render_image(scene, cam, st, seed=0)),
+                    ("shard", lambda: render_image_sharded(scene, cam, st, mesh, seed=0))):
+                imgs[mode], counts = counted(fn)
+                step_rec[mode] = dict(launches=counts)
+                check_launches(f"the {mode} wavefront-step render", counts, ("wavefront_step",))
+            if step_rec["plain"]["launches"] != step_rec["shard"]["launches"] or not torch.equal(
+                    imgs["plain"], imgs["shard"]):
+                fail(f"phase 16: wavefront-step sharded vs unsharded: {json.dumps(step_rec)}")
+            rec["wavefront_step"] = step_rec
+
+            # The sharded bucketed step at one rank against the unsharded one.
+            scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+            with torch.no_grad():
+                target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width,
+                                            height=st.height,
+                                            samples_per_pass=st.samples_per_pixel,
+                                            max_depth=st.max_depth)
+            start = dc.replace(scene, tex_c0=scene.tex_c0 * 0.5).to("cuda")
+            params, rebuild = split_scene(start)
+            kw = dict(width=st.width, height=st.height, samples_per_pass=st.samples_per_pixel,
+                      max_depth=st.max_depth)
+            steps = {"plain": make_bucketed_grad_fn(rebuild, cam, target, **kw),
+                     "shard": make_sharded_bucketed_grad_fn(rebuild, cam, target, mesh, **kw)}
+            seed = TRAIN_SEEDS[0]
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+            try:
+                (loss_s, g_s), counts = counted(lambda: steps["shard"](params, seed))
+                loss_p, g_p = steps["plain"](params, seed)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            check_launches("the sharded bucketed step", counts, ("persistent_tape",))
+            unequal = [k for k in g_p if not torch.equal(g_p[k], g_s[k])]
+            if counts["persistent_tape"] != 1 or float(loss_s) != float(loss_p) or unequal:
+                fail(f"phase 16: sharded step launches {counts}, loss {float(loss_s)} vs "
+                     f"{float(loss_p)}, gradients unequal {unequal}")
+
+            # Timed from here, once the gloo ranks have started and wait.
+            deadline = time.perf_counter() + 300
+            while not all(r.exists() for r in ready):
+                if time.perf_counter() > deadline or any(p.poll() is not None for p in procs):
+                    fail("phase 16: the gloo ranks did not start: exit codes "
+                         f"{[p.poll() for p in procs]}, output of the ended ones "
+                         f"{[p.communicate()[0].decode()[-3000:] for p in procs if p.poll() is not None]}")
+                time.sleep(0.05)
+            step_walls = {"plain": [], "shard": []}
+            for mode in ("plain", "shard", "shard", "plain"):
+                timings = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[mode](params, seed, timings)
+                torch.cuda.synchronize()  # on the gradients, not the loss alone
+                step_walls[mode].append(dict(wall_s=time.perf_counter() - t0, **timings))
+            rec["sharded_step"] = dict(launches=counts, loss=float(loss_s), bit_equal=True,
+                                       walls_in_turns=step_walls)
+            # The main path's one collective: the framebuffer's all-reduce.
+            fb = torch.rand(FRAMEBUFFER_SHAPE, device="cuda")
+            want = fb.clone()
+            dist.all_reduce(fb)
+            if not torch.equal(fb, want):
+                fail("phase 16: a one-rank all-reduce changed the framebuffer")
+            rec["all_reduce_ms"] = time_cuda(lambda: dist.all_reduce(fb), reps=100, warm=5)
+            rec["all_reduce_bytes"] = fb.numel() * 4
+        finally:
+            close_group()
+
+        # The CLI with --shard in turns with the plain CLI.
+        walls, starts = {"plain": [], "shard": []}, []
+        want_png = main_png.read_bytes()
+        for mode in ("plain", "shard", "shard", "plain") * SHARD_ROUNDS:
+            png = OUT_DIR / f"shard_{mode}.png"
+            argv = ["--scene", "rand_spheres", "--out", str(png)] + (
+                ["--shard"] if mode == "shard" else [])
+            rep, counts = counted(lambda: cli.main(argv))
+            check_launches(f"the {mode} CLI", counts, ("persistent_render",))
+            if counts["persistent_render"] != 1 or png.read_bytes() != want_png:
+                fail(f"phase 16: the {mode} CLI launched kernel 2 "
+                     f"{counts['persistent_render']} times; PNG equal to phase 5's: "
+                     f"{png.read_bytes() == want_png}")
+            walls[mode].append(rep["wall_s"])
+            if mode == "shard":
+                if rep["mesh"] != [1, 1] or rep["backend"] != "nccl":
+                    fail(f"phase 16: --shard ran on {rep['mesh']} under {rep['backend']}")
+                starts.append(rep["group_start_s"])
+                rec["shard_cli"] = dict(report=rep, launches=counts)
+        rec["shard_cli"].update(walls_in_turns=walls, group_start_s=starts)
+        if dist.is_initialized():
+            fail("phase 16: the --shard CLI left its process group running")
+
+        # gloo at two ranks, two processes on the one card.
+        t0 = time.perf_counter()
+        go.touch()
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+        gloo_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"phase 16: a gloo rank failed: {outs}")
+    ranks = [json.loads((OUT_DIR / f"gloo_rank{r}.json").read_text()) for r in range(2)]
+    scene, cam, st = get_scene("rand_spheres", **GLOO_SHAPE)
+    renderer = driver.chunk_renderer(scene, cam, st, torch.device("cuda"))
+    chunk = driver.default_spp_chunk(scene, st, ranks=2)
+    acc, done, c = torch.zeros(st.width * st.height, 3, device="cuda"), 0, 0
+    while done < st.samples_per_pixel:
+        step = min(chunk, st.samples_per_pixel - done)
+        seed = driver.chunk_seed(0, c)
+        acc = acc + (regen_partial(renderer, step, seed, 0, 2)[0]
+                     + regen_partial(renderer, step, seed, 1, 2)[0])
+        done, c = done + step, c + 1
+    want = (acc / float(st.samples_per_pixel)).reshape(st.height, st.width, 3).cpu()
+    got = torch.load(OUT_DIR / "gloo_render.pt")
+    if not torch.equal(got, want) or any(r["render_launches"] < 1 for r in ranks):
+        fail(f"phase 16: the gloo render vs the in-process sum of its ranks: max abs "
+             f"{float((got - want).abs().max())}; ranks {json.dumps(ranks)}")
+    rec["gloo_world2"] = dict(ranks=ranks, released_s=gloo_s, bit_equal=True)
+    print(f"phase 16 distribution: --shard CLI (NCCL, one rank) walls {json.dumps(walls)} s, "
+          f"group start {[round(x, 4) for x in starts]} s (the process's first NCCL group "
+          f"{rec['first_group_s']:.4f} s), PNG byte-equal to phase 5's; "
+          f"all-reduce of {rec['all_reduce_bytes']} B {rec['all_reduce_ms']:.4f} ms; sharded "
+          f"bucketed step bit-equal to make_bucketed_grad_fn's, walls "
+          f"{json.dumps({k: [round(w['wall_s'], 4) for w in v] for k, v in step_walls.items()})}"
+          f" s; large scene and wavefront step bit-equal, launches {json.dumps(large['shard'])}, "
+          f"{json.dumps(step_rec['shard'])}; gloo two ranks on one card: render bit-equal to "
+          f"the in-process sum, rank 0 {json.dumps(ranks[0])}, {gloo_s:.2f} s after their "
+          f"release; {smi}", flush=True)
+    return rec
+
 def main() -> int:
     import torch
 
@@ -2411,6 +2688,13 @@ def main() -> int:
     phase_start["15"] = time.perf_counter()
     record["other_edges"] = other_edges_phase(train_kw, smi)
 
+    # ---- phase 16: the distributed paths (NCCL at one rank, gloo at two) ----
+    phase_start["16"] = time.perf_counter()
+    dist_rec = distribution_phase(cli, smi, counted, check_launches,
+                                  OUT_DIR / "rand_spheres.png")
+    record["distribution"] = dist_rec
+    gloo0 = dist_rec["gloo_world2"]["ranks"][0]
+
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
@@ -2634,6 +2918,25 @@ def main() -> int:
                      f"({k5['ns']} spheres, {k5['nq']} quad)",
         },
     ]
+    # The sharded paths' launches (phase 16), each counted around its own run.
+    dl, gd = dist_rec["large_scene"]["shard"]["launches"], gloo0["dryrun"]
+    sharded = {
+        "closest_hit": dict(dryrun_scan_step_gloo_rank0=gd["scan_closest_hit_launches"]),
+        "closest_hit_clustered": dict(large_scene_nccl_one_rank=dl["closest_hit_clustered"]),
+        "persistent_render": dict(
+            shard_cli_nccl_one_rank=dist_rec["shard_cli"]["launches"]["persistent_render"],
+            gloo_render_per_rank=[r["render_launches"] for r in dist_rec["gloo_world2"]["ranks"]],
+            dryrun_regen_gloo_rank0=gd["regen_launches"],
+            dryrun_culled_gloo_rank0=gd["culled_launches"]),
+        "persistent_tape": dict(
+            sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["persistent_tape"],
+            dryrun_gloo_rank0=gd["tape_launches"]),
+        "culled_closest_hit": dict(large_scene_nccl_one_rank=dl["culled"]),
+        "wavefront_step": dict(wavefront_step_nccl_one_rank=dist_rec["wavefront_step"]["shard"][
+            "launches"]["wavefront_step"]),
+    }
+    for entry in kernels:
+        entry["sharded_launches"] = sharded[entry["name"]]
     names = list(phase_start)
     phase_s = {n: (phase_start[names[i + 1]] if i + 1 < len(names) else time.perf_counter())
                - phase_start[n] for i, n in enumerate(names)}
@@ -2652,4 +2955,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(int(sys.argv[2]), sys.argv[3], Path(sys.argv[4]))
+        sys.exit(0)
     sys.exit(main())

@@ -191,23 +191,93 @@ class PhaseClock:
         self.t = now
 
 
+def image_loss(img_sum, target, samples_per_pass: int):
+    """(loss, image cotangent (H, W, 3)) of the MSE between the image
+    img_sum / samples_per_pass (img_sum the (n_pixels, 3) radiance sums)
+    and `target` (H, W, 3)."""
+    img = (img_sum / float(samples_per_pass)).reshape(target.shape)
+    loss = torch.mean((img - target) ** 2)
+    return loss, 2.0 * (img - target) / float(img.numel())
+
+
+def lane_cotangent(ct_img, lane_samples: int, samples_per_pass: int):
+    """Per-lane cotangent (lane_samples * n_pixels, 3) of lanes whose lane
+    L belongs to pixel L mod n_pixels: each of a pixel's samples_per_pass
+    samples carries 1/samples_per_pass of its cotangent."""
+    n = ct_img.shape[0] * ct_img.shape[1]
+    return ct_img.reshape(n, 3).repeat(lane_samples, 1) / float(samples_per_pass)
+
+
+def lane_depths(tape):
+    """Each lane's replay depth min(last hit + 2, max_depth) from the tape
+    (max_depth, total)."""
+    max_depth = tape.shape[0]
+    rows = torch.arange(max_depth, dtype=torch.int32, device=tape.device)[:, None]
+    last_hit = torch.where(tape >= 0, rows, -1).max(dim=0).values
+    return torch.clamp(last_hit + 2, max=max_depth)
+
+
 def finish(radiance, tape, target, *, samples_per_pass: int):
     """From per-lane radiance (total, 3) and the tape (max_depth, total):
     (loss, per-lane cotangent (total, 3), lane depth (total,), image
     cotangent (H, W, 3)). Lane L belongs to pixel L mod n; each of the k
     samples of a pixel carries 1/k of its cotangent."""
     k = samples_per_pass
-    h, w, _ = target.shape
-    n = h * w
-    img = radiance.reshape(k, n, 3).mean(0).reshape(h, w, 3)
-    loss = torch.mean((img - target) ** 2)
-    ct_img = 2.0 * (img - target) / float(img.numel())
-    ct_lane = ct_img.reshape(n, 3).repeat(k, 1) / float(k)
-    max_depth = tape.shape[0]
-    rows = torch.arange(max_depth, dtype=torch.int32, device=tape.device)[:, None]
-    last_hit = torch.where(tape >= 0, rows, -1).max(dim=0).values
-    lane_depth = torch.clamp(last_hit + 2, max=max_depth)
-    return loss, ct_lane, lane_depth, ct_img
+    n = target.shape[0] * target.shape[1]
+    loss, ct_img = image_loss(radiance.reshape(k, n, 3).sum(0), target, k)
+    return loss, lane_cotangent(ct_img, k, k), lane_depths(tape), ct_img
+
+
+def tape_forward(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, total: int, *,
+                 width: int, height: int, max_depth: int, sky_gradient: bool, device):
+    """The tape forward, no autograd: one launch of the tape kernel (its
+    twin on the CPU) over `total` lanes of the scene and camera built from
+    `params`' values, seeded `seed`. Returns (radiance (total, 3), tape
+    (max_depth, total) int32)."""
+    with torch.no_grad():
+        detached = nest_like(params, [t.detach() for _, t in flat_leaves(params)])
+        scene, cam_p = _scene_and_camera(detached, rebuild, rebuild_camera, cam)
+        reason = unsupported_reason(scene)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        sph, quad, res = pack_persistent_tables(scene)
+        cam_s = pack_camera_scalars_bg(
+            camera_frame(cam_p, width, height), cam_p.background
+        ).to(device)
+        rad3, tape, _ = render_persistent_tape(
+            sph, quad, res, cam_s, seed, total, width=width, height=height,
+            max_depth=max_depth, sky_gradient=sky_gradient,
+            textures=texture_tables(scene, quad_derived(scene)),
+        )
+    return rad3.T, tape
+
+
+def replay_lanes(lane_depth, sky_gradient: bool, rebuild_camera):
+    """The lanes (sample ids) the replay traces: all of them, less those of
+    depth 1 where `_skip_depth1` holds."""
+    lanes = torch.arange(lane_depth.shape[0], device=lane_depth.device)
+    return lanes[lane_depth > 1] if _skip_depth1(sky_gradient, rebuild_camera) else lanes
+
+
+def replay_grads(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, tape, ct_lane,
+                 lanes, *, width: int, height: int, max_depth: int, sky_gradient: bool,
+                 clock=None):
+    """Gradients, nested like `params`, of `replay_loss` over `lanes`; the
+    replay's forward and backward are lapped on `clock` as
+    "replay_forward" and "backward"."""
+    leaves = [t for _, t in flat_leaves(params)]
+    scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
+    replay = replay_loss(
+        scene, cam_p, seed, tape, ct_lane, lanes,
+        width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
+    )
+    if clock is not None:
+        clock.lap("replay_forward")
+    grads = nest_like(params, torch.autograd.grad(replay, leaves, allow_unused=True)
+                      if replay.requires_grad else [None] * len(leaves))
+    if clock is not None:
+        clock.lap("backward")
+    return grads
 
 
 def replay_loss(scene, cam: Camera, seed: int, tape, ct_lane, lanes, *,
@@ -264,40 +334,20 @@ def make_bucketed_grad_fn(
     dev = target.device
     k = samples_per_pass
     total = k * width * height
+    shape_kw = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
+                    device=dev)
 
     def step(params, seed: int, timings=None):
         clock = PhaseClock(timings, dev)
+        rad, tape = tape_forward(params, rebuild, rebuild_camera, cam, seed, total, **shape_kw)
+        clock.lap("tape_forward")
         with torch.no_grad():
-            detached = nest_like(params, [t.detach() for _, t in flat_leaves(params)])
-            scene, cam_p = _scene_and_camera(detached, rebuild, rebuild_camera, cam)
-            reason = unsupported_reason(scene)
-            if reason is not None:
-                raise NotImplementedError(reason)
-            sph, quad, res = pack_persistent_tables(scene)
-            cam_s = pack_camera_scalars_bg(
-                camera_frame(cam_p, width, height), cam_p.background
-            ).to(dev)
-            rad3, tape, _ = render_persistent_tape(
-                sph, quad, res, cam_s, seed, total, width=width, height=height,
-                max_depth=max_depth, sky_gradient=sky_gradient,
-                textures=texture_tables(scene, quad_derived(scene)),
-            )
-            clock.lap("tape_forward")
-            loss, ct_lane, lane_depth, ct_img = finish(rad3.T, tape, target, samples_per_pass=k)
-            lanes = torch.arange(total, device=dev)
-            if _skip_depth1(sky_gradient, rebuild_camera):
-                lanes = lanes[lane_depth > 1]
-            clock.lap("loss_cotangent")
-        leaves = [t for _, t in flat_leaves(params)]
-        scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
-        replay = replay_loss(
-            scene, cam_p, seed, tape, ct_lane, lanes,
-            width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
-        )
-        clock.lap("replay_forward")
-        grads = nest_like(params, torch.autograd.grad(replay, leaves, allow_unused=True)
-                          if replay.requires_grad else [None] * len(leaves))
-        clock.lap("backward")
+            loss, ct_lane, lane_depth, ct_img = finish(rad, tape, target, samples_per_pass=k)
+            lanes = replay_lanes(lane_depth, sky_gradient, rebuild_camera)
+        clock.lap("loss_cotangent")
+        grads = replay_grads(params, rebuild, rebuild_camera, cam, seed, tape, ct_lane, lanes,
+                             width=width, height=height, max_depth=max_depth,
+                             sky_gradient=sky_gradient, clock=clock)
         if edge_image_fns:
             with torch.profiler.record_function("edges"):
                 edge = compose_edges(edge_image_fns, params, cam, seed, ct_img,

@@ -419,3 +419,100 @@ def cluster_scene(scene, max_leaf: int = 128, super_fan: int = 16,
     `cluster_order` applied by `permute_scene`."""
     order = cluster_order(scene, max_leaf, super_fan, min_fine_for_super, use_native)
     return permute_scene(scene, order), order.clusters
+
+
+def _slab_test(box_min, box_max, o, inv_d, t_min: float, t_max):
+    """Branchless slab test of each ray against its box (reference Aabb.Hit
+    / InBoundary, bvh.go:52-102, strict `rT.min < rT.max`); NaN reads as a
+    miss."""
+    t0 = (box_min - o) * inv_d
+    t1 = (box_max - o) * inv_d
+    tn = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=t_min)
+    tf = torch.minimum(t_max, torch.maximum(t0, t1).amin(dim=-1))
+    return tn < tf
+
+
+def _prim_t(scene, qd, p, o, d, t_min: float):
+    """Candidate t of global primitive ids `p` (spheres, then quads) for
+    rays (o, d), +inf where they miss (hittables.go:96-116, 167-194; strict
+    disc > 0 as the dense search, so exactly tangent rays miss)."""
+
+    def dot(a, b):
+        return (a * b).sum(dim=-1)
+
+    ns, nq = scene.num_spheres, scene.num_quads
+    si = torch.clamp(p, max=ns - 1)
+    oc = o - scene.sph_center[si]
+    r = scene.sph_radius[si]
+    a = dot(d, d)
+    half_b = dot(d, oc)
+    disc = half_b * half_b - a * (dot(oc, oc) - r * r)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    feas = (disc > 0.0) & (r != 0.0)
+    inf = torch.full_like(a, float("inf"))
+    ts0 = (-half_b - sq) / a
+    ts1 = (-half_b + sq) / a
+    t = torch.minimum(torch.where(feas & (ts0 > t_min), ts0, inf),
+                      torch.where(feas & (ts1 > t_min), ts1, inf))
+    if nq == 0:
+        return t
+    qi = torch.clamp(p - ns, 0, nq - 1)
+    nrm = qd.normal[qi]
+    dn = dot(d, nrm)
+    ok = dn.abs() >= 1e-8
+    tq = (qd.d[qi] - dot(o, nrm)) / torch.where(ok, dn, torch.ones_like(dn))
+    pt = o + tq[:, None] * d
+    alpha = dot(pt, qd.av[qi]) - qd.q_av[qi]
+    beta = dot(pt, qd.bv[qi]) - qd.q_bv[qi]
+    okq = (ok & (tq > t_min) & (alpha >= 0) & (alpha <= 1) & (beta >= 0) & (beta <= 1))
+    return torch.where(p >= ns, torch.where(okq, tq, inf), t)
+
+
+def bvh_closest_hit(scene, bvh: FlatBVH, origin, direction, t_min: float = 1e-3):
+    """Closest hit by the stackless skip-link traversal of `bvh` (port of
+    raytracer_tpu/geometry/bvh.py:bvh_closest_hit): every ray walks the
+    preorder nodes, a box hit advancing to the next node and a miss jumping
+    to the node's skip link, and tests the primitives of each leaf whose
+    box it hits, in leaf order (the first of equal t wins). Plain torch
+    on the rays' device, lock-step over the rays still walking; the
+    cross-check of the dense closest hit, on no render path. Returns (t
+    (N,) float32 with +inf on a miss, prim (N,) int32 with -1 on a miss),
+    the dense search's semantics."""
+    from raytracer_tpu_torch.geometry.intersect import quad_derived
+
+    dev = origin.device
+    n = origin.shape[0]
+    as_t = lambda x, dtype: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+    box_min, box_max = as_t(bvh.box_min, torch.float32), as_t(bvh.box_max, torch.float32)
+    skip, leaf_start = as_t(bvh.skip, torch.int64), as_t(bvh.leaf_start, torch.int64)
+    leaf_count, order = as_t(bvh.leaf_count, torch.int64), as_t(bvh.prim_order, torch.int64)
+    num_nodes = box_min.shape[0]
+    max_leaf = int(leaf_count.max()) if num_nodes else 0
+    qd = quad_derived(scene)
+    # A sign-preserving nudge of zero direction components: 1/0 = inf, and
+    # (box - o) * inf with o on the slab's plane is NaN, which reads as a
+    # miss; the nudge keeps the test conservative.
+    tiny = 1e-30
+    d = direction
+    inv_d = 1.0 / torch.where(d.abs() < tiny, torch.where(d < 0, -tiny, tiny), d)
+    t_best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    p_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    live = torch.arange(n, device=dev) if num_nodes else torch.zeros(0, dtype=torch.int64)
+    while live.numel():
+        nd = node[live]
+        hit_box = _slab_test(box_min[nd], box_max[nd], origin[live], inv_d[live], t_min,
+                             t_best[live])
+        leaf = live[hit_box & (leaf_start[nd] >= 0)]
+        start, cnt = leaf_start[node[leaf]], leaf_count[node[leaf]]
+        for j in range(max_leaf):
+            m = j < cnt
+            rays = leaf[m]
+            p = order[start[m] + j]
+            tc = _prim_t(scene, qd, p, origin[rays], direction[rays], t_min)
+            better = tc < t_best[rays]
+            t_best[rays] = torch.where(better, tc, t_best[rays])
+            p_best[rays] = torch.where(better, p, p_best[rays])
+        node[live] = torch.where(hit_box, nd + 1, skip[nd])
+        live = live[node[live] < num_nodes]
+    return t_best, p_best.to(torch.int32)

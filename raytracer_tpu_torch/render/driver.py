@@ -38,6 +38,7 @@ are not ported.
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -268,16 +269,81 @@ def path_wavefront(path: str, n_pixels: int, wavefront: int = DEFAULT_WAVEFRONT)
 
 def default_spp_chunk(scene: Scene, settings: RenderSettings, *,
                       wavefront: int = DEFAULT_WAVEFRONT,
-                      log_budget_bytes: int = LOG_BUDGET_BYTES) -> int:
+                      log_budget_bytes: int = LOG_BUDGET_BYTES, ranks: int = 1) -> int:
     """Samples per pixel of `render_image`'s chunks on `scene`'s path: the
-    large-scene path's passes (samples_per_pass_for), else the largest
-    chunk whose retirement log fits `log_budget_bytes` (spp_chunk_for)."""
+    large-scene path's passes (samples_per_pass_for, its ray target scaled
+    by `ranks`), else the largest chunk whose retirement log fits
+    `log_budget_bytes`, that budget holding each of `ranks` ranks' share of
+    the chunk (spp_chunk_for; a sharded render splits every chunk over its
+    ranks, parallel/shard.py)."""
     n_pix = settings.width * settings.height
     spp = settings.samples_per_pixel
     path = render_path(scene)
     if path == "large_scene":
-        return samples_per_pass_for(spp, n_pix, TARGET_RAYS_PER_PASS)
-    return spp_chunk_for(n_pix, spp, path_wavefront(path, n_pix, wavefront), log_budget_bytes)
+        return samples_per_pass_for(spp, n_pix, TARGET_RAYS_PER_PASS * ranks)
+    share = spp_chunk_for(n_pix, -(-spp // ranks), path_wavefront(path, n_pix, wavefront),
+                          log_budget_bytes)
+    return min(spp, share * ranks)
+
+
+class ChunkRenderer(NamedTuple):
+    """The tables of a render on the persistent or wavefront-step path,
+    packed once on the render device (`chunk_renderer`); `render` renders
+    one chunk of them."""
+
+    path: str
+    tables: tuple  # sphere, quad and primitive tables (pack_persistent_tables)
+    textures: object  # materials.packed.texture_tables
+    cam_scalars: torch.Tensor
+    clusters: object  # ops.persistent_kernel.ClusterTable, or None
+    width: int
+    height: int
+    wavefront: int  # lanes (path_wavefront)
+    max_depth: int
+    sky_gradient: bool
+
+    def render(self, spp: int, seed: int):
+        """(framebuffer (n_pixels, 3) radiance sums, segments per lane (N,)
+        int32, iterations) of `spp` samples per pixel under `seed`: one
+        kernel-2 launch on the persistent path (iterations 0), the kernel-5
+        loop on the wavefront-step path."""
+        kw = dict(width=self.width, height=self.height, spp=spp, wavefront_size=self.wavefront,
+                  max_depth=self.max_depth, sky_gradient=self.sky_gradient)
+        if self.path == "persistent":
+            fb, segs = render_wavefront_regen(*self.tables, self.cam_scalars, seed,
+                                              textures=self.textures, clusters=self.clusters,
+                                              **kw)
+            return fb, segs, 0
+        return render_wavefront_step(*self.tables, self.textures, self.cam_scalars, seed, **kw)
+
+
+def chunk_renderer(scene: Scene, cam: Camera, settings: RenderSettings, dev, *,
+                   wavefront: int = DEFAULT_WAVEFRONT, metrics=None,
+                   bilinear_stochastic: bool | None = None, clusters=None) -> ChunkRenderer:
+    """Pack `scene` for `render_chunks`' chunks on `dev` (persistent or
+    wavefront-step path): persistent scenes of more than
+    CLUSTERED_SCENE_PRIMS primitives are clustered first
+    (`cluster_for_render`; `metrics` records it). `clusters`, a
+    geometry.bvh.ClusterSet of a scene already in its cluster order (as
+    geometry.bvh.cluster_scene returns them), gives kernel 2 that table
+    instead, at any size."""
+    path = render_path(scene)
+    if path == "large_scene":
+        raise ValueError("the large-scene path renders in passes (_large_scene_chunks)")
+    w, h = settings.width, settings.height
+    cam_scalars = pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).to(dev)
+    if clusters is not None:
+        if path != "persistent":
+            raise ValueError(f"a cluster table needs the persistent path, not {path}")
+        clusters = pack_cluster_table(clusters, dev)
+    elif path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
+        scene, clusters = _clustered(scene, cam, dev, metrics)
+    scene = scene.to(dev)
+    textures = texture_tables(scene, quad_derived(scene),
+                              stochastic=path == "persistent" and bilinear_stochastic is not False)
+    return ChunkRenderer(path, pack_persistent_tables(scene), textures, cam_scalars, clusters,
+                         w, h, path_wavefront(path, w * h, wavefront), settings.max_depth,
+                         settings.sky_gradient)
 
 
 def render_chunks(
@@ -315,22 +381,13 @@ def render_chunks(
                                        start_chunk=start_chunk, progress=progress,
                                        metrics=metrics)
         return
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-    n_pix = w * h
-    frame = camera_frame(cam, w, h)
-    cam_scalars = pack_camera_scalars_bg(frame, cam.background).to(dev)
-    clusters = None
-    if path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
-        scene, clusters = _clustered(scene, cam, dev, metrics)
-    scene = scene.to(dev)
-    sph, quad, res = pack_persistent_tables(scene)
-    textures = texture_tables(scene, quad_derived(scene),
-                              stochastic=path == "persistent" and bilinear_stochastic is not False)
-    wavefront = path_wavefront(path, n_pix, wavefront)
-
+    spp = settings.samples_per_pixel
+    renderer = chunk_renderer(scene, cam, settings, dev, wavefront=wavefront, metrics=metrics,
+                              bilinear_stochastic=bilinear_stochastic)
     chunk = spp_per_chunk
     if metrics is not None:
-        n, num_slots, _ = strided_schedule(n_pix, chunk, wavefront)
+        n, num_slots, _ = strided_schedule(settings.width * settings.height, chunk,
+                                           renderer.wavefront)
         metrics.wavefront_lanes = n
         metrics.retirement_log_mb = 3 * num_slots * n * 4 / 2**20
     seg_parts = []
@@ -339,18 +396,8 @@ def render_chunks(
     done = min(spp, chunk_idx * chunk)
     while done < spp:
         step = min(chunk, spp - done)
-        kw = dict(width=w, height=h, spp=step, wavefront_size=wavefront,
-                  max_depth=settings.max_depth, sky_gradient=settings.sky_gradient)
-        if path == "persistent":
-            fb, segs = render_wavefront_regen(
-                sph, quad, res, cam_scalars, chunk_seed(seed, chunk_idx), textures=textures,
-                clusters=clusters, **kw
-            )
-        else:
-            fb, segs, it = render_wavefront_step(
-                sph, quad, res, textures, cam_scalars, chunk_seed(seed, chunk_idx), **kw
-            )
-            iters += it
+        fb, segs, it = renderer.render(step, chunk_seed(seed, chunk_idx))
+        iters += it
         seg_parts.append(segs)
         done += step
         if metrics is not None:
@@ -376,6 +423,7 @@ def render_image(
     seed: int = 0,
     wavefront: int = DEFAULT_WAVEFRONT,
     log_budget_bytes: int = LOG_BUDGET_BYTES,
+    regenerative: bool = True,
     progress: bool = False,
     metrics=None,
     bilinear_stochastic: bool | None = None,
@@ -384,6 +432,12 @@ def render_image(
     on `device`. CUDA runs the kernels; CPU runs their plain twins. The
     scene takes `render_path(scene)`; `wavefront` sizes the persistent
     path's lanes only. The spp budget runs in `render_chunks`' chunks.
+
+    regenerative=False renders in passes of k samples per pixel instead
+    (`render_pass`, k from samples_per_pass_for at TARGET_RAYS_PER_PASS
+    rays, pass p under chunk_seed(seed, p)): every lane traces one path to
+    its end through `trace`, with no russian roulette, whatever the
+    scene's path (the JAX driver's non-regenerative loop, driver.py:636-654).
 
     bilinear_stochastic (scenes with `bilinear_textures`, as in the JAX
     driver): None (default) filters images by the unbiased stochastic
@@ -405,26 +459,105 @@ def render_image(
     a clustered render also records its host clustering seconds, the BVH
     builder and the cluster table's section lengths."""
     dev = resolve_device(device)
-    w, h = settings.width, settings.height
+    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+    if not regenerative:
+        k = samples_per_pass_for(spp, w * h)
+        scene = scene.to(dev)
+        acc = torch.zeros(h, w, 3, dtype=torch.float32, device=dev)
+        for p in range(spp // k):
+            acc += render_pass(scene, cam, chunk_seed(seed, p), width=w, height=h,
+                               samples_per_pass=k, max_depth=settings.max_depth,
+                               sky_gradient=settings.sky_gradient)
+            if metrics is not None:
+                metrics.update((p + 1) * k)
+            if progress:
+                print(f"pass {p + 1}/{spp // k} ({(p + 1) * k}/{spp} spp)", flush=True)
+        return acc / float(spp)
     acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
     for _, _, fb in render_chunks(scene, cam, settings, device=dev, seed=seed,
                                   wavefront=wavefront, log_budget_bytes=log_budget_bytes,
                                   progress=progress, metrics=metrics,
                                   bilinear_stochastic=bilinear_stochastic):
         acc += fb
-    return (acc / float(settings.samples_per_pixel)).reshape(h, w, 3)
+    return (acc / float(spp)).reshape(h, w, 3)
+
+
+def sample_camera_rays(frame, seed: int, sample_ids, *, width: int, height: int):
+    """Camera rays of the global sample ids `sample_ids` (L,) int64: sample
+    id L is at pixel L mod (width*height), its uniforms the counter RNG's
+    under `seed`; (origin, direction) (L, 3) on the frame's device,
+    contiguous."""
+    pix = sample_ids % (width * height)
+    o, d = camera_rays(frame, pix % width, pix // width,
+                       ctr_rng.camera_uniforms(seed, sample_ids))
+    return o.contiguous(), d.contiguous()
 
 
 def pass_camera_rays(frame, seed: int, *, width: int, height: int, k: int):
-    """The camera rays of a large-scene pass of k samples per pixel: lane L
-    is sample id L at pixel L mod (width*height), its uniforms the counter
-    RNG's under the pass's seed; (origin, direction) (k * width * height, 3)
-    on the frame's device, contiguous."""
+    """The camera rays of a pass of k samples per pixel: lane L is sample
+    id L at pixel L mod (width*height), its uniforms the counter RNG's
+    under the pass's seed; (origin, direction) (k * width * height, 3) on
+    the frame's device, contiguous."""
+    sid = torch.arange(k * width * height, device=frame.center.device)
+    return sample_camera_rays(frame, seed, sid, width=width, height=height)
+
+
+def trace_samples(scene: Scene, cam: Camera, frame, seed: int, sample_ids, *, width: int,
+                  height: int, max_depth: int, sky_gradient: bool, intersect_fn=None,
+                  return_segments: bool = False):
+    """`trace` of the global sample ids `sample_ids` of a pass seeded `seed`:
+    a `range` (a contiguous block) or an (L,) int64 tensor. Camera rays
+    from `sample_camera_rays`, bounce uniforms the counter RNG's at each
+    lane's sample id (a range offsets the lanes, a tensor is gathered), no
+    russian roulette. The closest hit is trace's default (kernel 1 dense on
+    CUDA) unless `intersect_fn` is given. Returns radiance (L, 3) and, with
+    `return_segments`, segments (L,) int32. Lanes depend on their sample
+    ids alone, so any split of a pass's ids over ranks traces the same
+    per-lane values (parallel/shard.py)."""
+    dev = scene.sph_center.device
+    if isinstance(sample_ids, range):
+        start = sample_ids.start
+        sid = torch.arange(start, sample_ids.stop, device=dev)
+
+        def uniforms(bounce, lanes):
+            return ctr_rng.bounce_uniforms(seed, lanes + start if start else lanes, bounce)
+    else:
+        sid = sample_ids
+
+        def uniforms(bounce, lanes):
+            return ctr_rng.bounce_uniforms(seed, sid[lanes], bounce)
+    o, d = sample_camera_rays(frame, seed, sid, width=width, height=height)
+    return trace(scene, o, d, cam.background.to(dev), uniforms, max_depth=max_depth,
+                 sky_gradient=sky_gradient, return_segments=return_segments,
+                 intersect_fn=intersect_fn)
+
+
+def render_pass(scene: Scene, cam: Camera, seed: int, *, width: int, height: int,
+                samples_per_pass: int, max_depth: int, sky_gradient: bool) -> torch.Tensor:
+    """One pass (port of raytracer_tpu/render/driver.py:render_pass): every
+    pixel's radiance sum over `samples_per_pass` samples, (height, width,
+    3) on the scene's device. Lane L is sample id L at pixel L mod
+    (width*height) (`trace_samples`)."""
     n = width * height
-    sid = torch.arange(k * n, device=frame.center.device)
-    pix = sid % n
-    o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, sid))
-    return o.contiguous(), d.contiguous()
+    dev = scene.sph_center.device
+    frame = camera_frame(cam, width, height).to(dev)
+    rad = trace_samples(scene, cam, frame, seed, range(samples_per_pass * n), width=width,
+                        height=height, max_depth=max_depth, sky_gradient=sky_gradient)
+    return rad.reshape(samples_per_pass, n, 3).sum(0).reshape(height, width, 3)
+
+
+def large_scene_hit(tables):
+    """`trace`'s intersect_fn on a large-scene path's (ClusterTable, sphere
+    table, quad table): camera rays (bounce 0, coherent, in pixel order)
+    through the cluster-culled kernel 4, bounces through kernel 1's
+    clustered entry."""
+    clusters, sph, quad = tables
+
+    def hit_fn(scene, o, d, bounce, lanes):
+        hit = ck.intersect_culled if bounce == 0 else ik.intersect_clustered
+        return hit(clusters, sph, quad, o.contiguous(), d.contiguous())
+
+    return hit_fn
 
 
 def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, width: int,
@@ -432,27 +565,21 @@ def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, wi
     """One pass of the large-scene path over a cluster-ordered scene and its
     (ClusterTable, sphere table, quad table): k samples per pixel in one
     batch, lane L sample id L at pixel L mod (width*height), its camera and
-    bounce uniforms the counter RNG's under this pass's seed. Camera rays
-    (coherent, in pixel order) go through the cluster-culled kernel 4,
-    bounces through kernel 1's clustered entry; no russian roulette (the
-    JAX package's `trace`). Returns ((n_pixels, 3) radiance sum, segments
-    (k * n_pixels,) int32)."""
-    clusters, sph, quad = tables
-    dev = sph.device
+    bounce uniforms the counter RNG's under this pass's seed, the hits
+    `large_scene_hit`'s; no russian roulette (the JAX package's `trace`).
+    Returns ((n_pixels, 3) radiance sum, segments (k * n_pixels,) int32)."""
     n = width * height
-    o, d = pass_camera_rays(frame, seed, width=width, height=height, k=k)
-
-    def hit_fn(scene, o, d, bounce, lanes):
-        hit = ck.intersect_culled if bounce == 0 else ik.intersect_clustered
-        return hit(clusters, sph, quad, o.contiguous(), d.contiguous())
-
-    rad, segs = trace(
-        scene, o, d, cam.background.to(dev),
-        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
-        max_depth=max_depth, sky_gradient=sky_gradient, return_segments=True,
-        intersect_fn=hit_fn,
-    )
+    rad, segs = trace_samples(scene, cam, frame, seed, range(k * n), width=width, height=height,
+                              max_depth=max_depth, sky_gradient=sky_gradient,
+                              intersect_fn=large_scene_hit(tables), return_segments=True)
     return rad.reshape(k, n, 3).sum(0), segs
+
+
+def large_scene_tables(scene: Scene, cam: Camera, dev, metrics=None):
+    """(the cluster-ordered scene, its (ClusterTable, sphere table, quad
+    table)) of the large-scene path on `dev` (`_clustered`)."""
+    scene, clusters = _clustered(scene, cam, dev, metrics)
+    return scene, (clusters, *scene_tables(scene))
 
 
 def _large_scene_chunks(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
@@ -470,8 +597,7 @@ def _large_scene_chunks(scene: Scene, cam: Camera, settings: RenderSettings, *, 
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n = w * h
     dev = scene.sph_center.device
-    scene, clusters = _clustered(scene, cam, dev, metrics)
-    tables = (clusters, *scene_tables(scene))
+    scene, tables = large_scene_tables(scene, cam, dev, metrics)
     frame = camera_frame(cam, w, h).to(dev)
     if k is None:
         k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)

@@ -187,7 +187,10 @@ def test_port_imports_no_jax():
         "        'raytracer_tpu_torch.diff.opt_checkpoint', 'raytracer_tpu_torch.diff.shadow_edge',\n"
         "        'raytracer_tpu_torch.diff.mirror_edge', 'raytracer_tpu_torch.diff.refracted_edge',\n"
         "        'raytracer_tpu_torch.scripts.inverse_render_demo',\n"
-        "        'raytracer_tpu_torch.render.checkpoint'} <= set(names), names\n"
+        "        'raytracer_tpu_torch.render.checkpoint', 'raytracer_tpu_torch.parallel.mesh',\n"
+        "        'raytracer_tpu_torch.parallel.shard', 'raytracer_tpu_torch.parallel.train',\n"
+        "        'raytracer_tpu_torch.parallel.dryrun',\n"
+        "        'raytracer_tpu_torch.scripts.run_multihost'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('raytracer_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
