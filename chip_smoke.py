@@ -71,7 +71,16 @@ counters reset just before and read just after:
   5) at one rank bit-equal to the unsharded renders, and two gloo ranks
   as two processes on the one card (`--gloo-rank`): their sharded render
   bit-equal to the in-process sum of the ranks' partials, and
-  parallel/dryrun.py:dryrun_multichip(2, "cuda").
+  parallel/dryrun.py:dryrun_multichip(2, "cuda");
+* the measurement and self-check entry points (phase 17), each in a
+  process of its own as a user runs it: `python -m raytracer_tpu_torch.bench
+  --repeats 1` over every row (its last line must say "ok": true: every
+  row ran, finite, each render at least its camera rays in segments, each
+  row's kernels launched: kernel 2 on every render, kernel 3 on the
+  bucketed steps, kernel 1 on the scan steps and the edge traces), and
+  `python -m raytracer_tpu_torch.scripts.check_persistent` at its default
+  spp (exit 0: the sample counter, eight scenes and the 10K clustered
+  render agree statistically with their independent renders).
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -224,6 +233,11 @@ GLOO_SHAPE = dict(width=96, spp=8, max_depth=10)
 SHARD_ROUNDS = 2
 # Bytes of the main path's framebuffer all-reduce: 400x225 pixels x 3 float32.
 FRAMEBUFFER_SHAPE = (400 * 225, 3)
+
+# Phase 17: the time limits of the bench (every row, one timed run each)
+# and of the estimator self-check, each a process of its own.
+BENCH_TIMEOUT_S = 420
+CHECK_TIMEOUT_S = 300
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -2113,6 +2127,53 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
           f"release; {smi}", flush=True)
     return rec
 
+
+def run_entry_point(args: list, timeout: int, log: Path):
+    """(exit code, the last line parsed as JSON, seconds) of `python -m
+    args` run from the checkout's root; its standard output goes to `log`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    log.write_text(proc.stdout + proc.stderr)
+    try:
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"phase 17: {' '.join(args)} exited {proc.returncode} without a JSON last line; "
+             f"errors {proc.stderr[-3000:]}")
+    return proc.returncode, last, seconds
+
+
+def entry_points_phase(smi) -> dict:
+    """Phase 17: the bench over every row with one timed run each, then the
+    estimator self-check at its default spp (see the module docstring);
+    their output goes to OUT_DIR's bench.log and check_persistent.log."""
+    rc, bench, bench_s = run_entry_point(
+        ["raytracer_tpu_torch.bench", "--repeats", "1"], BENCH_TIMEOUT_S, OUT_DIR / "bench.log")
+    detail = bench.get("detail", {})
+    errors = {k: v["error"] for k, v in detail.items() if isinstance(v, dict) and "error" in v}
+    if rc != 0 or bench.get("ok") is not True or errors:
+        fail(f"phase 17: the bench exited {rc}, ok {bench.get('ok')}, faults "
+             f"{bench.get('faults')}")
+    rows = {name: {k: v for k, v in row.items()
+                   if k.endswith(("wall_s", "mrays_per_s")) and k != "cold_wall_s"}
+            for name, row in detail.items() if isinstance(row, dict) and "row_s" in row}
+    print(f"phase 17 bench (--repeats 1): headline {bench['value']:.2f} {bench['unit']} "
+          f"traced, wall {detail['wall_s']:.4f} s, vs_baseline {bench['vs_baseline']:.1f}; rows "
+          f"(walls and rates) {json.dumps(rows)}; "
+          f"card {json.dumps(bench['device'])}; {bench_s:.1f} s; {smi}", flush=True)
+    rc, check, check_s = run_entry_point(["raytracer_tpu_torch.scripts.check_persistent"],
+                                         CHECK_TIMEOUT_S, OUT_DIR / "check_persistent.log")
+    if rc != 0 or check.get("ok") is not True:
+        fail(f"phase 17: check_persistent exited {rc}: {json.dumps(check)}")
+    print(f"phase 17 check_persistent (spp {check['spp']}): "
+          f"{json.dumps({k: v['ok'] for k, v in check['scenes'].items()})}; {check_s:.1f} s",
+          flush=True)
+    return dict(bench_s=bench_s, headline=bench["value"], rows=rows, check_s=check_s,
+                check={k: {f: v[f] for f in ("ok", "mean_fast", "mean_independent", "std")
+                           if f in v} for k, v in check["scenes"].items()})
+
+
 def main() -> int:
     import torch
 
@@ -2694,6 +2755,10 @@ def main() -> int:
                                   OUT_DIR / "rand_spheres.png")
     record["distribution"] = dist_rec
     gloo0 = dist_rec["gloo_world2"]["ranks"][0]
+
+    # ---- phase 17: the bench and the estimator self-check ----
+    phase_start["17"] = time.perf_counter()
+    record["entry_points"] = entry_points_phase(smi)
 
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),

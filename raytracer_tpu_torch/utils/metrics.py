@@ -16,7 +16,9 @@ builder ("native" or "numpy") and the cluster table's section lengths
 `device_memory_stats`, `save_memory_profile` and `profiler_trace` serve the
 CLI's report, `--memory-profile` and `--profile`: the CUDA caching
 allocator's counters and live blocks stand where the JAX package reads the
-runtime's memory statistics and its live arrays.
+runtime's memory statistics and its live arrays. `card_identity` names the
+card and its power limit beside a measurement (bench.py,
+scripts/check_persistent.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 
@@ -126,6 +129,26 @@ def device_memory_stats(device=None) -> dict:
         "hbm_limit_mb": total / 2**20,
         "live_buffers_mb": live / 2**20,
     }
+
+
+def card_identity(device) -> dict:
+    """{"name", "power_limit_w", "nvidia_smi"} of the render's `device`:
+    torch's name for the card and its power limit in watts, parsed from
+    the line `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    prints for the first card (also returned whole). A card's limit may be
+    set below its maximum, and it then runs slower under load. On CUDA a
+    missing `nvidia-smi` or an unreadable limit raises; on the CPU the name
+    is "cpu" and the limit None."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit_w": None, "nvidia_smi": None}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    limit = smi.rsplit(",", 1)[1].strip()
+    if not limit.endswith(" W"):
+        raise ValueError(f"unreadable power limit in nvidia-smi's {smi!r}")
+    return {"name": torch.cuda.get_device_name(dev), "power_limit_w": float(limit[:-2]),
+            "nvidia_smi": smi}
 
 
 def save_memory_profile(path: str, device=None) -> bool:
