@@ -80,7 +80,16 @@ counters reset just before and read just after:
   bucketed steps, kernel 1 on the scan steps and the edge traces), and
   `python -m raytracer_tpu_torch.scripts.check_persistent` at its default
   spp (exit 0: the sample counter, eight scenes and the 10K clustered
-  render agree statistically with their independent renders).
+  render agree statistically with their independent renders);
+* large images (phase 18): the retirement-log fold of kernel 2's own logs
+  at the book render's 1200x800@125 and the headline's shape bit-equal to
+  the padded fold it replaced (`padded_fold`), both timed in turns, and
+  render_image's peak at 1200x800; rand_spheres at 3840x2160@64 through
+  render_image (its chunks, wall, segments and peak within the chunk
+  budget) and the CLI (a 3840x2160 PNG); the miss-only scene at 3840x2160
+  on the persistent and the wavefront-step paths, every pixel exactly its
+  samples' background sum; rng-table perlin at 3840x2160 through
+  render_image on the wavefront-step path (kernel 5).
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -238,6 +247,10 @@ FRAMEBUFFER_SHAPE = (400 * 225, 3)
 # and of the estimator self-check, each a process of its own.
 BENCH_TIMEOUT_S = 420
 CHECK_TIMEOUT_S = 300
+# Phase 18d: the wavefront-step path at 3840x2160, kept short (its epilogue
+# is PyTorch over 2^21 lanes an iteration).
+LARGE_STEP_SPP = 2
+LARGE_STEP_DEPTH = 8
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -1339,7 +1352,7 @@ def checkpoint_phase(cli, smi):
     saves after each chunk and stops after CHECKPOINT_FIRST_CHUNKS chunks,
     its resumption to the end, and an uninterrupted render: the resumed
     image bit-equal to the uninterrupted one, kernel 2's launches
-    2 + 3 and 5. render_image at as many chunks (a log budget that gives
+    2 + 3 and 5. render_image at as many chunks (a chunk budget that gives
     it five, each of the largest size that fits: 101 spp, the last 96) and
     the checkpointed render without and with saves are timed in turns,
     three of each, and the saver thread's seconds a save are read. Last,
@@ -1353,7 +1366,7 @@ def checkpoint_phase(cli, smi):
     from raytracer_tpu_torch.render import checkpoint as ckpt
     from raytracer_tpu_torch.render.driver import (
         DEFAULT_WAVEFRONT,
-        log_bytes,
+        chunk_bytes,
         render_image,
         spp_chunk_for,
     )
@@ -1416,14 +1429,14 @@ def checkpoint_phase(cli, smi):
                  f"{int((resumed != full).sum())} values")
         if not torch.equal(resumed, first):
             fail("phase 11: the resumed image differs from the first uninterrupted render")
-        # Walls in turns: render_image at a log budget that gives it as
+        # Walls in turns: render_image at a chunk budget that gives it as
         # many chunks (its own chunk size: the largest that fits), the
         # checkpointed render without a path (the chunk loop alone) and
         # with one (a host copy and a save after every chunk).
-        budget = log_bytes(n_pix, CHECKPOINT_CHUNK, DEFAULT_WAVEFRONT)
+        budget = chunk_bytes(n_pix, CHECKPOINT_CHUNK, DEFAULT_WAVEFRONT)
         ri_chunk = spp_chunk_for(n_pix, st.samples_per_pixel, DEFAULT_WAVEFRONT, budget)
         if -(-st.samples_per_pixel // ri_chunk) != chunks:
-            fail(f"phase 11: the log budget gives render_image chunks of {ri_chunk} spp")
+            fail(f"phase 11: the chunk budget gives render_image chunks of {ri_chunk} spp")
         walls = {"render_image": [], "chunks_no_saves": [], "checkpointed": []}
         saves.clear()
         for rep in range(3):
@@ -2174,6 +2187,254 @@ def entry_points_phase(smi) -> dict:
                            if f in v} for k, v in check["scenes"].items()})
 
 
+def padded_fold(log, num_slots, n, n_pixels, jump):
+    """The retirement-log fold as it was before it took the log in place:
+    the whole log padded to whole chunks of n_pixels lanes, chunk-summed
+    into a (3, K, n_pixels) copy, each slot rolled into the framebuffer.
+    Phase 18's reference: integrator/wavefront.py:_fold_log must equal it
+    bit for bit."""
+    import torch
+
+    chunks = -(-n // n_pixels)
+    log = torch.nn.functional.pad(log, (0, chunks * n_pixels - n))
+    per_slot = log.reshape(3, num_slots, chunks, n_pixels).sum(dim=2)
+    fb = torch.zeros(n_pixels, 3, dtype=log.dtype, device=log.device)
+    for k in range(num_slots):
+        fb = fb + torch.roll(per_slot[:, k, :].T, (k * jump) % n_pixels, dims=0)
+    return fb
+
+
+def peak_above(fn):
+    """(fn(), seconds by the host clock ended by a device sync, the
+    allocator's peak during fn above what was allocated before it, in
+    MiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def miss_only(width, spp):
+    """tests/test_torch_integrator.py's miss-only scene at `width` x
+    width*9/16: no geometry, so every sample is the background (0.2, 0.4,
+    0.6), at depth 8. Returns (scene, camera, settings)."""
+    from raytracer_tpu_torch.core.camera import make_camera
+    from raytracer_tpu_torch.geometry.scene import SceneBuilder
+
+    b = SceneBuilder(0)
+    b.lambertian((0.5, 0.5, 0.5))
+    cam, st = make_camera(16 / 9, width, samples_per_pixel=spp, max_depth=8,
+                          background=(0.2, 0.4, 0.6), look_from=(0, 0, 2), look_at=(0, 0, 0))
+    return b.build(), cam, st
+
+
+def exact_miss_sums(fb, background, spp):
+    """Whether every pixel of the (P, 3) sums `fb` is the background added
+    spp times in float32, as the fold adds a pixel's slots one by one."""
+    import torch
+
+    want = torch.zeros(3, dtype=torch.float32, device=fb.device)
+    for _ in range(spp):
+        want = want + background.to(fb.device)
+    return bool((fb == want).all())
+
+
+def large_image_phase(cli, smi) -> dict:
+    """Phase 18: large images on the card, the retirement-log fold at the
+    sizes where it outgrew the card.
+
+    a. one_weekend_final at the bench row's 1200x800@125 (fewer lanes than
+       pixels) and the headline's rand_spheres 400x225@500 (more): one
+       kernel-2 call each, its log folded by `_fold_log` and by
+       `padded_fold`, torch.equal; each fold's wall and peak in turns,
+       padded / new / new / padded; then render_image at 1200x800@125,
+       its peak above what was allocated before it.
+    b. rand_spheres at 3840x2160@64, depth 50, 2^18 lanes, through
+       render_image: chunks (kernel-2 launches), wall, segments, peak;
+       finite, segments >= camera rays, the peak within LOG_BUDGET_BYTES,
+       two more framebuffers (the sum and the previous chunk's), the fold's
+       scratch, the tables and the lanes' schedule and segments. The CLI
+       at that size: its PNG 3840x2160.
+    c. the miss-only scene at 3840x2160, 3 spp, 2^18 lanes (the wavefront
+       32x smaller than the image) through render_wavefront_regen: every
+       pixel exactly the background added 3 times, segments = P * spp.
+    d. the wavefront-step path at 3840x2160: the miss-only scene through
+       render_wavefront_step at its 2^21 lanes, exact as in (c); then
+       phase 10's rng-table perlin at 2 spp, depth 8, through render_image:
+       finite, segments >= camera rays, its wall and peak."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.ops import wavefront_kernel as wk
+    from raytracer_tpu_torch.render import driver
+    from raytracer_tpu_torch.scenes.registry import get_scene
+    from raytracer_tpu_torch.utils.metrics import RenderMetrics
+
+    rec = {}
+    # (a) the fold against the padded fold on kernel 2's own logs.
+    folds = {}
+    for label, name, kw in (("one_weekend_1200x800", "one_weekend_final", dict(spp=125)),
+                            ("headline", "rand_spheres", {})):
+        scene, cam, st = get_scene(name, **kw)
+        kernel, _, _ = persistent_pair(scene, cam, st, driver.DEFAULT_WAVEFRONT, seed=0)
+        log, _ = kernel()
+        n_pix = st.width * st.height
+        n, num_slots, jump = wf.strided_schedule(n_pix, st.samples_per_pixel,
+                                                 driver.DEFAULT_WAVEFRONT)
+        args = (log, num_slots, n, n_pix, jump)
+        turns = {"padded": [], "fold": []}
+        peaks = {}
+        for which in ("padded", "fold", "fold", "padded"):
+            fn = padded_fold if which == "padded" else wf._fold_log
+            out, wall, peak = peak_above(lambda: fn(*args))
+            turns[which].append(wall)
+            peaks[which] = peak
+            if which == "padded":
+                ref = out
+            else:
+                got = out
+            del out
+        if not torch.equal(got, ref):
+            fail(f"phase 18a {label}: the fold differs from the padded fold on "
+                 f"{int((got != ref).sum())} values")
+        folds[label] = dict(size=[st.width, st.height], spp=st.samples_per_pixel, lanes=n,
+                            slots=num_slots, log_mb=log.numel() * 4 / 2**20,
+                            bit_equal=True, padded_s=turns["padded"], fold_s=turns["fold"],
+                            padded_peak_mb=peaks["padded"], fold_peak_mb=peaks["fold"])
+        del log, got, ref
+        print(f"phase 18a fold of kernel 2's log, {name} {st.width}x{st.height}@"
+              f"{st.samples_per_pixel} ({n} lanes, {n_pix} pixels, {num_slots} slots): "
+              f"bit-equal to the padded fold; walls in turns padded / fold / fold / padded "
+              f"{turns['padded'][0]:.4f} / {turns['fold'][0]:.4f} / {turns['fold'][1]:.4f} / "
+              f"{turns['padded'][1]:.4f} s; peak above the log padded "
+              f"{peaks['padded']:.1f} MiB, fold {peaks['fold']:.1f} MiB; {smi}", flush=True)
+    scene, cam, st = get_scene("one_weekend_final", spp=125)
+    pk.LAUNCHES = 0
+    img, wall, peak = peak_above(lambda: driver.render_image(scene, cam, st, device="cuda",
+                                                             seed=0))
+    max_mb = torch.cuda.max_memory_allocated() / 2**20
+    if pk.LAUNCHES != 1 or not bool(torch.isfinite(img).all()):
+        fail(f"phase 18a: render_image at 1200x800@125 launched kernel 2 {pk.LAUNCHES} times")
+    del img
+    rec["fold"] = dict(folds, render_image_1200x800=dict(wall_s=wall, peak_mb=peak,
+                                                         max_memory_allocated_mb=max_mb,
+                                                         launches=1))
+    print(f"phase 18a render_image one_weekend_final 1200x800@125: wall {wall:.4f} s, peak "
+          f"{peak:.1f} MiB above what was allocated before (max_memory_allocated {max_mb:.1f} "
+          f"MiB; 11,497 on the bench row with the padded fold); {smi}", flush=True)
+
+    # (b) 3840x2160@64 on the persistent path, through render_image and the CLI.
+    scene, cam, st = get_scene("rand_spheres", width=3840, spp=64)
+    n_pix = st.width * st.height
+    if (st.width, st.height, st.max_depth) != (3840, 2160, 50):
+        fail(f"phase 18b: rand_spheres at width 3840 renders at {st}")
+    chunk = driver.default_spp_chunk(scene, st)
+    n, num_slots, _ = wf.strided_schedule(n_pix, chunk, driver.DEFAULT_WAVEFRONT)
+    chunks = -(-st.samples_per_pixel // chunk)
+    metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=n_pix)
+    pk.LAUNCHES = 0
+    img, wall, peak = peak_above(lambda: driver.render_image(scene, cam, st, device="cuda",
+                                                             seed=0, metrics=metrics))
+    tables = sum(t.numel() * t.element_size()
+                 for t in pk.pack_persistent_tables(scene.to("cuda")))
+    bound = (driver.LOG_BUDGET_BYTES + 2 * 12 * n_pix + wf.fold_scratch_bytes(num_slots, n, n_pix)
+             + tables + 16 * n * chunks) / 2**20
+    segs, cam_rays = metrics.traced_segments, n_pix * st.samples_per_pixel
+    finite = bool(torch.isfinite(img).all())
+    del img
+    if not (finite and pk.LAUNCHES == chunks and segs >= cam_rays and peak <= bound):
+        fail(f"phase 18b: finite {finite}, launches {pk.LAUNCHES} for {chunks} chunks, segments "
+             f"{segs} for {cam_rays} camera rays, peak {peak:.1f} MiB against {bound:.1f}")
+    out_png = OUT_DIR / "rand_spheres_3840x2160.png"
+    pk.LAUNCHES = 0
+    rep = cli.main(["--scene", "rand_spheres", "--width", "3840", "--spp", "64",
+                    "--out", str(out_png)])
+    with Image.open(out_png) as im:
+        png_size = im.size
+    if png_size != (3840, 2160) or pk.LAUNCHES != chunks or rep["traced_segments"] != segs:
+        fail(f"phase 18b: the CLI wrote a {png_size} PNG with {pk.LAUNCHES} kernel-2 launches, "
+             f"{rep['traced_segments']} segments (render_image {segs})")
+    rec["persistent_3840x2160"] = dict(
+        spp_chunk=chunk, chunks=chunks, launches=chunks, wall_s=wall, segments=segs,
+        camera_rays=cam_rays, traced_mrays_per_s=segs / wall / 1e6, peak_mb=peak,
+        peak_bound_mb=bound, retirement_log_mb=metrics.retirement_log_mb,
+        cli=dict(wall_s=rep["wall_s"], peak_hbm_mb=rep.get("peak_hbm_mb"), png=list(png_size)))
+    print(f"phase 18b rand_spheres 3840x2160@64 depth 50 via render_image, "
+          f"{driver.DEFAULT_WAVEFRONT} lanes: {chunks} chunks of {chunk} spp (log "
+          f"{metrics.retirement_log_mb:.1f} MiB), wall {wall:.4f} s, {segs} segments "
+          f"({segs / wall / 1e6:.1f} Mrays/s traced), peak {peak:.1f} MiB (bound {bound:.1f}); the "
+          f"CLI {rep['wall_s']:.4f} s, PNG {png_size[0]}x{png_size[1]}; {smi}", flush=True)
+
+    # (c), (d): exact accounting at 3840x2160 on both regenerative paths.
+    scene, cam, st = miss_only(3840, 3)
+    n_pix, spp = st.width * st.height, st.samples_per_pixel
+    sc = scene.to("cuda")
+    tables = pk.pack_persistent_tables(sc)
+    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, st.width, st.height),
+                                      cam.background).cuda()
+    kw = dict(width=st.width, height=st.height, spp=spp, max_depth=st.max_depth)
+    exact = {}
+    for label, lanes in (("persistent", driver.DEFAULT_WAVEFRONT),
+                         ("wavefront_step", driver.path_wavefront("wavefront_step", n_pix))):
+        pk.LAUNCHES = wk.LAUNCHES = 0
+        if label == "persistent":
+            (fb, segs), wall, peak = peak_above(lambda: wf.render_wavefront_regen(
+                *tables, cam_s, 3, wavefront_size=lanes, **kw))
+            launched = pk.LAUNCHES
+        else:
+            (fb, segs, _), wall, peak = peak_above(lambda: wf.render_wavefront_step(
+                *tables, None, cam_s, 3, wavefront_size=lanes, **kw))
+            launched = wk.LAUNCHES
+        ok = exact_miss_sums(fb, cam.background, spp)
+        total = int(segs.sum())
+        del fb
+        if not (ok and total == n_pix * spp and launched > 0):
+            fail(f"phase 18{'c' if label == 'persistent' else 'd'} miss-only 3840x2160@{spp} "
+                 f"on the {label} path, {lanes} lanes: exact {ok}, segments {total} for "
+                 f"{n_pix * spp} samples, launches {launched}")
+        exact[label] = dict(lanes=lanes, exact=ok, segments=total, launches=launched,
+                            wall_s=wall, peak_mb=peak)
+        print(f"phase 18{'c' if label == 'persistent' else 'd'} miss-only 3840x2160@{spp} on "
+              f"the {label} path, {lanes} lanes ({n_pix / lanes:.1f} pixels a lane): every "
+              f"pixel exactly {spp} x background, {total} segments = P * spp, {launched} "
+              f"launches, wall {wall:.4f} s, peak {peak:.1f} MiB; {smi}", flush=True)
+    rec["exact_3840x2160"] = exact
+    scene, cam, st = get_scene("perlin", procedural_perlin=False, width=3840,
+                               spp=LARGE_STEP_SPP, max_depth=LARGE_STEP_DEPTH)
+    n_pix = st.width * st.height
+    metrics = RenderMetrics(total_spp=st.samples_per_pixel, pixels=n_pix)
+    wk.LAUNCHES = 0
+    img, wall, peak = peak_above(lambda: driver.render_image(scene, cam, st, device="cuda",
+                                                             seed=0, metrics=metrics))
+    finite = bool(torch.isfinite(img).all())
+    mean = img.clamp(0.0, 1.0).mean((0, 1)).cpu().numpy()
+    del img
+    segs, cam_rays = metrics.traced_segments, n_pix * st.samples_per_pixel
+    if not (driver.render_path(scene) == "wavefront_step" and finite and segs >= cam_rays
+            and wk.LAUNCHES > 0):
+        fail(f"phase 18d: rng-table perlin 3840x2160: path {driver.render_path(scene)}, finite "
+             f"{finite}, segments {segs} for {cam_rays} camera rays, launches {wk.LAUNCHES}")
+    rec["wavefront_step_3840x2160"] = dict(
+        spp=st.samples_per_pixel, max_depth=st.max_depth, wall_s=wall, peak_mb=peak,
+        segments=segs, launches=wk.LAUNCHES, iterations=metrics.snapshot().get("iterations"),
+        linear_mean=np.asarray(mean).round(4).tolist())
+    print(f"phase 18d rng-table perlin 3840x2160@{st.samples_per_pixel} depth {st.max_depth} via "
+          f"render_image ({driver.path_wavefront('wavefront_step', n_pix)} lanes): wall "
+          f"{wall:.4f} s, {segs} segments, {wk.LAUNCHES} kernel-5 launches, peak {peak:.1f} MiB, "
+          f"linear mean {np.asarray(mean).round(4).tolist()}; {smi}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2760,6 +3021,11 @@ def main() -> int:
     phase_start["17"] = time.perf_counter()
     record["entry_points"] = entry_points_phase(smi)
 
+    # ---- phase 18: large images, the retirement-log fold ----
+    phase_start["18"] = time.perf_counter()
+    large_img = large_image_phase(cli, smi)
+    record["large_images"] = large_img
+
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
@@ -2919,6 +3185,7 @@ def main() -> int:
             "culled": k2_culled,
             "checkpointed": {k: ckpt_rec[k] for k in ("launches", "walls_in_turns",
                                                        "saver_s_per_save")},
+            "launches_3840x2160": large_img["persistent_3840x2160"]["launches"],
         },
         {
             "name": "persistent_tape",
@@ -2981,6 +3248,7 @@ def main() -> int:
             "library_ms": None,
             "shape": f"perlin 400x225@100spp first iteration, {k5s['lanes']} lanes "
                      f"({k5['ns']} spheres, {k5['nq']} quad)",
+            "launches_3840x2160": large_img["wavefront_step_3840x2160"]["launches"],
         },
     ]
     # The sharded paths' launches (phase 16), each counted around its own run.

@@ -59,6 +59,13 @@ from raytracer_tpu_torch.utils.metrics import WARP
 # persistent path caps at 0.75.
 STEP_RR_HI = 0.95
 
+# Bound of the fold's scratch when the wavefront outnumbers the pixels: a
+# chunk then holds its log, its framebuffer and this much more, whatever
+# its slots and pixels (render/driver.py counts all three in its budget).
+# 64 MiB is 3% of that budget, and at the headline's 90,000 pixels it
+# still takes 15 slots a group, so the pad and the sum are not per slot.
+FOLD_SCRATCH_BYTES = 64 << 20
+
 
 def sky_color(direction):
     """Lerp sky: white -> (0.5, 0.7, 1.0) on the unit direction's y (the
@@ -504,17 +511,62 @@ def _bounce_and_retire(
     log[:, sk_a[fin].long(), a[fin]] = rad_a[fin].T
 
 
+def _fold_group(num_slots: int, n: int, n_pixels: int) -> int:
+    """Slots `_fold_log` pads and chunk-sums at once when n > n_pixels: as
+    many as keep the padded group and its chunk sums within
+    FOLD_SCRATCH_BYTES, at least one."""
+    chunks = -(-n // n_pixels)
+    return max(1, min(num_slots, FOLD_SCRATCH_BYTES // (12 * n_pixels * (chunks + 1))))
+
+
+def fold_scratch_bytes(num_slots: int, n: int, n_pixels: int) -> int:
+    """Device bytes `_fold_log` allocates beside the log and the
+    framebuffer: none when n <= n_pixels, else one group's padded slots and
+    their chunk sums, and one rolled slot."""
+    if n <= n_pixels:
+        return 0
+    chunks = -(-n // n_pixels)
+    return 12 * n_pixels * ((chunks + 1) * _fold_group(num_slots, n, n_pixels) + 1)
+
+
+def _add_wrapped(fb, src, off: int):
+    """fb[(off + i) mod P] += src[:, i] for every column i of the (3, m)
+    `src`, m <= P = fb's rows: one run of pixels, or two where it wraps."""
+    m = src.shape[1]
+    a = min(m, fb.shape[0] - off)
+    fb[off : off + a].add_(src[:, :a].T)
+    if a < m:
+        fb[: m - a].add_(src[:, a:].T)
+
+
 def _fold_log(log, num_slots: int, n: int, n_pixels: int, jump: int):
     """Fold the (3, K, N) retirement log into the (n_pixels, 3) framebuffer:
-    slot k of lane L is pixel (L + k*jump) mod n_pixels, so chunk-sum lanes
-    modulo n_pixels, then rotate each slot by its constant offset."""
-    chunks = -(-n // n_pixels)
-    pad = chunks * n_pixels - n
-    log = torch.nn.functional.pad(log, (0, pad))
-    per_slot = log.reshape(3, num_slots, chunks, n_pixels).sum(dim=2)  # (3, K, P)
+    slot k of lane L is pixel (L + k*jump) mod n_pixels. With N <= n_pixels
+    each slot's lanes land on one run of pixels (two where it wraps) and
+    are added there in place. With more lanes than pixels the lanes are
+    first chunk-summed modulo n_pixels, a group of slots at a time
+    (`_fold_group`: the group padded to whole chunks), and each slot's sum
+    is rolled into place (one roll and one add a slot: most slots wrap).
+    Each pixel takes its slots in ascending k, each slot's chunk sum over
+    the same axis as a whole-log sum, so the framebuffer is that of
+    padding the whole log, summing its chunks and rolling each slot into
+    place, bit for bit, in FOLD_SCRATCH_BYTES and one slot of scratch
+    (`fold_scratch_bytes`)."""
     fb = torch.zeros(n_pixels, 3, dtype=log.dtype, device=log.device)
-    for k in range(num_slots):
-        fb = fb + torch.roll(per_slot[:, k, :].T, (k * jump) % n_pixels, dims=0)
+    if n <= n_pixels:
+        for k in range(num_slots):
+            _add_wrapped(fb, log[:, k, :], (k * jump) % n_pixels)
+        return fb
+    chunks = -(-n // n_pixels)
+    group = _fold_group(num_slots, n, n_pixels)
+    for k0 in range(0, num_slots, group):
+        k1 = min(num_slots, k0 + group)
+        padded = torch.nn.functional.pad(log[:, k0:k1, :], (0, chunks * n_pixels - n))
+        per_slot = padded.reshape(3, k1 - k0, chunks, n_pixels).sum(dim=2)  # (3, G, P)
+        del padded
+        for k in range(k0, k1):
+            fb.add_(torch.roll(per_slot[:, k - k0, :].T, (k * jump) % n_pixels, dims=0))
+        del per_slot  # before the next group's pad, so one group is live at a time
     return fb
 
 

@@ -30,8 +30,9 @@ scenes).
 The TPU's VMEM slot model (regen_max_slots), its gather-band wavefront
 heuristic (pick_wavefront) and its tile rounding do not apply: the
 wavefront size is chosen to fill the GPU, and the spp budget is chunked
-only when the (3, K, N) float32 log would pass `log_budget_bytes` of
-device memory. JAX's RT_CLUSTER_LEAF / RT_CLUSTER_FAN probing overrides
+only when what a chunk holds on the device (`chunk_bytes`: its (3, K, N)
+float32 log, its framebuffer and the fold's scratch) would pass
+`log_budget_bytes`. JAX's RT_CLUSTER_LEAF / RT_CLUSTER_FAN probing overrides
 are not ported.
 """
 
@@ -54,6 +55,7 @@ from raytracer_tpu_torch.geometry.bvh import (
 from raytracer_tpu_torch.geometry.intersect import quad_derived, scene_tables
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.integrator.wavefront import (
+    fold_scratch_bytes,
     render_wavefront_regen,
     render_wavefront_step,
     strided_schedule,
@@ -78,8 +80,10 @@ from raytracer_tpu_torch.utils.metrics import warp_slots
 # 132 SMs. At the main path's shape 2^17 measured 4% slower and 2^19 3.5%
 # faster (PERF.md, PR 1 findings).
 DEFAULT_WAVEFRONT = 1 << 18
-# Device-memory budget of one chunk's retirement log. rand_spheres at
-# 400x225@500spp needs 3 * 172 slots * 2^18 lanes * 4 B = 541 MB: one chunk.
+# Device-memory budget of one chunk: its retirement log, framebuffer and
+# fold scratch (`chunk_bytes`). rand_spheres at 400x225@500spp needs a
+# 3 * 172 slots * 2^18 lanes * 4 B = 541 MB log, a 1 MB framebuffer and
+# 66 MB of fold scratch: one chunk. At 3840x2160 a chunk is 20 spp.
 LOG_BUDGET_BYTES = 2 << 30
 # Scenes the persistent kernel does not serve take the large-scene path
 # above this many primitives (raytracer_tpu/render/driver.py:41).
@@ -107,14 +111,25 @@ CLUSTER_OVERSIZE = OVERSIZE_FACTOR
 
 
 def log_bytes(n_pixels: int, spp: int, wavefront: int) -> int:
+    """Bytes of the (3, K, N) float32 retirement log of a chunk of `spp`."""
     n, num_slots, _ = strided_schedule(n_pixels, spp, wavefront)
     return 3 * num_slots * n * 4
 
 
+def chunk_bytes(n_pixels: int, spp: int, wavefront: int) -> int:
+    """Device bytes a chunk of `spp` samples per pixel holds: its
+    retirement log, its (n_pixels, 3) framebuffer and the fold's scratch
+    (integrator/wavefront.py:fold_scratch_bytes)."""
+    n, num_slots, _ = strided_schedule(n_pixels, spp, wavefront)
+    return (log_bytes(n_pixels, spp, wavefront) + 12 * n_pixels
+            + fold_scratch_bytes(num_slots, n, n_pixels))
+
+
 def spp_chunk_for(n_pixels: int, spp: int, wavefront: int, budget: int) -> int:
-    """Largest samples-per-pixel chunk whose retirement log fits `budget`."""
+    """Largest samples-per-pixel chunk whose device memory (`chunk_bytes`)
+    fits `budget`; 1 when none does."""
     chunk = min(spp, max(1, budget // (12 * n_pixels)))
-    while chunk > 1 and log_bytes(n_pixels, chunk, wavefront) > budget:
+    while chunk > 1 and chunk_bytes(n_pixels, chunk, wavefront) > budget:
         chunk -= 1
     return chunk
 
@@ -272,10 +287,10 @@ def default_spp_chunk(scene: Scene, settings: RenderSettings, *,
                       log_budget_bytes: int = LOG_BUDGET_BYTES, ranks: int = 1) -> int:
     """Samples per pixel of `render_image`'s chunks on `scene`'s path: the
     large-scene path's passes (samples_per_pass_for, its ray target scaled
-    by `ranks`), else the largest chunk whose retirement log fits
-    `log_budget_bytes`, that budget holding each of `ranks` ranks' share of
-    the chunk (spp_chunk_for; a sharded render splits every chunk over its
-    ranks, parallel/shard.py)."""
+    by `ranks`), else the largest chunk whose device memory (log,
+    framebuffer, fold scratch) fits `log_budget_bytes`, that budget holding
+    each of `ranks` ranks' share of the chunk (spp_chunk_for; a sharded
+    render splits every chunk over its ranks, parallel/shard.py)."""
     n_pix = settings.width * settings.height
     spp = settings.samples_per_pixel
     path = render_path(scene)

@@ -23,7 +23,12 @@ from raytracer_tpu_torch.diff.opt_checkpoint import (
 )
 from raytracer_tpu_torch.geometry.scene import SceneBuilder
 from raytracer_tpu_torch.render import checkpoint as pckpt
-from raytracer_tpu_torch.render.driver import render_image, render_path
+from raytracer_tpu_torch.render.driver import (
+    chunk_bytes,
+    path_wavefront,
+    render_image,
+    render_path,
+)
 from raytracer_tpu_torch.scenes.registry import get_scene
 
 torch.set_num_threads(1)
@@ -76,7 +81,8 @@ def test_uninterrupted_equals_render_image(path):
     kw = dict(seed=5, device="cpu")
     assert torch.equal(pckpt.render_with_checkpoints(scene, cam, settings, **kw),
                        render_image(scene, cam, settings, **kw))
-    budget = 3 * settings.width * settings.height * 4 * 3  # about 3 spp a chunk
+    n_pix = settings.width * settings.height
+    budget = chunk_bytes(n_pix, 3, path_wavefront(path, n_pix))  # 3 spp a chunk
     assert torch.equal(
         pckpt.render_with_checkpoints(scene, cam, settings, log_budget_bytes=budget, **kw),
         render_image(scene, cam, settings, log_budget_bytes=budget, **kw))

@@ -5,6 +5,8 @@ tests/test_ktape.py pins to the Pallas kernel), the retirement-log fold, the
 strided schedule, and the exact-accounting invariants of
 tests/test_persistent_kernel.py."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,16 +159,141 @@ def test_port_trace_matches_jax_trace_sky_gradient():
     assert_radiance_close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n,n_pix,spp", [(1000, 1500, 4), (4096, 1024, 6), (777, 100, 9)])
+@pytest.mark.parametrize("n,n_pix,spp", [(1000, 1500, 4), (4096, 1024, 6), (777, 100, 9),
+                                         (300, 2000, 3), (500, 997, 4), (2000, 997, 5)])
 def test_fold_log_matches_jax(n, n_pix, spp):
-    """Random log; wavefront smaller than, a multiple of, and coprime to the
-    pixel count."""
+    """Random log; wavefront smaller than (once with several wraps), a
+    multiple of, and coprime to the pixel count, and a prime pixel count
+    below and above the wavefront."""
     num_slots = -(-n_pix * spp // n)
     jump = pwf.regen_jump(n, n_pix)
     log = np.random.default_rng(n).uniform(0, 2, (3, num_slots, n)).astype(np.float32)
     want = np.asarray(jwf._fold_log(jnp.asarray(log), num_slots, n, n_pix, jump, 0, 0, False))
     got = pwf._fold_log(torch.from_numpy(log), num_slots, n, n_pix, jump)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def padded_fold(log, num_slots, n, n_pixels, jump):
+    """The fold as it was before it took its log in place: the whole log
+    padded to whole chunks of n_pixels lanes, chunk-summed into a (3, K,
+    n_pixels) copy, each slot rolled into the framebuffer (the reference
+    the fold must equal bit for bit)."""
+    chunks = -(-n // n_pixels)
+    log = torch.nn.functional.pad(log, (0, chunks * n_pixels - n))
+    per_slot = log.reshape(3, num_slots, chunks, n_pixels).sum(dim=2)
+    fb = torch.zeros(n_pixels, 3, dtype=log.dtype, device=log.device)
+    for k in range(num_slots):
+        fb = fb + torch.roll(per_slot[:, k, :].T, (k * jump) % n_pixels, dims=0)
+    return fb
+
+
+# (n, n_pixels, spp, slots a fold group or None for the default scratch):
+# fewer lanes than pixels, 2 and 3 chunks, equal, a prime pixel count
+# below and above the lanes, one lane and one pixel, the headline's ratio
+# (2^18 lanes over 90,000 pixels), and groups of 4 slots, the last short.
+FOLD_SHAPES = [(1000, 1500, 4, None), (1500, 1000, 6, None), (2600, 1000, 7, None),
+               (1024, 1024, 5, None), (500, 997, 9, None), (2000, 997, 5, None),
+               (1, 1, 3, None), (2621, 900, 50, None), (2621, 900, 50, 4)]
+
+
+@pytest.mark.parametrize("n,n_pix,spp,group", FOLD_SHAPES)
+def test_fold_log_matches_padded_fold(n, n_pix, spp, group, monkeypatch):
+    """The fold equals the padded whole-log fold bit for bit, on a random
+    log of the schedule's shape."""
+    num_slots = -(-n_pix * spp // n)
+    jump = pwf.regen_jump(n, n_pix)
+    if group is not None:
+        chunks = -(-n // n_pix)
+        monkeypatch.setattr(pwf, "FOLD_SCRATCH_BYTES", 12 * n_pix * (chunks + 1) * group)
+        assert pwf._fold_group(num_slots, n, n_pix) == group and num_slots % group
+    log = torch.from_numpy(
+        np.random.default_rng(n + n_pix).uniform(0, 2, (3, num_slots, n)).astype(np.float32))
+    got = pwf._fold_log(log, num_slots, n, n_pix, jump)
+    assert torch.equal(got, padded_fold(log, num_slots, n, n_pix, jump))
+
+
+@pytest.mark.parametrize("n,n_pix,spp,scratch", [(1000, 5003, 50, None),
+                                                 (2600, 1000, 40, 12 * 1000 * 4 * 5)])
+def test_fold_log_scratch_is_bounded(n, n_pix, spp, scratch, monkeypatch):
+    """Every tensor the fold creates, views included, has at most max(3P,
+    the group scratch's) elements: with fewer lanes than pixels and K*P >=
+    10^6 no more than the framebuffer; with more lanes, a 5-slot group of
+    its 16 slots. Either is below the whole padded log. The
+    fold_scratch_bytes it reports is that group's and one rolled slot's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    if scratch is not None:
+        monkeypatch.setattr(pwf, "FOLD_SCRATCH_BYTES", scratch)
+    num_slots = -(-n_pix * spp // n)
+    assert n > n_pix or num_slots * n_pix >= 10**6
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numels = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.numels += [t.numel() for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            return out
+
+    log = torch.ones(3, num_slots, n)
+    with Sizes() as sizes:
+        pwf._fold_log(log, num_slots, n, n_pix, pwf.regen_jump(n, n_pix))
+    bound = max(3 * n_pix, pwf.FOLD_SCRATCH_BYTES // 4 if n > n_pix else 0)
+    padded_log = 3 * num_slots * -(-n // n_pix) * n_pix
+    assert sizes.numels and max(sizes.numels) <= bound < padded_log
+    want = 0 if n <= n_pix else pwf.FOLD_SCRATCH_BYTES + 12 * n_pix  # a group, a rolled slot
+    assert pwf.fold_scratch_bytes(num_slots, n, n_pix) == want
+
+
+def log_only_spp_chunk_for(n_pixels, spp, wavefront, budget):
+    """The chunk rule before the budget counted the framebuffer and the
+    fold: the largest chunk whose retirement log alone fits."""
+    from raytracer_tpu_torch.render.driver import log_bytes
+
+    chunk = min(spp, max(1, budget // (12 * n_pixels)))
+    while chunk > 1 and log_bytes(n_pixels, chunk, wavefront) > budget:
+        chunk -= 1
+    return chunk
+
+
+def test_chunk_budget_counts_the_fold():
+    """At 3840x2160@64, the book render's 1200x800@125 and the headline,
+    the chunk that spp_chunk_for picks holds its log, framebuffer and the
+    fold's scratch (at most FOLD_SCRATCH_BYTES) within LOG_BUDGET_BYTES, and
+    is the largest that does. 3840x2160 takes 20 spp a chunk (at 21 the
+    log alone fits, the framebuffer does not). Every render row of the
+    bench keeps the chunk of the log-only rule."""
+    from raytracer_tpu_torch import bench
+    from raytracer_tpu_torch.render import driver
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    wavefront, budget = driver.DEFAULT_WAVEFRONT, driver.LOG_BUDGET_BYTES
+
+    def held(n_pix, spp):
+        n, num_slots, _ = pwf.strided_schedule(n_pix, spp, wavefront)
+        scratch = pwf.FOLD_SCRATCH_BYTES + n_pix * 3 * 4 if n > n_pix else 0
+        return 3 * num_slots * n * 4 + n_pix * 3 * 4 + scratch
+
+    for (w, h, spp) in ((3840, 2160, 64), (1200, 800, 125), (400, 225, 500)):
+        chunk = driver.spp_chunk_for(w * h, spp, wavefront, budget)
+        assert held(w * h, chunk) <= budget
+        assert chunk == spp or held(w * h, chunk + 1) > budget
+    assert driver.spp_chunk_for(3840 * 2160, 64, wavefront, budget) == 20
+    assert log_only_spp_chunk_for(3840 * 2160, 64, wavefront, budget) == 21
+    rows = [fn.keywords for fn in bench.ROWS.values()
+            if isinstance(fn, functools.partial) and fn.func is bench.render_row]
+    shapes = {(400, 225, 500)}  # the headline
+    for kw in rows:
+        _, _, st = get_scene(kw["scene"], spp=kw["spp"],
+                             **({"width": kw["width"]} if "width" in kw else {}))
+        shapes.add((st.width, st.height, st.samples_per_pixel))
+    assert len(rows) == 12 and (1200, 800, 125) in shapes and (600, 600, 200) in shapes
+    for (w, h, spp) in shapes:
+        assert (driver.spp_chunk_for(w * h, spp, wavefront, budget)
+                == log_only_spp_chunk_for(w * h, spp, wavefront, budget)), (w, h, spp)
 
 
 @pytest.mark.parametrize("n_pix", [1, 97, 1024, 4096, 50000])
@@ -184,10 +311,11 @@ def test_schedule_matches_jax(n_pix):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("wavefront", [100, 256, 1024, 4096])
+@pytest.mark.parametrize("wavefront", [32, 100, 256, 1024, 4096])
 def test_miss_only_exact_accounting(wavefront):
     """No geometry: every sample is the background, retired exactly once
-    (tests/test_persistent_kernel.py:51), for several wavefront sizes."""
+    (tests/test_persistent_kernel.py:51), for several wavefront sizes, the
+    first 8x smaller than the image."""
     b = pscene.SceneBuilder(0)
     b.lambertian((0.5, 0.5, 0.5))
     scene = b.build()

@@ -18,7 +18,12 @@ from raytracer_tpu.render.driver import render_image as jax_render_image
 from raytracer_tpu.render.postprocess import to_u8 as jax_to_u8
 from raytracer_tpu.scenes.registry import get_scene as jax_get_scene
 from raytracer_tpu_torch.imgio import image as pimage
-from raytracer_tpu_torch.render.driver import render_image, render_scene, spp_chunk_for
+from raytracer_tpu_torch.render.driver import (
+    chunk_bytes,
+    render_image,
+    render_scene,
+    spp_chunk_for,
+)
 from raytracer_tpu_torch.render.postprocess import to_u8
 from raytracer_tpu_torch.scenes.registry import get_scene
 from raytracer_tpu_torch.utils.metrics import RenderMetrics, warp_slots
@@ -90,16 +95,16 @@ def test_cornell_matches_jax_renders():
 
 
 def test_spp_chunking_covers_budget():
-    """A log budget below one chunk's log splits the spp budget; every
-    sample is still rendered exactly once (miss-only scene: each pixel's
-    mean is the background)."""
+    """A budget below one chunk's device memory (log, framebuffer, fold
+    scratch) splits the spp budget; every sample is still rendered exactly
+    once (miss-only scene: each pixel's mean is the background)."""
     from raytracer_tpu_torch.core.camera import make_camera
     from raytracer_tpu_torch.geometry.scene import SceneBuilder
 
     b = SceneBuilder(0)
     b.lambertian((0.5, 0.5, 0.5))
     cam, st = make_camera(1.0, 12, samples_per_pixel=10, max_depth=4, background=(0.25, 0.5, 1.0))
-    budget = 3 * 4 * 400  # a 3-spp chunk's log with 400 lanes
+    budget = chunk_bytes(144, 3, 400) - 1  # just below a 3-spp chunk with 400 lanes
     assert spp_chunk_for(144, 10, 400, budget) == 2
     metrics = RenderMetrics(total_spp=10, pixels=144)
     img = render_image(b.build(), cam, st, device="cpu", wavefront=400, log_budget_bytes=budget,
