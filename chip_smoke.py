@@ -89,7 +89,14 @@ counters reset just before and read just after:
   budget) and the CLI (a 3840x2160 PNG); the miss-only scene at 3840x2160
   on the persistent and the wavefront-step paths, every pixel exactly its
   samples' background sum; rng-table perlin at 3840x2160 through
-  render_image on the wavefront-step path (kernel 5).
+  render_image on the wavefront-step path (kernel 5);
+* the bucketed step on scenes kernel 3 does not shade (phase 19): perlin
+  with rng-filled Perlin tables at phase 7t's shape, its tape recorded by
+  integrator/wavefront.py:trace_tape_scene (kernel 1 a bounce, PyTorch
+  shading; kernel 3 never), in turns with the procedural-table step
+  (kernel 3), after the same step on the card against the CPU at 64x36,
+  its forward with kernel 1 against the forward with kernel 1's twin, a
+  trainable-camera step and the sharded step at one NCCL rank.
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -251,6 +258,11 @@ CHECK_TIMEOUT_S = 300
 # is PyTorch over 2^21 lanes an iteration).
 LARGE_STEP_SPP = 2
 LARGE_STEP_DEPTH = 8
+# Phase 19: the bucketed step on perlin at phase 7t's shape (400x225@8spp,
+# depth PERLIN_STEP_DEPTH), its Perlin tables rng-filled (tape forward
+# trace_tape_scene, kernel 1 a bounce) or procedural (kernel 3), timed in
+# this order: each label a scene and its own optimizer.
+RNG_STEP_TURNS = ("rng", "procedural", "procedural", "rng")
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -489,9 +501,12 @@ def check_tape(label, kernel_out, plain_out):
     return out
 
 
-def mixed_scene():
+def mixed_scene(noise_sphere=False):
     """tests/test_ktape.py's scene (all four materials, a quad, a checker,
-    thin lens; its largest sphere r = 100) and its camera at 64x36."""
+    thin lens; its largest sphere r = 100) and its camera at 64x36; with
+    `noise_sphere` also tests/test_torch_rng_tape.py's noise-textured
+    sphere, its Perlin tables drawn from the builder's rng (a scene kernel
+    3 does not shade)."""
     from raytracer_tpu_torch.core.camera import make_camera
     from raytracer_tpu_torch.geometry.scene import SceneBuilder
 
@@ -502,9 +517,11 @@ def mixed_scene():
     b.add_sphere((-1.1, 0, -1), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
     b.add_sphere((1.1, 0.8, -1), 0.3, b.diffuse_light((4, 4, 4)))
     b.add_quad((-2, -0.4, -2.5), (4, 0, 0), (0, 2, 0), b.lambertian((0.4, 0.5, 0.8)))
+    if noise_sphere:
+        b.add_sphere((0.75, -0.2, -0.3), 0.28, b.lambertian(b.noise(4.0)))
     cam, _ = make_camera(16 / 9, 64, look_from=(0, 0.5, 2), look_at=(0, 0, -1), fov_degrees=60,
                          background=(0.7, 0.8, 1.0), defocus_angle_degrees=2.0)
-    return b.build(), cam
+    return b.build(procedural_perlin=not noise_sphere), cam
 
 
 # Limits of the step on CUDA against the step on the CPU, per leaf: (rtol,
@@ -518,42 +535,71 @@ STEP_LIMITS = {"sph_center": (6e-3, None), "sph_radius": (6e-3, None),
                "mat_fuzz": (6e-3, 1e-3), "mat_albedo": (1e-4, 1e-4), "tex_c0": (1e-4, 1e-4)}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms, which fix the order of autograd's
+    scatter sums on the card (with the cuBLAS workspace they need)."""
+    import os
+
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def forward_twin(scene):
+    """The bucketed step's tape forward on `scene` with its kernel swapped
+    for the kernel's plain twin: kernel 3's wrapper as diff/bucketed.py
+    calls it, or, on a scene kernel 3 does not shade, kernel 1's as
+    integrator/wavefront.py:trace calls it."""
+    from raytracer_tpu_torch.diff import bucketed
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops.intersect_kernel import intersect_plain
+    from raytracer_tpu_torch.ops.persistent_kernel import unsupported_reason
+
+    module, name, twin = ((wf, "intersect", intersect_plain) if unsupported_reason(scene)
+                          else (bucketed, "render_persistent_tape", wf.trace_tape_plain))
+    kernel = getattr(module, name)
+    setattr(module, name, twin)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
 def step_devices(scene, cam, seed, w=64, h=36, k=2, depth=8):
     """The tape-forward step (diff/bucketed.py) on the same inputs: on CUDA
-    with kernel 3 as its forward ("cuda"), on CUDA with kernel 3's twin as
-    its forward ("cuda_twin"), on the CPU (the twin in CPU arithmetic,
+    with its forward's kernel (kernel 3, or kernel 1 on a scene kernel 3
+    does not shade; "cuda"), on CUDA with that kernel's twin
+    (`forward_twin`, "cuda_twin"), on the CPU (the twin in CPU arithmetic,
     "cpu"), and on the CPU with every sphere center one float32 step up
     ("cpu_ulp"). Returns ({way: (loss, grads)}, fraction of tape entries
-    CUDA's kernel and the CPU twin share)."""
+    the CUDA and CPU forwards share)."""
     import numpy as np
     import torch
 
-    from raytracer_tpu_torch.core.camera import camera_frame
     from raytracer_tpu_torch.diff import bucketed
     from raytracer_tpu_torch.diff.grad import split_scene
-    from raytracer_tpu_torch.integrator.wavefront import trace_tape_plain
-    from raytracer_tpu_torch.ops import persistent_kernel as pk
 
     target = torch.from_numpy(
         np.random.default_rng(3).uniform(0, 1, (h, w, 3)).astype(np.float32))
-    cam_s = pk.pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background)
     runs, tapes = {}, {}
     for dev in ("cuda", "cpu"):
         params, rebuild = split_scene(scene.to(dev))
         step = bucketed.make_bucketed_grad_fn(rebuild, cam, target.to(dev), width=w, height=h,
                                               samples_per_pass=k, max_depth=depth)
         runs[dev] = step(params, seed)
-        with torch.no_grad():
-            tables = pk.pack_persistent_tables(scene.to(dev))
-            tapes[dev] = pk.render_persistent_tape(*tables, cam_s.to(dev), seed, w * h * k,
-                                                   width=w, height=h, max_depth=depth)[1].cpu()
+        tapes[dev] = bucketed.tape_forward(params, rebuild, None, cam, seed, w * h * k, width=w,
+                                           height=h, max_depth=depth, sky_gradient=False,
+                                           device=torch.device(dev))[1].cpu()
         if dev == "cuda":
-            kernel, bucketed.render_persistent_tape = (bucketed.render_persistent_tape,
-                                                       trace_tape_plain)
-            try:
+            with forward_twin(scene):
                 runs["cuda_twin"] = step(params, seed)
-            finally:
-                bucketed.render_persistent_tape = kernel
         else:
             c = params["sph_center"].detach()
             up = torch.nextafter(c, torch.full_like(c, math.inf)).requires_grad_(True)
@@ -561,54 +607,60 @@ def step_devices(scene, cam, seed, w=64, h=36, k=2, depth=8):
     return runs, float((tapes["cuda"] == tapes["cpu"]).float().mean())
 
 
-def step_check(seed=21):
-    """Phase 7a: the tape-forward step at 64x36, 2 spp, depth 8.
-
-    On both scenes, the step with kernel 3 against the same step with its
-    twin on CUDA: loss equal, every gradient within rtol 1e-5 (autograd
-    sums gathered rows with atomics, in no fixed order). On the mixed scene
-    (tests/test_ktape.py's, largest sphere r = 100), the CUDA step against
-    the CPU step: loss within rtol 1e-5, every gradient within STEP_LIMITS.
-    On rand_spheres the CUDA and CPU gradients are reported, not held: its
-    r = 1000 ground sphere makes the reference's expanded-form winner t
-    cancel in float32 (ROADMAP Queue 3). Two witnesses are printed for each
-    scene: the share of tape entries the CUDA kernel and the CPU twin agree
-    on (so the two steps replay the same paths), and how far the CPU step's
-    own gradients move when every sphere center moves one float32 step
-    ("cpu_one_ulp_rel_to_max"), the scale of float32 rounding noise in each
-    gradient, beside the CUDA-vs-CPU gap ("cuda_vs_cpu_rel_to_max")."""
+def hold_step(label, runs, tape_eq, held, bad):
+    """Phase 7a's readings of step_devices' runs on one scene. The step with
+    the forward's kernel against the same step with its twin on CUDA: loss
+    equal, every gradient within rtol 1e-5 (autograd sums gathered rows
+    with atomics, in no fixed order). The CUDA step against the CPU step:
+    loss within rtol 1e-5, and with `held` every gradient within
+    STEP_LIMITS. Failures are appended to `bad`."""
     import torch
 
+    (loss_k, g_k), (loss_t, g_t), (loss_c, g_c) = runs["cuda"], runs["cuda_twin"], runs["cpu"]
+    if float(loss_k) != float(loss_t):
+        bad.append(f"{label}: loss with the kernel {float(loss_k)} vs its twin {float(loss_t)}")
+    for name in g_k:
+        if not torch.allclose(g_k[name], g_t[name], rtol=1e-5, atol=1e-9):
+            bad.append(f"{label}: {name} gradient with the kernel vs its twin beyond rtol 1e-5")
+    rel, ulp = {}, {}
+    for name, gc in g_c.items():
+        gk, top = g_k[name].cpu(), float(gc.abs().max())
+        rel[name] = float((gk - gc).abs().max()) / max(top, 1e-30)
+        ulp[name] = float((runs["cpu_ulp"][1][name] - gc).abs().max()) / max(top, 1e-30)
+        rtol, atol = STEP_LIMITS[name]
+        atol = 1e-4 if atol is None else atol * top
+        if held and not torch.allclose(gk, gc, rtol=rtol, atol=atol):
+            bad.append(f"{label}: {name} gradient CUDA vs CPU beyond rtol {rtol}, atol {atol:.3g}")
+    loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    if held and loss_rel > 1e-5:
+        bad.append(f"{label}: loss CUDA {float(loss_k)} vs CPU {float(loss_c)}")
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    if not finite:
+        bad.append(f"{label}: non-finite gradients")
+    return dict(held_cuda_vs_cpu=held, loss_kernel=float(loss_k), loss_twin=float(loss_t),
+                loss_cpu=float(loss_c), loss_rel_cuda_cpu=loss_rel, tape_equal_cuda_cpu=tape_eq,
+                cuda_vs_cpu_rel_to_max=rel, cpu_one_ulp_rel_to_max=ulp, grads_finite=finite)
+
+
+def step_check(seed=21):
+    """Phase 7a: the tape-forward step at 64x36, 2 spp, depth 8, held by
+    hold_step on both scenes; CUDA against the CPU held on the mixed scene
+    (tests/test_ktape.py's, largest sphere r = 100). On rand_spheres the
+    CUDA and CPU gradients are reported, not held: its r = 1000 ground
+    sphere makes the reference's expanded-form winner t cancel in float32
+    (ROADMAP Queue 3). Two witnesses are printed for each scene: the share
+    of tape entries the CUDA kernel and the CPU twin agree on (so the two
+    steps replay the same paths), and how far the CPU step's own gradients
+    move when every sphere center moves one float32 step
+    ("cpu_one_ulp_rel_to_max"), the scale of float32 rounding noise in each
+    gradient, beside the CUDA-vs-CPU gap ("cuda_vs_cpu_rel_to_max")."""
     from raytracer_tpu_torch.scenes.registry import get_scene
 
     scene_r, cam_r, _ = get_scene("rand_spheres", width=64, spp=2, max_depth=8)
     out, bad = {}, []
     for label, (scene, cam) in (("mixed", mixed_scene()), ("rand_spheres", (scene_r, cam_r))):
-        runs, tape_eq = step_devices(scene, cam, seed)
-        (loss_k, g_k), (loss_t, g_t), (loss_c, g_c) = runs["cuda"], runs["cuda_twin"], runs["cpu"]
-        if float(loss_k) != float(loss_t):
-            bad.append(f"{label}: loss with kernel 3 {float(loss_k)} vs its twin {float(loss_t)}")
-        for name in g_k:
-            if not torch.allclose(g_k[name], g_t[name], rtol=1e-5, atol=1e-9):
-                bad.append(f"{label}: {name} gradient with kernel 3 vs its twin beyond rtol 1e-5")
-        rel, ulp = {}, {}
-        for name, gc in g_c.items():
-            gk, top = g_k[name].cpu(), float(gc.abs().max())
-            rel[name] = float((gk - gc).abs().max()) / max(top, 1e-30)
-            ulp[name] = float((runs["cpu_ulp"][1][name] - gc).abs().max()) / max(top, 1e-30)
-            rtol, atol = STEP_LIMITS[name]
-            atol = 1e-4 if atol is None else atol * top
-            if label == "mixed" and not torch.allclose(gk, gc, rtol=rtol, atol=atol):
-                bad.append(f"mixed: {name} gradient CUDA vs CPU beyond rtol {rtol}, atol {atol:.3g}")
-        loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
-        if label == "mixed" and loss_rel > 1e-5:
-            bad.append(f"mixed: loss CUDA {float(loss_k)} vs CPU {float(loss_c)}")
-        out[label] = dict(held_cuda_vs_cpu=label == "mixed", loss_kernel=float(loss_k),
-                          loss_twin=float(loss_t), loss_cpu=float(loss_c), loss_rel_cuda_cpu=loss_rel,
-                          tape_equal_cuda_cpu=tape_eq, cuda_vs_cpu_rel_to_max=rel,
-                          cpu_one_ulp_rel_to_max=ulp,
-                          grads_finite=all(bool(torch.isfinite(g).all()) for g in g_k.values()))
-    if bad or not all(v["grads_finite"] for v in out.values()):
+        out[label] = hold_step(label, *step_devices(scene, cam, seed), label == "mixed", bad)
+    if bad:
         fail(f"phase 7a: {bad}; readings {json.dumps(out)}")
     return out
 
@@ -1955,7 +2007,6 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
     its two ranks' partials computed here, and dryrun_multichip(2,
     "cuda")."""
     import dataclasses as dc
-    import os
     import socket
 
     import torch
@@ -2036,13 +2087,9 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
             steps = {"plain": make_bucketed_grad_fn(rebuild, cam, target, **kw),
                      "shard": make_sharded_bucketed_grad_fn(rebuild, cam, target, mesh, **kw)}
             seed = TRAIN_SEEDS[0]
-            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-            torch.use_deterministic_algorithms(True)
-            try:
+            with deterministic():
                 (loss_s, g_s), counts = counted(lambda: steps["shard"](params, seed))
                 loss_p, g_p = steps["plain"](params, seed)
-            finally:
-                torch.use_deterministic_algorithms(False)
             check_launches("the sharded bucketed step", counts, ("persistent_tape",))
             unequal = [k for k in g_p if not torch.equal(g_p[k], g_s[k])]
             if counts["persistent_tape"] != 1 or float(loss_s) != float(loss_p) or unequal:
@@ -2243,6 +2290,168 @@ def exact_miss_sums(fb, background, spp):
     for _ in range(spp):
         want = want + background.to(fb.device)
     return bool((fb == want).all())
+
+
+def rng_tape_phase(smi, counted, check_launches) -> dict:
+    """Phase 19: the bucketed step on scenes kernel 3 does not shade (noise
+    from rng-filled Perlin tables), its tape recorded by
+    integrator/wavefront.py:trace_tape_scene, kernel 1 a bounce.
+
+    At 64x36, 2 spp, depth 8 (seed 21), under torch's deterministic
+    algorithms: step_devices on the mixed scene with an rng-table noise
+    sphere (largest sphere r = 100; CUDA against the CPU held at
+    STEP_LIMITS, as phase 7a holds the mixed scene) and on rng-table perlin
+    (the kernel-1 step against its twin's held; CUDA against the CPU
+    reported with phase 7a's witnesses, not held: its r = 1000 ground
+    sphere's winner t cancels in float32, as on rand_spheres); one step
+    with trainable_camera=("look_from", "fov_radians"); the sharded step at
+    one NCCL rank against the unsharded one, loss and gradients bit-equal.
+
+    At phase 7t's perlin shape: the tape forward with kernel 1 against the
+    same forward with kernel 1's twin on CUDA (tape and radiance
+    bit-equal), kernel 1's calls there timed at their own rays; then the
+    bucketed Adam steps of RNG_STEP_TURNS, each counted: the rng-table
+    steps launch kernel 1 and never kernel 3, the procedural ones kernel 3
+    once."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.core.camera import camera_frame
+    from raytracer_tpu_torch.diff.bucketed import make_bucketed_grad_fn
+    from raytracer_tpu_torch.diff.grad import (
+        make_inverse_renderer,
+        render_linear_diff,
+        split_scene,
+    )
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import persistent_kernel as pk
+    from raytracer_tpu_torch.parallel.mesh import close_group, init_group, make_mesh
+    from raytracer_tpu_torch.parallel.train import make_sharded_bucketed_grad_fn
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    rec, bad = {}, []
+    w, h, k, depth = 64, 36, 2, 8
+    perlin_small, cam_small, _ = get_scene("perlin", width=w, spp=k, max_depth=depth,
+                                           procedural_perlin=False)
+    for label, (scene, cam), held in (("mixed_noise_rng", mixed_scene(noise_sphere=True), True),
+                                      ("perlin_rng", (perlin_small, cam_small), False)):
+        if pk.unsupported_reason(scene) is None:
+            fail(f"phase 19: {label} is a scene kernel 3 shades")
+        with deterministic():
+            (runs, tape_eq), counts = counted(
+                lambda: step_devices(scene, cam, 21, w, h, k, depth))
+        if counts["persistent_tape"] or counts["closest_hit"] <= 0:
+            fail(f"phase 19 {label}: launches {counts}")
+        rec[label] = hold_step(f"phase 19 {label}", runs, tape_eq, held, bad)
+    target = torch.from_numpy(
+        np.random.default_rng(3).uniform(0, 1, (h, w, 3)).astype(np.float32)).cuda()
+    params, _, step = make_inverse_renderer(
+        perlin_small, cam_small, target, width=w, height=h, samples_per_pass=k, max_depth=depth,
+        backend="bucketed", trainable_camera=("look_from", "fov_radians"), device="cuda")
+    loss, counts = counted(lambda: float(step(21)))
+    cam_grads = {n: params["camera"][n].grad for n in ("look_from", "fov_radians")}
+    if not (math.isfinite(loss) and all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                                        for g in cam_grads.values())):
+        bad.append(f"phase 19 camera step: loss {loss}, camera gradients {cam_grads}")
+    check_launches("phase 19 camera step", counts, ("closest_hit",))
+    rec["camera_step"] = dict(loss=loss, launches=counts,
+                              camera_grad_max={n: float(g.abs().max())
+                                               for n, g in cam_grads.items()})
+    params, rebuild = split_scene(perlin_small.to("cuda"))
+    kw = dict(width=w, height=h, samples_per_pass=k, max_depth=depth)
+    init_group("cuda")
+    try:
+        sharded = make_sharded_bucketed_grad_fn(rebuild, cam_small, target, make_mesh(), **kw)
+        with deterministic():
+            (loss_s, g_s), counts = counted(lambda: sharded(params, 21))
+            loss_p, g_p = make_bucketed_grad_fn(rebuild, cam_small, target, **kw)(params, 21)
+    finally:
+        close_group()
+    check_launches("phase 19 sharded step", counts, ("closest_hit",))
+    unequal = [n for n in g_p if not torch.equal(g_s[n], g_p[n])]
+    if float(loss_s) != float(loss_p) or unequal:
+        bad.append(f"phase 19 sharded step: loss {float(loss_s)} vs {float(loss_p)}, gradients "
+                   f"unequal {unequal}")
+    rec["sharded_step"] = dict(loss=float(loss_s), launches=counts)
+    if bad:
+        fail(f"phase 19: {bad}; readings {json.dumps(rec)}")
+
+    # The tape forward at phase 7t's perlin shape: step 0's own call. The
+    # steps start from the small sphere 5% too large (phase 7t scales the
+    # r = 1000 ground too, which then holds the camera inside it).
+    scenes = {}
+    for label in ("rng", "procedural"):
+        scene, cam, st = get_scene("perlin", **{**TRAIN_CFG, "max_depth": PERLIN_STEP_DEPTH},
+                                   procedural_perlin=label == "procedural")
+        grown = scene.sph_radius * torch.where(scene.sph_radius < 100.0, 1.05, 1.0)
+        scenes[label] = (dc.replace(scene, sph_radius=grown), cam, st, scene)
+    start, cam, st, _ = scenes["rng"]
+    n = st.width * st.height * st.samples_per_pixel
+    fwd_kw = dict(width=st.width, height=st.height, max_depth=st.max_depth, sky_gradient=False)
+    frame, sc = camera_frame(cam, st.width, st.height), start.to("cuda")
+    with HitRecorder(ik) as hits:
+        (rad_k, tape_k), fwd_ms = timed(lambda: wf.trace_tape_scene(
+            sc, frame, cam.background, TRAIN_SEEDS[0], n, **fwd_kw))
+    with forward_twin(start):
+        (rad_p, tape_p), fwd_plain_ms = timed(lambda: wf.trace_tape_scene(
+            sc, frame, cam.background, TRAIN_SEEDS[0], n, **fwd_kw))
+    if not (torch.equal(tape_k, tape_p) and torch.equal(rad_k, rad_p)
+            and bool(torch.isfinite(rad_k).all())):
+        fail(f"phase 19: the tape forward with kernel 1 vs its twin: tape equal on "
+             f"{float((tape_k == tape_p).float().mean())}, radiance max abs "
+             f"{float((rad_k - rad_p).abs().max())}")
+    k1 = hits.timed_sum()
+    rec["tape_forward"] = dict(
+        lanes=n, ms=fwd_ms, plain_ms=fwd_plain_ms, hits=int((tape_k >= 0).sum()),
+        rays_per_bounce=hits.counts, closest_hit=k1)
+    del hits.calls, rad_k, rad_p, tape_k, tape_p
+
+    # The steps, in turns, each counted.
+    steppers = {}
+    for label, (start, cam, st, scene) in scenes.items():
+        with torch.no_grad():
+            target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width,
+                                        height=st.height, samples_per_pass=st.samples_per_pixel,
+                                        max_depth=st.max_depth)
+        steppers[label] = make_inverse_renderer(
+            start, cam, target, backend="bucketed", width=st.width, height=st.height,
+            samples_per_pass=st.samples_per_pixel, max_depth=st.max_depth, learning_rate=1e-2,
+            device="cuda")
+    steps = {label: [] for label in steppers}
+    for label, seed in zip(RNG_STEP_TURNS, TRAIN_SEEDS):
+        params, _, step = steppers[label]
+        timings = {}
+        t0 = time.perf_counter()
+        loss, counts = counted(lambda: float(step(seed, timings)))
+        wall = time.perf_counter() - t0
+        check_launches(f"phase 19 {label} step", counts,
+                       ("closest_hit",) if label == "rng" else ("persistent_tape",))
+        if label == "procedural" and counts["persistent_tape"] != 1:
+            fail(f"phase 19: the procedural step launched kernel 3 {counts['persistent_tape']} "
+                 "times")
+        if not (math.isfinite(loss) and float(params["sph_radius"].grad.abs().max()) > 0
+                and all(bool(torch.isfinite(p.grad).all()) for p in params.values())):
+            fail(f"phase 19 {label} step {seed}: loss {loss}, gradients not finite or no "
+                 "radius gradient")
+        steps[label].append(dict(loss=loss, wall_s=wall, launches=counts, **timings))
+    rec["steps"] = steps
+    for label, rows in steps.items():
+        for i, s_ in enumerate(rows):
+            print(f"phase 19 {label}-table perlin step {i} at 400x225@8spp depth "
+                  f"{PERLIN_STEP_DEPTH}: loss {s_['loss']:.6g}, wall {s_['wall_s']:.4f} s = tape "
+                  f"forward {s_['tape_forward']:.4f} + loss/cotangent "
+                  f"{s_['loss_cotangent']:.4f} + replay forward {s_['replay_forward']:.4f} + "
+                  f"backward {s_['backward']:.4f} + optimizer {s_['optimizer']:.4f} s; launches "
+                  f"{json.dumps(s_['launches'])}; {smi}", flush=True)
+    small = {x: rec[x] for x in ("mixed_noise_rng", "perlin_rng", "camera_step", "sharded_step")}
+    print(f"phase 19 rng-table tape forward at 400x225@8spp depth {PERLIN_STEP_DEPTH} "
+          f"({n} lanes): {fwd_ms:.3f} ms with kernel 1, {fwd_plain_ms:.3f} ms with its twin, "
+          f"bit-equal; kernel 1 {json.dumps(k1)}, rays a bounce {hits.counts}; at 64x36@2 "
+          f"depth 8: {json.dumps(small)}; {smi}", flush=True)
+    return rec
 
 
 def large_image_phase(cli, smi) -> dict:
@@ -3026,6 +3235,11 @@ def main() -> int:
     large_img = large_image_phase(cli, smi)
     record["large_images"] = large_img
 
+    # ---- phase 19: the bucketed step on rng-table scenes, counted ----
+    phase_start["19"] = time.perf_counter()
+    rng_rec = rng_tape_phase(smi, counted, check_launches)
+    record["rng_table_step"] = rng_rec
+
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
                k2m["log_bytes"] + 16 * DEFAULT_WAVEFRONT)
@@ -3137,6 +3351,13 @@ def main() -> int:
                 "closest_hit"]),
             "grad_full_path": f"training, grad_full (boundary and shadow_edges, phase 14): the "
                               f"first of {GRAD_FULL_STEPS} counted steps, by term",
+            "launches_rng_table_step": [s_["launches"]["closest_hit"]
+                                        for s_ in rng_rec["steps"]["rng"]],
+            "rng_table_tape_forward": rng_rec["tape_forward"]["closest_hit"],
+            "rng_table_path": f"training, bucketed backend on rng-table perlin 400x225@8spp "
+                              f"depth {PERLIN_STEP_DEPTH}: the tape forward "
+                              f"(integrator/wavefront.py:trace_tape_scene) of each step "
+                              f"(phase 19); rng_table_tape_forward summed over step 0's calls",
         },
         {
             "name": "closest_hit_clustered",
@@ -3207,6 +3428,8 @@ def main() -> int:
             "textured": k3_textured,
             "launches_in_boundary_steps": bnd["launches"]["persistent_tape"],
             "launches_in_grad_full_steps": full["launches"]["persistent_tape"],
+            "launches_in_rng_table_steps": [s_["launches"]["persistent_tape"]
+                                            for s_ in rng_rec["steps"]["rng"]],
         },
         {
             "name": "culled_closest_hit",

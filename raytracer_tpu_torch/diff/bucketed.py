@@ -1,15 +1,21 @@
 """Tape-forward gradient step (port of raytracer_tpu/diff/bucketed.py,
-`make_bucketed_grad_fn(forward="kernel")`, interior gradients).
+`make_bucketed_grad_fn`, interior gradients).
 
 One step:
 
-1. **Tape forward**, no autograd: one launch of the tape kernel (kernel 3,
-   ops/persistent_kernel.py:render_persistent_tape) traces every
-   (sample, pixel) lane to its end and records its per-bounce winners.
-   Lane L is sample id L, pixel L mod (width*height). Noise and image
-   textures are shaded in the kernel; bilinear scenes take the
-   deterministic 4-tap filter there and in the replay, as in JAX
-   (raytracer_tpu/diff/bucketed.py:601-612).
+1. **Tape forward**, no autograd: every (sample, pixel) lane is traced to
+   its end and its per-bounce winners recorded. Lane L is sample id L,
+   pixel L mod (width*height). The scene decides the forward
+   (`tape_forward`), as JAX's step picks `forward="kernel"` or `"xla"`:
+   - every scene ops/persistent_kernel.py:unsupported_reason accepts:
+     one launch of the tape kernel (kernel 3, render_persistent_tape),
+     noise and image textures shaded in the kernel; bilinear scenes take
+     the deterministic 4-tap filter there and in the replay, as in JAX
+     (raytracer_tpu/diff/bucketed.py:601-612);
+   - the rest (noise from rng-filled Perlin tables):
+     integrator/wavefront.py:trace_tape_scene, `trace(return_tape=True)`
+     with kernel 1 a bounce and PyTorch shading, the counterpart of JAX's
+     XLA tape forward (raytracer_tpu/diff/tape.py:trace_tape).
 2. **Finish**: the image, the MSE loss, the per-lane cotangent of the loss
    from the forward image, and each lane's depth min(last hit + 2,
    max_depth) from the tape.
@@ -51,7 +57,7 @@ import torch
 from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
 from raytracer_tpu_torch.diff.tape import make_tape_intersect_fn
 from raytracer_tpu_torch.geometry.intersect import quad_derived
-from raytracer_tpu_torch.integrator.wavefront import trace
+from raytracer_tpu_torch.integrator.wavefront import trace, trace_tape_scene
 from raytracer_tpu_torch.materials.packed import texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops.persistent_kernel import (
@@ -230,20 +236,22 @@ def finish(radiance, tape, target, *, samples_per_pass: int):
 
 def tape_forward(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, total: int, *,
                  width: int, height: int, max_depth: int, sky_gradient: bool, device):
-    """The tape forward, no autograd: one launch of the tape kernel (its
-    twin on the CPU) over `total` lanes of the scene and camera built from
-    `params`' values, seeded `seed`. Returns (radiance (total, 3), tape
-    (max_depth, total) int32)."""
+    """The tape forward, no autograd, over `total` lanes of the scene and
+    camera built from `params`' values, seeded `seed`: one launch of the
+    tape kernel (its twin on the CPU), or, for a scene it does not shade
+    (`unsupported_reason`), integrator.wavefront.trace_tape_scene (kernel 1
+    a bounce on the card). The scene alone decides, before any launch.
+    Returns (radiance (total, 3), tape (max_depth, total) int32)."""
     with torch.no_grad():
         detached = nest_like(params, [t.detach() for _, t in flat_leaves(params)])
         scene, cam_p = _scene_and_camera(detached, rebuild, rebuild_camera, cam)
-        reason = unsupported_reason(scene)
-        if reason is not None:
-            raise NotImplementedError(reason)
+        frame = camera_frame(cam_p, width, height)
+        if unsupported_reason(scene) is not None:
+            return trace_tape_scene(scene, frame, cam_p.background, seed, total, width=width,
+                                    height=height, max_depth=max_depth,
+                                    sky_gradient=sky_gradient)
         sph, quad, res = pack_persistent_tables(scene)
-        cam_s = pack_camera_scalars_bg(
-            camera_frame(cam_p, width, height), cam_p.background
-        ).to(device)
+        cam_s = pack_camera_scalars_bg(frame, cam_p.background).to(device)
         rad3, tape, _ = render_persistent_tape(
             sph, quad, res, cam_s, seed, total, width=width, height=height,
             max_depth=max_depth, sky_gradient=sky_gradient,
@@ -317,8 +325,9 @@ def make_bucketed_grad_fn(
     one tape-forward render against `target` (H, W, 3) and its gradient in
     every tensor of `params` (as from diff.grad.split_scene; `rebuild(params)
     -> Scene`), nested like `params`. Runs on target's device: CUDA launches
-    the tape kernel, CPU takes its twin. `seed` is an int; the JAX package
-    derives it from its key as `jax.random.randint(key, (), 0, 2**31 - 1)`.
+    the forward's kernel (`tape_forward`), CPU takes its twin. `seed` is an
+    int; the JAX package derives it from its key as
+    `jax.random.randint(key, (), 0, 2**31 - 1)`.
 
     `edge_image_fns`: zero-valued edge images fn(params, cam, seed) (diff/
     boundary.py, shadow_edge.py, mirror_edge.py, refracted_edge.py) whose

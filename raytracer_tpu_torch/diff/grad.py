@@ -16,7 +16,9 @@ Two backends compute the same estimator:
 * "scan": `render_linear_diff`, the differentiable `trace` of every lane,
   each bounce's winner found by the closest-hit kernel on detached rays
   (geometry.intersect.intersect_scene_kernel_diff);
-* "bucketed": diff/bucketed.py, whose forward is the tape kernel and whose
+* "bucketed": diff/bucketed.py, whose forward records each path's winners
+  (the tape kernel on every scene it shades; on scenes with rng-filled
+  Perlin tables `trace(return_tape=True)`, kernel 1 a bounce) and whose
   gradient replays the tape.
 
 Visibility boundaries, which interior autodiff cannot see, are opt-in edge
@@ -50,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
+from raytracer_tpu_torch.core.camera import Camera, camera_frame
 from raytracer_tpu_torch.diff.boundary import EdgeSamplingConfig, make_boundary_image_fn
 from raytracer_tpu_torch.diff.bucketed import (
     CAMERA_PARAM_KEY,
@@ -65,8 +67,7 @@ from raytracer_tpu_torch.diff.refracted_edge import make_refracted_boundary_fn
 from raytracer_tpu_torch.diff.shadow_edge import ShadowEdgeConfig, make_shadow_boundary_fn
 from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
 from raytracer_tpu_torch.geometry.scene import Scene
-from raytracer_tpu_torch.integrator.wavefront import trace
-from raytracer_tpu_torch.ops import ctr_rng
+from raytracer_tpu_torch.integrator.wavefront import tape_lane_rays, tape_uniforms, trace
 from raytracer_tpu_torch.render.driver import resolve_device
 
 # Scene leaves commonly optimized in inverse rendering.
@@ -119,14 +120,10 @@ def render_linear_diff(
     CPU tensors); its t, and all shading, carry gradients."""
     dev = scene.sph_center.device
     n = width * height
-    total = samples_per_pass * n
-    sid = torch.arange(total, device=dev)
-    pix = sid % n
-    frame = camera_frame(cam, width, height).to(dev)
-    o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, sid))
+    o, d = tape_lane_rays(camera_frame(cam, width, height).to(dev), seed, samples_per_pass * n,
+                          width=width, height=height)
     radiance = trace(
-        scene, o, d, cam.background.to(dev),
-        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
+        scene, o, d, cam.background.to(dev), tape_uniforms(seed),
         max_depth=max_depth, sky_gradient=sky_gradient,
         intersect_fn=intersect_scene_kernel_diff,
     )

@@ -11,6 +11,9 @@ alive mask.
 * `trace_tape_plain`: the plain twin and spec of the tape kernel (kernel 3,
   ops/persistent_kernel.py:render_persistent_tape): `trace` of one sample
   per lane from the packed tables, with counter-RNG uniforms.
+* `trace_tape_scene`: the same lanes and uniforms traced by `trace` from
+  the scene (kernel 1 a bounce on the card), the tape forward of the
+  scenes kernel 3 does not shade (diff/bucketed.py:tape_forward).
 * `regen_plain`: the regenerative wavefront over a strided per-lane sample
   queue, the plain twin and spec of the persistent CUDA kernel
   (csrc/persistent_kernel.cu) — the regen loop body and its epilogue
@@ -231,20 +234,50 @@ def trace_tape_plain(
     materials.packed.texture_tables, whose image filter is deterministic).
     Returns (radiance (3, n) float32, tape (max_depth, n) int32, segments
     (n,) int32)."""
-    dev = sph_table.device
-    sid = torch.arange(n, dtype=torch.int64, device=dev)
-    pix = sid % (width * height)
-    o, d = camera_rays(
-        pk.frame_from_scalars(cam_scalars), pix % width, pix // width,
-        ctr_rng.camera_uniforms(seed, sid),
-    )
+    o, d = tape_lane_rays(pk.frame_from_scalars(cam_scalars), seed, n, width=width,
+                          height=height)
     rad, tape, segs = _trace_loop(
         res_table, sph_table.shape[0], o, d, cam_scalars[pk.CAM_BG : pk.CAM_BG + 3],
-        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
+        tape_uniforms(seed),
         lambda o, d, bounce, lanes: intersect_plain(sph_table, quad_table, o, d),
         max_depth=max_depth, sky_gradient=sky_gradient, return_tape=True, textures=textures,
     )
     return rad.T.contiguous(), tape, segs
+
+
+def tape_lane_rays(frame, seed: int, n: int, *, width: int, height: int):
+    """The camera rays (origin, direction), each (n, 3), of a tape
+    forward's lanes on the frame's device: lane L is global sample L at
+    pixel L mod (width*height), its lens and pixel jitter from
+    ctr_rng.camera_uniforms (the layout of kernel 3 and of
+    diff.grad.render_linear_diff)."""
+    sid = torch.arange(n, dtype=torch.int64, device=frame.center.device)
+    pix = sid % (width * height)
+    return camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, sid))
+
+
+def tape_uniforms(seed: int):
+    """`uniform_seq` of a tape forward's lanes: the lanes' own sample ids
+    keyed at each bounce (ctr_rng.bounce_uniforms)."""
+    return lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce)
+
+
+def trace_tape_scene(scene, cam_frame, background, seed: int, n: int, *, width: int,
+                     height: int, max_depth: int, sky_gradient: bool):
+    """The tape forward of scenes kernel 3 does not shade (noise from
+    rng-filled Perlin tables; ops.persistent_kernel.unsupported_reason):
+    `trace(return_tape=True)` of tape_lane_rays' lanes with tape_uniforms,
+    no russian roulette, on the scene's device. The closest hit is
+    `trace`'s default (kernel 1 on CUDA tensors, its twin on CPU tensors),
+    the shading materials.packed.texture_tables'. The port's counterpart of
+    JAX's XLA tape forward (raytracer_tpu/diff/tape.py:trace_tape); on a
+    scene kernel 3 serves it equals trace_tape_plain bit for bit. Returns
+    (radiance (n, 3), tape (max_depth, n) int32) in kernel 3's layout:
+    quads numbered after spheres, -1 for a miss or a dead lane."""
+    dev = scene.sph_center.device
+    o, d = tape_lane_rays(cam_frame.to(dev), seed, n, width=width, height=height)
+    return trace(scene, o, d, background, tape_uniforms(seed), max_depth=max_depth,
+                 sky_gradient=sky_gradient, return_tape=True)
 
 
 def regen_jump(n: int, n_pixels: int) -> int:

@@ -17,10 +17,10 @@ packed tables.
 
 Kernel 3 ports `render_persistent_tape`: the same CUDA kernel, instantiated
 with a tape, traces every sample once without russian roulette and records
-each bounce's winner (the forward of the bucketed gradient,
-diff/bucketed.py), with deterministic image filters only, as in JAX; its
-threads take samples from a queue. Its twin is
-integrator/wavefront.py:trace_tape_plain.
+each bounce's winner (the forward of the bucketed gradient on every
+scene `unsupported_reason` accepts, diff/bucketed.py), with deterministic
+image filters only, as in JAX; its threads take samples from a queue. Its
+twin is integrator/wavefront.py:trace_tape_plain.
 
 Every random draw is the ctr_rng counter hash keyed by the global sample id
 (ops/ctr_rng.py), so kernel and twin consume identical uniforms; the TPU
@@ -91,8 +91,10 @@ LAUNCHES_TAPE = 0
 def unsupported_reason(scene) -> str | None:
     """Why the persistent kernel (CUDA or its plain twin) cannot render
     `scene`; None if it can, at any size. The render driver sends such
-    scenes down its other paths (render/driver.py:render_path); the
-    tape-forward gradient refuses them. The one gate is JAX's
+    scenes down its other paths (render/driver.py:render_path), and the
+    bucketed gradient records their tape with integrator/wavefront.py:
+    trace_tape_scene instead of kernel 3 (diff/bucketed.py:tape_forward),
+    as JAX's bucketed step takes its XLA forward. The one gate is JAX's
     scene_supports_persistent's (raytracer_tpu/ops/persistent_kernel.py:
     1189-1190); its image-size gates (:1191-1201) guarded the TPU's VMEM
     budget and its f32 dims encoding, which the port does not have."""

@@ -16,9 +16,10 @@ a test sums the positions in one process.
   the position's tile and sample slots of one pass, each lane keyed by its
   global sample id (parallel/shard.py:pass_block).
 * `make_sharded_bucketed_grad_fn`: the tape-forward step
-  (diff/bucketed.py): each rank runs the tape kernel (kernel 3) on its
-  share of samples_per_pass under `rank_seed(seed, position)` and replays
-  its own tape, so at one rank it is make_bucketed_grad_fn's step.
+  (diff/bucketed.py): each rank runs the tape forward (kernel 3, or
+  trace_tape_scene on scenes kernel 3 does not shade) on its share of
+  samples_per_pass under `rank_seed(seed, position)` and replays its own
+  tape, so at one rank it is make_bucketed_grad_fn's step.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def make_sharded_bucketed_grad_fn(rebuild, cam: Camera, target, mesh: Mesh, *, w
                                   sky_gradient: bool = False):
     """`step(params, seed, timings=None) -> (loss, grads)`: the tape-forward
     step of diff/bucketed.py sharded over the mesh. Position p runs the
-    tape kernel on rank_share(samples_per_pass, p, D) samples per pixel
+    tape forward on rank_share(samples_per_pass, p, D) samples per pixel
     under rank_seed(seed, p) (`step.forward(params, seed, p)` -> RankTape),
     the image sums are all-reduced, and each rank replays its own tape
     against the global image cotangent (`step.backward(params, rank_tape,

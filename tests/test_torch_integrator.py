@@ -28,8 +28,11 @@ torch.set_num_threads(1)
 SEED = 12345
 
 
-def mixed_scene(builder_cls):
-    """tests/test_ktape.py's scene: all four materials, a quad, a checker."""
+def mixed_scene(builder_cls, *, noise_sphere=False, procedural_perlin=True):
+    """tests/test_ktape.py's scene: all four materials, a quad, a checker;
+    with `noise_sphere` also a lambertian sphere with a noise texture, its
+    Perlin tables procedural or, with procedural_perlin=False, drawn from
+    the builder's rng (seed 0)."""
     b = builder_cls(0)
     ground = b.lambertian(b.checker(0.6, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
     b.add_sphere((0, -100.5, -1), 100, ground)
@@ -37,7 +40,9 @@ def mixed_scene(builder_cls):
     b.add_sphere((-1.1, 0, -1), 0.5, b.metal((0.8, 0.6, 0.2), 0.3))
     b.add_sphere((1.1, 0.8, -1), 0.3, b.diffuse_light((4, 4, 4)))
     b.add_quad((-2, -0.4, -2.5), (4, 0, 0), (0, 2, 0), b.lambertian((0.4, 0.5, 0.8)))
-    return b.build()
+    if noise_sphere:
+        b.add_sphere((0.75, -0.2, -0.3), 0.28, b.lambertian(b.noise(4.0)))
+    return b.build(procedural_perlin=procedural_perlin)
 
 
 CAM_KW = dict(look_from=(0, 0.5, 2), look_at=(0, 0, -1), fov_degrees=60,
