@@ -1,0 +1,10 @@
+"""Host-device synchronisations an image makes inside the program's root
+spans `render_image` and `to_u8` (utils/trace.py's sync counter: PyTorch's
+CUDA sync debug mode), averaged over the span stretch's images
+(benchmark/spans.py); None on the CPU."""
+
+from benchmark.spans import syncs_per_item
+
+
+def read(rec):
+    return syncs_per_item(rec, ("render_image", "to_u8"))

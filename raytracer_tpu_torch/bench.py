@@ -31,12 +31,10 @@ clock ended by a device sync; it reports the median_low run, as the JAX
 bench does, with every wall (`walls_s`) and their spread ((max - min) /
 median). The render rows' `occupancy` is the port's warp occupancy
 (utils/metrics.py): segments over the warp slots their warps ran, not
-JAX's tile-lane ratio. Their roofline column counts the dense closest hit
-alone (utils/bounds.py:hit_ops, against the H100's 67 TFLOP/s FP32);
-shading adds about 1% a segment on rand_spheres and is not counted, so on
-textured scenes, whose marbles and image lookups cost far more, the
-column understates the work. It is reported on dense persistent rows on
-the card only.
+JAX's tile-lane ratio. Dense persistent rows also give the dense closest
+hit's operations a segment (`flops_per_segment`, utils/bounds.py:hit_ops);
+kernel 2's share of its roofline is the benchmark's
+`kernel2_roofline_pct.render` (benchmark/metrics/).
 
 A failing row records its error and the other rows still run. The last
 line is one JSON object: metric, value, unit, vs_baseline, detail (the
@@ -80,7 +78,7 @@ from raytracer_tpu_torch.render.driver import (
 )
 from raytracer_tpu_torch.scenes.registry import get_scene
 from raytracer_tpu_torch.utils import launches
-from raytracer_tpu_torch.utils.bounds import PEAK_FP32, hit_ops
+from raytracer_tpu_torch.utils.bounds import hit_ops
 from raytracer_tpu_torch.utils.metrics import RenderMetrics, card_identity, device_memory_stats
 
 METRIC = "traced_rays_per_s_randspheres"
@@ -183,13 +181,7 @@ def render_row(device, repeats: int, *, scene: str, spp: int, width: int | None 
     elif out["path"] == "persistent":
         # Dense rows only: the culled walk's slab tests replace most sphere
         # tests, so the dense count does not apply to clustered scenes.
-        fps = hit_ops(1, sc.num_spheres, sc.num_quads)
-        out["flops_per_segment"] = fps
-        if dev.type == "cuda":
-            useful = segs / dt * fps
-            out["roofline_frac"] = useful / PEAK_FP32
-            # Over warp slots: a warp's drained lanes wait for its busiest one.
-            out["roofline_frac_issued"] = useful / out["occupancy"] / PEAK_FP32
+        out["flops_per_segment"] = hit_ops(1, sc.num_spheres, sc.num_quads)
     out.update(device_memory_stats(dev))
     return out
 

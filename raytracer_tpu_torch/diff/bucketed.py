@@ -50,7 +50,6 @@ estimators' projections.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
@@ -66,6 +65,7 @@ from raytracer_tpu_torch.ops.persistent_kernel import (
     render_persistent_tape,
     unsupported_reason,
 )
+from raytracer_tpu_torch.utils import trace as tr
 
 
 # Counter of the edge terms' seed stream (the JAX package folds its step key
@@ -147,16 +147,16 @@ def edge_seed(seed: int, i: int) -> int:
 
 
 def compose_edges(edge_image_fns, params: dict, cam: Camera, seed: int, ct_img,
-                  rebuild_camera=None, clock=None):
+                  rebuild_camera=None, timings=None):
     """Gradients, nested like `params`, of sum over i of sum(fn_i(params,
     cam, edge_seed(seed, i)) * ct_img): for zero-valued edge images
     fn(params, cam, seed) -> (H, W, 3), exactly their first-order share of
     a loss whose image cotangent is `ct_img` (the scan backend adds the
     same images to its render before the loss; the two agree because the
     images are zero). With `rebuild_camera` the camera is rebuilt from
-    params[CAMERA_PARAM_KEY]. Each term runs under a record_function
-    `edges/<name>`, and `clock` (a PhaseClock) laps it under that name
-    and under "edges"."""
+    params[CAMERA_PARAM_KEY]. Each term is a phase `edges/<name>` of
+    utils/trace.py: with a `timings` dict its synced wall seconds go under
+    that name and under "edges"."""
     leaves = [t for _, t in flat_leaves(params)]
     if rebuild_camera is None:
         sp, cam_p = params, cam
@@ -165,36 +165,12 @@ def compose_edges(edge_image_fns, params: dict, cam: Camera, seed: int, ct_img,
         cam_p = rebuild_camera(params[CAMERA_PARAM_KEY])
     total = [None] * len(leaves)
     for i, fn in enumerate(edge_image_fns):
-        name = f"edges/{edge_name(fn)}"
-        with torch.profiler.record_function(name):
+        with tr.phase(f"edges/{edge_name(fn)}", timings, ct_img.device, also=("edges",)):
             grads = torch.autograd.grad((fn(sp, cam_p, edge_seed(seed, i)) * ct_img).sum(),
                                         leaves, allow_unused=True)
             total = [a if g is None else (g if a is None else a + g)
                      for a, g in zip(total, grads)]
-        if clock is not None:
-            clock.lap(name, "edges")
     return nest_like(params, total)
-
-
-class PhaseClock:
-    """Wall seconds of named phases, each ended by a device sync, summed
-    into `timings` (a dict) when one is given; a no-op otherwise."""
-
-    def __init__(self, timings, device):
-        self.timings = timings
-        self.device = device
-        self.t = time.perf_counter() if timings is not None else 0.0
-
-    def lap(self, *names: str):
-        """Add the seconds since the last lap under each of `names`."""
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        for name in names:
-            self.timings[name] = self.timings.get(name, 0.0) + (now - self.t)
-        self.t = now
 
 
 def image_loss(img_sum, target, samples_per_pass: int):
@@ -269,23 +245,21 @@ def replay_lanes(lane_depth, sky_gradient: bool, rebuild_camera):
 
 def replay_grads(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, tape, ct_lane,
                  lanes, *, width: int, height: int, max_depth: int, sky_gradient: bool,
-                 clock=None):
-    """Gradients, nested like `params`, of `replay_loss` over `lanes`; the
-    replay's forward and backward are lapped on `clock` as
-    "replay_forward" and "backward"."""
+                 timings=None):
+    """Gradients, nested like `params`, of `replay_loss` over `lanes`: the
+    replay's forward and backward are the phases "replay_forward" (with
+    the replay's counters `bounces` and `lanes`, summed over its bounces)
+    and "backward" of utils/trace.py, timed into `timings` when given."""
     leaves = [t for _, t in flat_leaves(params)]
-    scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
-    replay = replay_loss(
-        scene, cam_p, seed, tape, ct_lane, lanes,
-        width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
-    )
-    if clock is not None:
-        clock.lap("replay_forward")
-    grads = nest_like(params, torch.autograd.grad(replay, leaves, allow_unused=True)
-                      if replay.requires_grad else [None] * len(leaves))
-    if clock is not None:
-        clock.lap("backward")
-    return grads
+    with tr.phase("replay_forward", timings, tape.device):
+        scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
+        replay = replay_loss(
+            scene, cam_p, seed, tape, ct_lane, lanes,
+            width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
+        )
+    with tr.phase("backward", timings, tape.device):
+        return nest_like(params, torch.autograd.grad(replay, leaves, allow_unused=True)
+                         if replay.requires_grad else [None] * len(leaves))
 
 
 def replay_loss(scene, cam: Camera, seed: int, tape, ct_lane, lanes, *,
@@ -336,10 +310,11 @@ def make_bucketed_grad_fn(
     camera trainable: `params` then carries its leaves under
     CAMERA_PARAM_KEY.
 
-    With a `timings` dict the step syncs the device at each phase's end and
-    adds the phase's wall seconds under "tape_forward", "loss_cotangent",
-    "replay_forward", "backward" and, with edge terms, "edges" (their sum)
-    and "edges/<name>" for each."""
+    The step's phases are spans of utils/trace.py: "tape_forward",
+    "loss_cotangent", "replay_forward", "backward" and, with edge terms,
+    "edges" around an "edges/<name>" for each. With a `timings` dict the
+    step syncs the device at each phase's end and adds the phase's wall
+    seconds under its name, "edges" taking the sum of its terms."""
     dev = target.device
     k = samples_per_pass
     total = k * width * height
@@ -347,20 +322,19 @@ def make_bucketed_grad_fn(
                     device=dev)
 
     def step(params, seed: int, timings=None):
-        clock = PhaseClock(timings, dev)
-        rad, tape = tape_forward(params, rebuild, rebuild_camera, cam, seed, total, **shape_kw)
-        clock.lap("tape_forward")
-        with torch.no_grad():
+        with tr.phase("tape_forward", timings, dev):
+            rad, tape = tape_forward(params, rebuild, rebuild_camera, cam, seed, total,
+                                     **shape_kw)
+        with tr.phase("loss_cotangent", timings, dev), torch.no_grad():
             loss, ct_lane, lane_depth, ct_img = finish(rad, tape, target, samples_per_pass=k)
             lanes = replay_lanes(lane_depth, sky_gradient, rebuild_camera)
-        clock.lap("loss_cotangent")
         grads = replay_grads(params, rebuild, rebuild_camera, cam, seed, tape, ct_lane, lanes,
                              width=width, height=height, max_depth=max_depth,
-                             sky_gradient=sky_gradient, clock=clock)
+                             sky_gradient=sky_gradient, timings=timings)
         if edge_image_fns:
-            with torch.profiler.record_function("edges"):
+            with tr.span("edges"):
                 edge = compose_edges(edge_image_fns, params, cam, seed, ct_img,
-                                     rebuild_camera=rebuild_camera, clock=clock)
+                                     rebuild_camera=rebuild_camera, timings=timings)
             grads = nest_like(params, [g + e for (_, g), (_, e) in
                                        zip(flat_leaves(grads), flat_leaves(edge))])
         return loss, grads

@@ -47,7 +47,6 @@ under params["camera"] (diff/bucketed.py:split_camera).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -56,7 +55,6 @@ from raytracer_tpu_torch.core.camera import Camera, camera_frame
 from raytracer_tpu_torch.diff.boundary import EdgeSamplingConfig, make_boundary_image_fn
 from raytracer_tpu_torch.diff.bucketed import (
     CAMERA_PARAM_KEY,
-    PhaseClock,
     edge_seed,
     flat_leaves,
     make_bucketed_grad_fn,
@@ -69,6 +67,7 @@ from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.integrator.wavefront import tape_lane_rays, tape_uniforms, trace
 from raytracer_tpu_torch.render.driver import resolve_device
+from raytracer_tpu_torch.utils import trace as tr
 
 # Scene leaves commonly optimized in inverse rendering.
 DEFAULT_TRAINABLE = ("sph_center", "sph_radius", "mat_albedo", "mat_fuzz", "tex_c0")
@@ -160,21 +159,20 @@ def render_loss(
 
 def make_scan_grad_fn(rebuild, cam: Camera, target, edge_image_fns=(), **render_kw):
     """`step(params, seed, timings=None) -> (loss, grads)` of the scan
-    backend; `timings` gets "forward" and "backward" seconds (see
-    diff.bucketed.make_bucketed_grad_fn), the edge terms' work inside
-    "backward"."""
+    backend: phases "forward" and "backward" of utils/trace.py, whose
+    seconds `timings` gets (see diff.bucketed.make_bucketed_grad_fn), the
+    edge terms' work inside "backward"."""
 
     def step(params, seed: int, timings=None):
-        clock = PhaseClock(timings, target.device)
-        loss = render_loss(params, rebuild, cam, seed, target, edge_image_fns=edge_image_fns,
-                           **render_kw)
-        clock.lap("forward")
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {
-            name: torch.zeros_like(p) if g is None else g
-            for (name, p), g in zip(params.items(), grads)
-        }
-        clock.lap("backward")
+        with tr.phase("forward", timings, target.device):
+            loss = render_loss(params, rebuild, cam, seed, target,
+                               edge_image_fns=edge_image_fns, **render_kw)
+        with tr.phase("backward", timings, target.device):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {
+                name: torch.zeros_like(p) if g is None else g
+                for (name, p), g in zip(params.items(), grads)
+            }
         return loss.detach(), grads
 
     return step
@@ -233,6 +231,11 @@ def make_inverse_renderer(
     params in place. With a `timings` dict each phase's wall seconds are
     added to it (see the backends), the update under "optimizer".
 
+    In utils/trace.py's spans, the build is `build` (with the first
+    optimizer's construction, `build/optimizer`, inside it) and each
+    call of `step` a root span `step` around the backend's phases and the
+    phase `optimizer`.
+
     The edge terms (boundary, shadow_edges, mirror_edges, refracted_edges;
     see the module docstring) are built in that order, term i seeded by
     diff.bucketed.edge_seed(seed, i) on both backends. `boundary` runs at
@@ -247,47 +250,48 @@ def make_inverse_renderer(
         raise ValueError(f"unknown backend {backend!r}; use 'scan' or 'bucketed'")
     if trainable_camera and backend != "bucketed":
         raise ValueError("trainable_camera requires backend='bucketed'")
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    target = torch.as_tensor(target, dtype=torch.float32).to(dev)
-    params, rebuild = split_scene(scene, trainable)
-    rebuild_camera = None
-    if trainable_camera:
-        params[CAMERA_PARAM_KEY], rebuild_camera = split_camera(cam, trainable_camera)
-    leaves = [t for _, t in flat_leaves(params)]
-    optimizer = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    render_kw = dict(
-        width=width, height=height, samples_per_pass=samples_per_pass,
-        max_depth=max_depth, sky_gradient=sky_gradient,
-    )
-    edge_kw = dict(width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient)
-    edge_fns = []
-    if boundary:
-        edge_fns.append(make_boundary_image_fn(rebuild, config=boundary_config(scene), **edge_kw))
-    if shadow_edges:
-        edge_fns.append(make_shadow_boundary_fn(
-            rebuild, config=shadow_config(scene, width, height), **edge_kw))
-    if mirror_edges:
-        edge_fns.append(make_mirror_boundary_fn(rebuild, **edge_kw))
-    if refracted_edges:
-        edge_fns.append(make_refracted_boundary_fn(rebuild, **edge_kw))
-    if backend == "bucketed":
-        grad_fn = make_bucketed_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
-                                        rebuild_camera=rebuild_camera, **render_kw)
-    else:
-        grad_fn = make_scan_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
-                                    **render_kw)
+    with tr.span("build"):
+        dev = resolve_device(device)
+        scene = scene.to(dev)
+        target = torch.as_tensor(target, dtype=torch.float32).to(dev)
+        params, rebuild = split_scene(scene, trainable)
+        rebuild_camera = None
+        if trainable_camera:
+            params[CAMERA_PARAM_KEY], rebuild_camera = split_camera(cam, trainable_camera)
+        leaves = [t for _, t in flat_leaves(params)]
+        with tr.span("build/optimizer"):
+            optimizer = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        render_kw = dict(
+            width=width, height=height, samples_per_pass=samples_per_pass,
+            max_depth=max_depth, sky_gradient=sky_gradient,
+        )
+        edge_kw = dict(width=width, height=height, max_depth=max_depth,
+                       sky_gradient=sky_gradient)
+        edge_fns = []
+        if boundary:
+            edge_fns.append(make_boundary_image_fn(rebuild, config=boundary_config(scene),
+                                                   **edge_kw))
+        if shadow_edges:
+            edge_fns.append(make_shadow_boundary_fn(
+                rebuild, config=shadow_config(scene, width, height), **edge_kw))
+        if mirror_edges:
+            edge_fns.append(make_mirror_boundary_fn(rebuild, **edge_kw))
+        if refracted_edges:
+            edge_fns.append(make_refracted_boundary_fn(rebuild, **edge_kw))
+        if backend == "bucketed":
+            grad_fn = make_bucketed_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
+                                            rebuild_camera=rebuild_camera, **render_kw)
+        else:
+            grad_fn = make_scan_grad_fn(rebuild, cam, target, edge_image_fns=tuple(edge_fns),
+                                        **render_kw)
 
     def step(seed: int, timings=None):
-        loss, grads = grad_fn(params, seed, timings)
-        t0 = time.perf_counter()
-        for (_, p), (_, g) in zip(flat_leaves(params), flat_leaves(grads)):
-            p.grad = g
-        optimizer.step()
-        if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            timings["optimizer"] = timings.get("optimizer", 0.0) + time.perf_counter() - t0
-        return loss
+        with tr.span("step"):
+            loss, grads = grad_fn(params, seed, timings)
+            with tr.phase("optimizer", timings, dev):
+                for (_, p), (_, g) in zip(flat_leaves(params), flat_leaves(grads)):
+                    p.grad = g
+                optimizer.step()
+            return loss
 
     return params, optimizer, step

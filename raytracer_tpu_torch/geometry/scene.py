@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.utils import trace as tr
+
 # Material type enum (reference: concrete Material impls, materials.go).
 LAMBERTIAN = 0
 METAL = 1
@@ -229,6 +231,7 @@ class SceneBuilder:
         self.add_quad((mn[0], mn[1], mn[2]), dx, dz, mat_id)  # bottom
 
     # ---- build ---------------------------------------------------------
+    @tr.spanned("scene/build")
     def build(
         self,
         pad_spheres: int | None = None,

@@ -55,6 +55,7 @@ from raytracer_tpu_torch.ops.intersect_kernel import (
     pack_sphere_table,
 )
 from raytracer_tpu_torch.ops.wavefront_kernel import advance_pixels, wavefront_step
+from raytracer_tpu_torch.utils import trace as tr
 from raytracer_tpu_torch.utils.metrics import WARP
 
 # Russian-roulette survival cap of the wavefront-step path: the JAX
@@ -128,6 +129,8 @@ def _trace_loop(
     for bounce in range(max_depth):
         if lanes.numel() == 0:
             break
+        tr.count("bounces")
+        tr.count("lanes", lanes.numel())
         segs[lanes] += 1
         t, prim = hit_fn(o, d, bounce, lanes)
         scat = resolve_and_shade(res, num_spheres, t, prim, o, d, uniforms_at(bounce, lanes),
@@ -629,14 +632,16 @@ def render_wavefront_regen(
     (n_pixels, 3) radiance sums, segments (N,) int32)."""
     n_pixels = width * height
     n, num_slots, jump = strided_schedule(n_pixels, spp, wavefront_size)
-    rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
-    log, segs = pk.render_persistent(
-        sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0,
-        width=width, height=height, jump_px=jump % width, jump_py=jump // width,
-        num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient, textures=textures,
-        clusters=clusters,
-    )
-    return _fold_log(log, num_slots, n, n_pixels, jump), segs
+    with tr.span("render/kernel"):
+        rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
+        log, segs = pk.render_persistent(
+            sph_table, quad_table, res_table, cam_scalars, seed, rem0, px0, py0,
+            width=width, height=height, jump_px=jump % width, jump_py=jump // width,
+            num_slots=num_slots, max_depth=max_depth, sky_gradient=sky_gradient,
+            textures=textures, clusters=clusters,
+        )
+    with tr.span("render/fold"):
+        return _fold_log(log, num_slots, n, n_pixels, jump), segs
 
 
 def wavefront_step_loop(
@@ -736,11 +741,14 @@ def render_wavefront_step(
     (n_pixels, 3) radiance sums, segments (N,) int32, iterations)."""
     n_pixels = width * height
     n, num_slots, jump = strided_schedule(n_pixels, spp, wavefront_size)
-    rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
-    log, segs, iters = wavefront_step_loop(
-        sph_table, quad_table, res_table, textures, cam_scalars, seed, rem0, px0, py0,
-        width=width, height=height, jump_px=jump % width, jump_py=jump // width,
-        num_slots=num_slots, max_depth=max_depth, rr_start=5, rr_lo=0.05, rr_hi=STEP_RR_HI,
-        sky_gradient=sky_gradient, max_iters=pk.max_iters_for(num_slots, max_depth),
-    )
-    return _fold_log(log, num_slots, n, n_pixels, jump), segs, iters
+    with tr.span("render/kernel"):
+        rem0, px0, py0 = schedule_arrays(n, n_pixels, spp, width, device=sph_table.device)
+        log, segs, iters = wavefront_step_loop(
+            sph_table, quad_table, res_table, textures, cam_scalars, seed, rem0, px0, py0,
+            width=width, height=height, jump_px=jump % width, jump_py=jump // width,
+            num_slots=num_slots, max_depth=max_depth, rr_start=5, rr_lo=0.05,
+            rr_hi=STEP_RR_HI, sky_gradient=sky_gradient,
+            max_iters=pk.max_iters_for(num_slots, max_depth),
+        )
+    with tr.span("render/fold"):
+        return _fold_log(log, num_slots, n, n_pixels, jump), segs, iters

@@ -26,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from raytracer_tpu_torch.utils import trace as tr
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -127,9 +129,10 @@ def build_library() -> Path:
     objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
     tmp = so.with_suffix(f".{tag}.so")
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                        for src, o in zip(sources, objs)])
-        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        with tr.span("kernels/nvcc"):
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                            for src, o in zip(sources, objs)])
+            log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
@@ -146,8 +149,11 @@ def build_log() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+@tr.spanned("kernels/load")
 def load_kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with typed entry points."""
+    """Build (if needed) and load the kernel library, with typed entry
+    points, in a span `kernels/load` (`kernels/nvcc` inside it when it
+    builds)."""
     lib = ctypes.CDLL(str(build_library()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

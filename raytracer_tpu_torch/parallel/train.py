@@ -31,7 +31,6 @@ import torch.distributed as dist
 
 from raytracer_tpu_torch.core.camera import Camera
 from raytracer_tpu_torch.diff.bucketed import (
-    PhaseClock,
     flat_leaves,
     image_loss,
     lane_cotangent,
@@ -44,6 +43,7 @@ from raytracer_tpu_torch.diff.bucketed import (
 from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
 from raytracer_tpu_torch.parallel.mesh import Mesh, lane_block
 from raytracer_tpu_torch.parallel.shard import pass_block, rank_seed, rank_share
+from raytracer_tpu_torch.utils import trace as tr
 
 
 def all_reduce_grads(grads: dict) -> dict:
@@ -124,8 +124,10 @@ def make_sharded_bucketed_grad_fn(rebuild, cam: Camera, target, mesh: Mesh, *, w
     the image sums are all-reduced, and each rank replays its own tape
     against the global image cotangent (`step.backward(params, rank_tape,
     ct_img)`) before the gradients are all-reduced. With one rank this is
-    make_bucketed_grad_fn's step bit for bit. `timings` gets the phases of
-    that step plus "image_all_reduce" and "grad_all_reduce"."""
+    make_bucketed_grad_fn's step bit for bit. Its phases are that step's
+    spans (the replay's lane set-up inside "replay_forward") plus
+    "image_all_reduce" and "grad_all_reduce" (utils/trace.py), whose
+    seconds `timings` gets."""
     dev = target.device
     n = width * height
     k = samples_per_pass
@@ -139,28 +141,26 @@ def make_sharded_bucketed_grad_fn(rebuild, cam: Camera, target, mesh: Mesh, *, w
                                  **shape_kw)
         return RankTape(share, s, rad, tape, rad.reshape(share, n, 3).sum(0))
 
-    def backward(params, rt: RankTape, ct_img, clock=None):
+    def backward(params, rt: RankTape, ct_img, timings=None):
         if rt.samples == 0:
             return nest_like(params, [None] * len(flat_leaves(params)))
-        with torch.no_grad():
+        with tr.phase("replay_forward", timings, dev), torch.no_grad():
             ct_lane = lane_cotangent(ct_img, rt.samples, k)
             lanes = replay_lanes(lane_depths(rt.tape), sky_gradient, None)
         return replay_grads(params, rebuild, None, cam, rt.seed, rt.tape, ct_lane, lanes,
-                            clock=clock, **shape_kw)
+                            timings=timings, **shape_kw)
 
     def step(params, seed: int, timings=None):
-        clock = PhaseClock(timings, dev)
-        rt = forward(params, seed, mesh.position)
-        clock.lap("tape_forward")
-        img_sum = rt.img_sum.clone()
-        dist.all_reduce(img_sum)
-        clock.lap("image_all_reduce")
-        with torch.no_grad():
+        with tr.phase("tape_forward", timings, dev):
+            rt = forward(params, seed, mesh.position)
+        with tr.phase("image_all_reduce", timings, dev):
+            img_sum = rt.img_sum.clone()
+            dist.all_reduce(img_sum)
+        with tr.phase("loss_cotangent", timings, dev), torch.no_grad():
             loss, ct_img = image_loss(img_sum, target, k)
-        clock.lap("loss_cotangent")
-        grads = backward(params, rt, ct_img, clock)
-        grads = all_reduce_grads(grads)
-        clock.lap("grad_all_reduce")
+        grads = backward(params, rt, ct_img, timings)
+        with tr.phase("grad_all_reduce", timings, dev):
+            grads = all_reduce_grads(grads)
         return loss, grads
 
     step.forward, step.backward = forward, backward

@@ -73,6 +73,7 @@ from raytracer_tpu_torch.ops.persistent_kernel import (
     unsupported_reason,
 )
 from raytracer_tpu_torch.render.postprocess import to_u8
+from raytracer_tpu_torch.utils import trace as tr
 from raytracer_tpu_torch.utils.metrics import warp_slots
 
 # Wavefront lanes. At the persistent kernel's 62 registers per thread an
@@ -397,8 +398,9 @@ def render_chunks(
                                        metrics=metrics)
         return
     spp = settings.samples_per_pixel
-    renderer = chunk_renderer(scene, cam, settings, dev, wavefront=wavefront, metrics=metrics,
-                              bilinear_stochastic=bilinear_stochastic)
+    with tr.span("render/pack"):
+        renderer = chunk_renderer(scene, cam, settings, dev, wavefront=wavefront,
+                                  metrics=metrics, bilinear_stochastic=bilinear_stochastic)
     chunk = spp_per_chunk
     if metrics is not None:
         n, num_slots, _ = strided_schedule(settings.width * settings.height, chunk,
@@ -411,7 +413,8 @@ def render_chunks(
     done = min(spp, chunk_idx * chunk)
     while done < spp:
         step = min(chunk, spp - done)
-        fb, segs, it = renderer.render(step, chunk_seed(seed, chunk_idx))
+        with tr.span("render/chunk"):
+            fb, segs, it = renderer.render(step, chunk_seed(seed, chunk_idx))
         iters += it
         seg_parts.append(segs)
         done += step
@@ -472,29 +475,35 @@ def render_image(
     metrics: optional utils.metrics.RenderMetrics, updated per chunk (or
     pass) and with traced-segment totals after the last (one device sync);
     a clustered render also records its host clustering seconds, the BVH
-    builder and the cluster table's section lengths."""
-    dev = resolve_device(device)
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-    if not regenerative:
-        k = samples_per_pass_for(spp, w * h)
-        scene = scene.to(dev)
-        acc = torch.zeros(h, w, 3, dtype=torch.float32, device=dev)
-        for p in range(spp // k):
-            acc += render_pass(scene, cam, chunk_seed(seed, p), width=w, height=h,
-                               samples_per_pass=k, max_depth=settings.max_depth,
-                               sky_gradient=settings.sky_gradient)
-            if metrics is not None:
-                metrics.update((p + 1) * k)
-            if progress:
-                print(f"pass {p + 1}/{spp // k} ({(p + 1) * k}/{spp} spp)", flush=True)
-        return acc / float(spp)
-    acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
-    for _, _, fb in render_chunks(scene, cam, settings, device=dev, seed=seed,
-                                  wavefront=wavefront, log_budget_bytes=log_budget_bytes,
-                                  progress=progress, metrics=metrics,
-                                  bilinear_stochastic=bilinear_stochastic):
-        acc += fb
-    return (acc / float(spp)).reshape(h, w, 3)
+    builder and the cluster table's section lengths.
+
+    The render is a root span `render_image` of utils/trace.py, with
+    `render/pack`, a `render/chunk` a chunk (`render/kernel` and
+    `render/fold` inside it) and `render/mean`."""
+    with tr.span("render_image"):
+        dev = resolve_device(device)
+        w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+        if not regenerative:
+            k = samples_per_pass_for(spp, w * h)
+            scene = scene.to(dev)
+            acc = torch.zeros(h, w, 3, dtype=torch.float32, device=dev)
+            for p in range(spp // k):
+                acc += render_pass(scene, cam, chunk_seed(seed, p), width=w, height=h,
+                                   samples_per_pass=k, max_depth=settings.max_depth,
+                                   sky_gradient=settings.sky_gradient)
+                if metrics is not None:
+                    metrics.update((p + 1) * k)
+                if progress:
+                    print(f"pass {p + 1}/{spp // k} ({(p + 1) * k}/{spp} spp)", flush=True)
+            return acc / float(spp)
+        acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
+        for _, _, fb in render_chunks(scene, cam, settings, device=dev, seed=seed,
+                                      wavefront=wavefront, log_budget_bytes=log_budget_bytes,
+                                      progress=progress, metrics=metrics,
+                                      bilinear_stochastic=bilinear_stochastic):
+            acc += fb
+        with tr.span("render/mean"):
+            return (acc / float(spp)).reshape(h, w, 3)
 
 
 def sample_camera_rays(frame, seed: int, sample_ids, *, width: int, height: int):
@@ -623,10 +632,11 @@ def _large_scene_chunks(scene: Scene, cam: Camera, settings: RenderSettings, *, 
         metrics.wavefront_lanes = k * n
     for p in range(start_chunk, passes):
         step = min(k, spp - done)
-        fb, segs = _large_scene_pass(
-            scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=step,
-            max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
-        )
+        with tr.span("render/chunk"):
+            fb, segs = _large_scene_pass(
+                scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=step,
+                max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
+            )
         seg_parts.append(segs)
         done += step
         if metrics is not None:

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch.utils import trace as tr
+
 
 def to_gamma2(rgb):
     """sqrt tonemap of non-negative linear radiance."""
@@ -12,6 +14,8 @@ def to_gamma2(rgb):
 
 
 def to_u8(rgb_linear):
-    """Gamma 2, clamp to [0, 1], scale by 255.999, truncate."""
-    scaled = torch.clamp(to_gamma2(rgb_linear), 0.0, 1.0) * 255.999
-    return scaled.to(torch.uint8)
+    """Gamma 2, clamp to [0, 1], scale by 255.999, truncate; a root span
+    `to_u8` of utils/trace.py."""
+    with tr.span("to_u8"):
+        scaled = torch.clamp(to_gamma2(rgb_linear), 0.0, 1.0) * 255.999
+        return scaled.to(torch.uint8)

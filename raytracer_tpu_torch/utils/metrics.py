@@ -185,7 +185,9 @@ def save_memory_profile(path: str, device=None) -> bool:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str | None):
     """Profile the block with torch.profiler (CPU activity, and CUDA
-    activity when a card is present) and write its Chrome trace to
+    activity when a card is present), with utils/trace.py's recorder on so
+    that the program's spans (`render_image`, `render/pack`, `render/fold`,
+    ...) lie on the trace's timeline, and write its Chrome trace to
     `log_dir`/trace_<pid>_<time>.json on exit; a no-op when `log_dir` is
     None. Open the trace in Perfetto or chrome://tracing."""
     if not log_dir:
@@ -193,11 +195,18 @@ def profiler_trace(log_dir: str | None):
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from raytracer_tpu_torch.utils import trace
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
+    trace.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        trace.disable()
+        trace.collect()
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

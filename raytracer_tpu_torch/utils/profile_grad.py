@@ -15,7 +15,7 @@ edge term (make_inverse_renderer(boundary=True)); `--grad-full` profiles
 the JAX package's `grad_full` step instead (bench.py:333-352: boundary and
 shadow_edges, training sph_center, sph_radius and tex_c0). On the bucketed
 backend the line then also reads the edge terms' window (the `edges`
-record function) and each term's own (`edges/boundary`, `edges/shadow`):
+span of utils/trace.py) and each term's own (`edges/boundary`, `edges/shadow`):
 its seconds, the device's busy time and idle share in it, its CUDA kernel
 launches and the closest-hit kernel's share. Needs a CUDA device: it fails
 without one.
@@ -53,6 +53,7 @@ def main(argv=None) -> dict:
 
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
     from raytracer_tpu_torch.scenes.registry import get_scene
+    from raytracer_tpu_torch.utils import trace
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="bucketed", choices=("bucketed", "scan"))
@@ -79,11 +80,14 @@ def main(argv=None) -> dict:
         step(seed)
     torch.cuda.synchronize()
     timings = {}
+    trace.enable()  # the step's spans, `edges` and `edges/<name>` among them
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(3, timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    trace.disable()
+    trace.collect()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     prof.export_chrome_trace(args.out)
 

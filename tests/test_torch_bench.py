@@ -61,7 +61,7 @@ def test_every_row_reports_the_jax_keys(name, monkeypatch):
     # The CPU takes the plain twins: no kernel launched, no device metric.
     kernels = {k: v for k, v in row.items() if k.endswith("kernels")}
     assert kernels and all(c == 0 for counts in kernels.values() for c in counts.values())
-    assert "peak_hbm_mb" not in row and "roofline_frac" not in row
+    assert "peak_hbm_mb" not in row
     walls = [v for k, v in row.items() if k.endswith("walls_s")]
     assert walls and all(len(w) == 2 and min(w) > 0 for w in walls)
     if name in JAX_KEYS:

@@ -1,6 +1,6 @@
 """The port's CLI flags on the CPU (raytracer_tpu/cli.py's `--profile`,
 `--memory-profile` and `--checkpoint`): a torch.profiler trace under
-out/trace, the memory report's refusal off the card, and a checkpointed
+out/trace holding the program's spans, the memory report's refusal off the card, and a checkpointed
 render that resumes and writes the plain render's PNG; and the memory
 helpers' CPU results."""
 
@@ -25,6 +25,10 @@ def test_profile_writes_a_trace(tmp_path, monkeypatch):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # The program's spans (utils/trace.py), which --profile turns on.
+    names = {e.get("name") for e in events}
+    assert {"render_image", "render/pack", "render/chunk", "render/kernel", "render/fold",
+            "render/mean", "to_u8"} <= names
     assert report["spp"] == 4 and (tmp_path / "a.png").exists()
 
 
