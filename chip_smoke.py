@@ -96,7 +96,13 @@ counters reset just before and read just after:
   shading; kernel 3 never), in turns with the procedural-table step
   (kernel 3), after the same step on the card against the CPU at 64x36,
   its forward with kernel 1 against the forward with kernel 1's twin, a
-  trainable-camera step and the sharded step at one NCCL rank.
+  trainable-camera step and the sharded step at one NCCL rank;
+* the table gather's backward (phase 20, csrc/gather_kernel.cu): at the
+  train path's read shapes against its twin and bit-identical over two
+  runs, timed beside its byte bound, the twin's index_add_ and PyTorch's
+  index_put_(accumulate=True); every call of one bucketed step at phase 7's
+  shape held and timed at its own shape; that step in turns with the same
+  step whose table reads are plain advanced indexing.
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -263,6 +269,17 @@ LARGE_STEP_DEPTH = 8
 # trace_tape_scene, kernel 1 a bounce) or procedural (kernel 3), timed in
 # this order: each label a scene and its own optimizer.
 RNG_STEP_TURNS = ("rng", "procedural", "procedural", "rng")
+# Phase 20: the table gather's backward at the train cell's read shapes
+# (its 489 primitive rows; 16, 3 and 1 columns: the primitive
+# table, the centres, the radii) over the first bounce's 720,000 positions,
+# GATHER_HOT_SHARE of them on row 0 as a miss or a ground hit puts them;
+# then every call of one bucketed step at phase 7's shape, and that step
+# with the reads plain in turns.
+GATHER_ROWS = 489
+GATHER_POSITIONS = 720_000
+GATHER_HOT_SHARE = 0.6
+GATHER_REPS = 20
+GATHER_STEP_TURNS = ("plain", "gather", "gather", "plain")
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -2090,7 +2107,8 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
             with deterministic():
                 (loss_s, g_s), counts = counted(lambda: steps["shard"](params, seed))
                 loss_p, g_p = steps["plain"](params, seed)
-            check_launches("the sharded bucketed step", counts, ("persistent_tape",))
+            check_launches("the sharded bucketed step", counts,
+                           ("persistent_tape", "table_gather"))
             unequal = [k for k in g_p if not torch.equal(g_p[k], g_s[k])]
             if counts["persistent_tape"] != 1 or float(loss_s) != float(loss_p) or unequal:
                 fail(f"phase 16: sharded step launches {counts}, loss {float(loss_s)} vs "
@@ -2356,7 +2374,7 @@ def rng_tape_phase(smi, counted, check_launches) -> dict:
     if not (math.isfinite(loss) and all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
                                         for g in cam_grads.values())):
         bad.append(f"phase 19 camera step: loss {loss}, camera gradients {cam_grads}")
-    check_launches("phase 19 camera step", counts, ("closest_hit",))
+    check_launches("phase 19 camera step", counts, ("closest_hit", "table_gather"))
     rec["camera_step"] = dict(loss=loss, launches=counts,
                               camera_grad_max={n: float(g.abs().max())
                                                for n, g in cam_grads.items()})
@@ -2370,7 +2388,7 @@ def rng_tape_phase(smi, counted, check_launches) -> dict:
             loss_p, g_p = make_bucketed_grad_fn(rebuild, cam_small, target, **kw)(params, 21)
     finally:
         close_group()
-    check_launches("phase 19 sharded step", counts, ("closest_hit",))
+    check_launches("phase 19 sharded step", counts, ("closest_hit", "table_gather"))
     unequal = [n for n in g_p if not torch.equal(g_s[n], g_p[n])]
     if float(loss_s) != float(loss_p) or unequal:
         bad.append(f"phase 19 sharded step: loss {float(loss_s)} vs {float(loss_p)}, gradients "
@@ -2428,7 +2446,7 @@ def rng_tape_phase(smi, counted, check_launches) -> dict:
         loss, counts = counted(lambda: float(step(seed, timings)))
         wall = time.perf_counter() - t0
         check_launches(f"phase 19 {label} step", counts,
-                       ("closest_hit",) if label == "rng" else ("persistent_tape",))
+                       ("closest_hit" if label == "rng" else "persistent_tape", "table_gather"))
         if label == "procedural" and counts["persistent_tape"] != 1:
             fail(f"phase 19: the procedural step launched kernel 3 {counts['persistent_tape']} "
                  "times")
@@ -2641,6 +2659,156 @@ def large_image_phase(cli, smi) -> dict:
           f"render_image ({driver.path_wavefront('wavefront_step', n_pix)} lanes): wall "
           f"{wall:.4f} s, {segs} segments, {wk.LAUNCHES} kernel-5 launches, peak {peak:.1f} MiB, "
           f"linear mean {np.asarray(mean).round(4).tolist()}; {smi}", flush=True)
+    return rec
+
+
+class GatherRecorder:
+    """Stands in for ops.gather_kernel.gather_backward while a path runs and
+    passes every call on to it, keeping each call's cotangent, rows and
+    row count (`calls`)."""
+
+    def __init__(self, gk):
+        self.gk, self.real, self.calls = gk, gk.gather_backward, []
+
+    def __enter__(self):
+        self.gk.gather_backward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.gk.gather_backward = self.real
+
+    def __call__(self, grad, idx, rows):
+        self.calls.append((grad.detach().clone(), idx.clone(), rows))
+        return self.real(grad, idx, rows)
+
+
+def gather_check(label, grad, idx, rows) -> dict:
+    """The gather backward on the card against its twin's float64 sums on the
+    host, within the float32 rounding of the kernel's own order
+    (ops/gather_kernel.py:rounding_bound), and bit-identical over two
+    runs."""
+    import torch
+
+    from raytracer_tpu_torch.ops import gather_kernel as gk
+
+    got = gk.gather_backward(grad, idx, rows)
+    again = gk.gather_backward(grad, idx, rows)
+    torch.cuda.synchronize()
+    want = gk.gather_backward_plain(grad.double().cpu(), idx.cpu(), rows)
+    n, cols = grad.shape
+    plan = gk.launch_plan(rows, cols, n, torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    err = (got.double().cpu() - want).abs()
+    tol = gk.rounding_bound(grad, idx, rows, plan)
+    if not (torch.equal(got, again) and bool((err <= tol).all())):
+        fail(f"{label}: gather backward vs its twin: bit-identical runs "
+             f"{torch.equal(got, again)}, worst error over its bound "
+             f"{float((err - tol).max())}")
+    return dict(max_abs_err=float(err.max()), worst_err_over_bound=float(
+        (err / tol.clamp_min(1e-300)).max()), plan=plan._asdict())
+
+
+def gather_phase(smi) -> dict:
+    """Phase 20: the table gather's backward kernel (csrc/gather_kernel.cu).
+
+    At the train cell's read shapes (GATHER_ROWS rows of 16, 3 and 1
+    columns, GATHER_POSITIONS positions, GATHER_HOT_SHARE on row 0, int64
+    rows): the kernel against its twin (`gather_check`), then its device
+    time beside its byte bound (the cotangent read once), the twin's
+    index_add_ on the card's tensors (atomics, not deterministic) and
+    PyTorch's index_put_(accumulate=True), autograd's backward of
+    table[idx] that the port no longer calls. Then one bucketed step at
+    phase 7's shape with every gather backward recorded, each call held
+    against its twin and the calls timed at their own shapes, summed; and
+    the step with its reads plain (TableGather.apply replaced by
+    advanced indexing) in turns with the gather step, their gradients
+    side by side."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.diff.bucketed import make_bucketed_grad_fn
+    from raytracer_tpu_torch.diff.grad import render_linear_diff, split_scene
+    from raytracer_tpu_torch.ops import gather_kernel as gk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    def library(grad, idx, rows):
+        return torch.zeros(rows, grad.shape[1], device="cuda").index_put_(
+            (idx,), grad, accumulate=True)
+
+    rec = {"shapes": {}}
+    rng = np.random.default_rng(20)
+    idx_np = rng.integers(0, GATHER_ROWS, GATHER_POSITIONS)
+    idx_np[rng.uniform(size=GATHER_POSITIONS) < GATHER_HOT_SHARE] = 0
+    idx = torch.from_numpy(idx_np).cuda()
+    for cols in (16, 3, 1):
+        grad = torch.from_numpy(rng.standard_normal((GATHER_POSITIONS, cols))
+                                .astype(np.float32)).cuda()
+        r = gather_check(f"phase 20 ({GATHER_ROWS}, {cols})", grad, idx, GATHER_ROWS)
+        r.update(
+            ms=time_device(lambda: gk.gather_backward(grad, idx, GATHER_ROWS), GATHER_REPS),
+            plain_ms=time_device(lambda: gk.gather_backward_plain(grad, idx, GATHER_ROWS),
+                                 GATHER_REPS),
+            library_ms=time_device(lambda: library(grad, idx, GATHER_ROWS), GATHER_REPS),
+            bound_ms=bound(0, grad.numel() * 4)[0])
+        rec["shapes"][f"{GATHER_ROWS}x{cols}"] = r
+    del grad, idx
+
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 7, width=st.width, height=st.height,
+                                    samples_per_pass=st.samples_per_pixel,
+                                    max_depth=st.max_depth)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5).to("cuda")
+    params, rebuild = split_scene(start)
+    step = make_bucketed_grad_fn(rebuild, cam, target, width=st.width, height=st.height,
+                                 samples_per_pass=st.samples_per_pixel, max_depth=st.max_depth)
+    step(params, TRAIN_SEEDS[0])  # warm
+    gk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with GatherRecorder(gk) as calls:
+        step(params, TRAIN_SEEDS[0])
+    torch.cuda.synchronize()
+    launches = gk.LAUNCHES
+    step_rec = dict(launches=launches, calls=len(calls.calls),
+                    rows=sum(int(i.shape[0]) for _, i, _ in calls.calls),
+                    by_cols={}, ms=0.0, library_ms=0.0, bound_ms=0.0, worst_err_over_bound=0.0)
+    for k, (grad, idx_c, rows) in enumerate(calls.calls):
+        c = step_rec["by_cols"].setdefault(str(grad.shape[1]), dict(calls=0, rows=0))
+        c["calls"] += 1
+        c["rows"] += int(grad.shape[0])
+        held = gather_check(f"phase 20 step call {k}", grad, idx_c, rows)
+        step_rec["worst_err_over_bound"] = max(step_rec["worst_err_over_bound"],
+                                               held["worst_err_over_bound"])
+        step_rec["ms"] += time_device(lambda: gk.gather_backward(grad, idx_c, rows), 5)
+        step_rec["library_ms"] += time_device(lambda: library(grad, idx_c, rows), 3)
+        step_rec["bound_ms"] += bound(0, grad.numel() * 4)[0]
+    del calls
+    rec["step"] = step_rec
+
+    real_apply = gk.TableGather.apply
+    turns, grads = [], {}
+    try:
+        for mode in GATHER_STEP_TURNS:
+            gk.TableGather.apply = real_apply if mode == "gather" else (lambda t, i: t[i])
+            timings = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = step(params, TRAIN_SEEDS[1], timings)
+            torch.cuda.synchronize()
+            turns.append(dict(mode=mode, wall_s=time.perf_counter() - t0, loss=float(loss),
+                              **timings))
+            grads.setdefault(mode, g)
+    finally:
+        gk.TableGather.apply = real_apply
+    rec["step_turns"] = turns
+    rec["gradient_gap"] = {
+        k: float((grads["gather"][k] - grads["plain"][k]).norm()
+                 / grads["plain"][k].norm().clamp_min(1e-30)) for k in grads["plain"]}
+    print(f"phase 20 table gather backward at ({GATHER_ROWS}, 16 / 3 / 1) x {GATHER_POSITIONS} "
+          f"positions, {GATHER_HOT_SHARE:.0%} on row 0: {json.dumps(rec['shapes'])}; one "
+          f"bucketed step at 400x225@8spp depth 50: {json.dumps(step_rec)}; the step in turns "
+          f"with plain reads: {json.dumps(turns)}, gradient gap (norm of the difference over "
+          f"the plain step's norm) {json.dumps(rec['gradient_gap'])}; {smi}", flush=True)
     return rec
 
 
@@ -3022,6 +3190,7 @@ def main() -> int:
     # ---- phase 8: kernel 5 vs its twin; the wavefront-step path vs kernel 2 ----
     phase_start["8"] = time.perf_counter()
     from raytracer_tpu_torch.ops import culled_kernel as ck
+    from raytracer_tpu_torch.ops import gather_kernel as gk
     from raytracer_tpu_torch.ops import wavefront_kernel as wk
 
     k5 = step_kernel_check()
@@ -3046,7 +3215,7 @@ def main() -> int:
     counters = (("closest_hit", ik, "LAUNCHES"), ("closest_hit_clustered", ik, "LAUNCHES_CLUSTERED"),
                 ("persistent_render", pk, "LAUNCHES"),
                 ("persistent_tape", pk, "LAUNCHES_TAPE"), ("culled", ck, "LAUNCHES"),
-                ("wavefront_step", wk, "LAUNCHES"))
+                ("wavefront_step", wk, "LAUNCHES"), ("table_gather", gk, "LAUNCHES"))
 
     def counted(fn):
         """(fn(), launches of every kernel during it), the counts zeroed
@@ -3239,6 +3408,11 @@ def main() -> int:
     phase_start["19"] = time.perf_counter()
     rng_rec = rng_tape_phase(smi, counted, check_launches)
     record["rng_table_step"] = rng_rec
+
+    # ---- phase 20: the table gather's backward ----
+    phase_start["20"] = time.perf_counter()
+    gather_rec = gather_phase(smi)
+    record["table_gather"] = gather_rec
 
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
@@ -3473,6 +3647,27 @@ def main() -> int:
                      f"({k5['ns']} spheres, {k5['nq']} quad)",
             "launches_3840x2160": large_img["wavefront_step_3840x2160"]["launches"],
         },
+        {
+            "name": "table_gather",
+            "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/gather_kernel.cu",
+            "replaces": None,
+            "launches": gather_rec["step"]["launches"],
+            "on_main_path": True,
+            "path": "training, bucketed backend: the backward of the replay's table reads in "
+                    "one step at 400x225@8spp depth 50 (phase 20)",
+            "max_abs_err": max(v["max_abs_err"] for v in gather_rec["shapes"].values()),
+            "ms": gather_rec["step"]["ms"],
+            "plain_ms": None,
+            "bound_ms": gather_rec["step"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": gather_rec["step"]["library_ms"],
+            "shape": f"the step's {gather_rec['step']['calls']} backward calls at their own "
+                     f"positions ({gather_rec['step']['rows']} in all); ms, bound_ms and "
+                     "library_ms (index_put_ with accumulate, autograd's backward of "
+                     "table[idx]) summed over the calls",
+            "cell_shapes": gather_rec["shapes"],
+        },
     ]
     # The sharded paths' launches (phase 16), each counted around its own run.
     dl, gd = dist_rec["large_scene"]["shard"]["launches"], gloo0["dryrun"]
@@ -3490,6 +3685,8 @@ def main() -> int:
         "culled_closest_hit": dict(large_scene_nccl_one_rank=dl["culled"]),
         "wavefront_step": dict(wavefront_step_nccl_one_rank=dist_rec["wavefront_step"]["shard"][
             "launches"]["wavefront_step"]),
+        "table_gather": dict(
+            sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["table_gather"]),
     }
     for entry in kernels:
         entry["sharded_launches"] = sharded[entry["name"]]

@@ -30,6 +30,7 @@ from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.geometry.scene import Scene
 from raytracer_tpu_torch.ops import culled_kernel as ck
 from raytracer_tpu_torch.ops import intersect_kernel as ik
+from raytracer_tpu_torch.ops.gather_kernel import gather_rows
 
 DEFAULT_T_MIN = ik.T_MIN
 # The reference adds 5*pi/12 to the sphere's phi "to make the earth texture
@@ -117,7 +118,8 @@ def winner_t_diff(scene: Scene, qd: QuadDerived, origin, direction, prim, t_nd, 
     the JAX package's `_winner_t_diff`): the expanded-form sphere and quad
     formulas at the winner's row only. Lanes whose `t_nd` is +inf (misses)
     keep it; every branch takes finite inputs on the lanes it does not own
-    (double where), so no infinite partial meets a zero cotangent."""
+    (double where), so no infinite partial meets a zero cotangent. The
+    winners' rows are read by ops/gather_kernel.py:gather_rows."""
     ns = scene.num_spheres
     hit = torch.isfinite(t_nd)
     primc = torch.where(hit, prim, torch.zeros_like(prim)).long()
@@ -125,8 +127,8 @@ def winner_t_diff(scene: Scene, qd: QuadDerived, origin, direction, prim, t_nd, 
     sidx = torch.clamp(primc, max=ns - 1)
     qidx = torch.clamp(primc - ns, min=0, max=scene.num_quads - 1)
 
-    c = scene.sph_center[sidx]
-    r = scene.sph_radius[sidx]
+    c = gather_rows(scene.sph_center, sidx)
+    r = gather_rows(scene.sph_radius, sidx)
     oc = origin - c
     a = vm.length_sq(direction)
     half_b = vm.dot(direction, oc)
@@ -140,11 +142,11 @@ def winner_t_diff(scene: Scene, qd: QuadDerived, origin, direction, prim, t_nd, 
     t1 = (-half_b + sq) * inv_a
     t_s = torch.where(t0 > t_min, t0, t1)
 
-    n = qd.normal[qidx]
+    n = gather_rows(qd.normal, qidx)
     d_n = vm.dot(direction, n)
     denom_ok = d_n.abs() >= ik.QUAD_DENOM_EPS
     safe_dn = torch.where(denom_ok, d_n, torch.ones_like(d_n))
-    t_q = (qd.d[qidx] - vm.dot(origin, n)) / safe_dn
+    t_q = (gather_rows(qd.d, qidx) - vm.dot(origin, n)) / safe_dn
 
     t = torch.where(is_quad, t_q, t_s)
     return torch.where(hit, t, t_nd)

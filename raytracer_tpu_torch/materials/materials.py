@@ -31,6 +31,7 @@ from raytracer_tpu_torch.core.sampling import unit_sphere_from_uniform
 from raytracer_tpu_torch.geometry.scene import DIELECTRIC, DIFFUSE_LIGHT, LAMBERTIAN, METAL
 from raytracer_tpu_torch.materials import packed as pk
 from raytracer_tpu_torch.materials.textures import eval_texture_extra, eval_texture_rows
+from raytracer_tpu_torch.ops.gather_kernel import gather_rows
 
 # U[0,1) uniforms consumed per lane per bounce: 2 for the unit-sphere sample
 # (Lambertian direction / metal fuzz), 1 for the dielectric coin.
@@ -74,11 +75,12 @@ def resolve_and_shade(
     materials.packed.texture_tables(scene, qd), None for scenes without
     noise or image textures; `tap_uniforms` (N, 2) the stochastic bilinear
     tap's draws when its filter is FILTER_STOCHASTIC. Miss lanes return
-    finite garbage that callers mask with `hit`."""
+    finite garbage that callers mask with `hit`. The winners' rows of
+    `table` are read by ops/gather_kernel.py:gather_rows."""
     hit = torch.isfinite(t)
     t = torch.where(hit, t, torch.zeros_like(t))
     prim = torch.where(hit, prim, torch.zeros_like(prim)).long()
-    row = table[prim]  # (N, N_COLS): the one indexed read
+    row = gather_rows(table, prim)  # (N, N_COLS): the one indexed read
     g = row[:, pk.COL_G]
     g3 = row[:, pk.COL_G3]
     mtype = row[:, pk.COL_MTYPE].to(torch.int32)

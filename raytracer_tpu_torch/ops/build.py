@@ -79,6 +79,9 @@ SIGNATURES = {
     # clusters, n_sph_super, n_sph, n_quad_super, n_quad, sph, ns, quad, nq,
     # origin, direction, n, t_out, prim_out, threads, stream
     "rt_intersect_culled": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],
+    # grad, idx, idx_is_64, n, rows, cols, tile_rows, tiles, blocks, warps,
+    # partial, out, sum_threads, stream
+    "rt_gather_backward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
 }
 
 

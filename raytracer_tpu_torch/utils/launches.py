@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from raytracer_tpu_torch.ops import (
     culled_kernel,
+    gather_kernel,
     intersect_kernel,
     persistent_kernel,
     wavefront_kernel,
@@ -31,6 +32,7 @@ COUNTERS = (
     ("persistent_tape", persistent_kernel, "LAUNCHES_TAPE"),
     ("culled_closest_hit", culled_kernel, "LAUNCHES"),
     ("wavefront_step", wavefront_kernel, "LAUNCHES"),
+    ("table_gather", gather_kernel, "LAUNCHES"),
 )
 
 
