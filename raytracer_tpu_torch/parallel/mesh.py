@@ -42,24 +42,25 @@ def init_group(device="cuda", *, backend: str | None = None, coordinator: str | 
     The group comes from `coordinator` ("host:port"), `process_id` and
     `num_processes` when a coordinator is given; else from the environment
     when it has RANK and WORLD_SIZE (`torchrun`); else it is a group of one
-    rank, rendezvousing in process. A CUDA device is cuda:LOCAL_RANK
-    (LOCAL_RANK from the environment, default 0), made current before the
-    group starts, and a CUDA request without a card raises. `backend`
-    defaults to "nccl" on CUDA and "gloo" on the CPU; NCCL's communicator
-    is created here by a one-element all-reduce, so start-up is paid in
-    this call."""
+    rank, rendezvousing in process. A CUDA device is `local_card`'s, made
+    current before the group starts, and a CUDA request without a card
+    raises. `backend` defaults to "nccl" on CUDA and "gloo" on the CPU;
+    NCCL's communicator is created here by a one-element all-reduce, so
+    start-up is paid in this call."""
+    if coordinator is not None and (process_id is None or num_processes is None):
+        raise ValueError("a coordinator needs process_id and num_processes")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA requested but torch.cuda.is_available() is false")
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        rank = process_id if coordinator is not None else os.environ.get("RANK")
+        dev = torch.device("cuda", local_card(None if rank is None else int(rank),
+                                              torch.cuda.device_count()))
         torch.cuda.set_device(dev)
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if coordinator is not None:
-        if process_id is None or num_processes is None:
-            raise ValueError("a coordinator needs process_id and num_processes")
         dist.init_process_group(backend, init_method=f"tcp://{coordinator}", rank=process_id,
                                 world_size=num_processes)
     elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -68,6 +69,17 @@ def init_group(device="cuda", *, backend: str | None = None, coordinator: str | 
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     dist.all_reduce(torch.zeros(1, device=dev))
     return dev
+
+
+def local_card(rank: int | None, cards: int) -> int:
+    """The card index of a rank on its host: LOCAL_RANK when the
+    environment has it (torchrun sets it); else, for a rank of a group
+    (`rank` given: a coordinator's process_id, or the environment's RANK),
+    the rank modulo the host's `cards`, so ranks started one by one on one
+    host each take their own card; else 0 (a group of one)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return 0 if rank is None else rank % max(cards, 1)
 
 
 def close_group() -> None:

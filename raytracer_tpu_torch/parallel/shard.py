@@ -59,6 +59,7 @@ from raytracer_tpu_torch.render.driver import (
     trace_samples,
 )
 from raytracer_tpu_torch.integrator.wavefront import strided_schedule
+from raytracer_tpu_torch.utils import trace as tr
 from raytracer_tpu_torch.utils.metrics import warp_slots
 
 # Counter of the rank-seed stream: rank_seed hashes (seed, position, this);
@@ -333,6 +334,7 @@ def _resume(checkpoint_path: str, fingerprint: str, acc, mesh: Mesh):
     return int(state[1]), int(state[2])
 
 
+@tr.spanned("render_image_sharded")
 def render_image_sharded(
     scene: Scene,
     cam: Camera,
@@ -373,7 +375,14 @@ def render_image_sharded(
     path, the image filter and the device type, and a checkpoint of
     another configuration is refused on every rank. `max_chunks` stops
     after that many chunks. The large-scene path and the pass loop do not
-    checkpoint and refuse a checkpoint path."""
+    checkpoint and refuse a checkpoint path.
+
+    The render is a root span `render_image_sharded` of utils/trace.py. On
+    the regenerative loop it holds `render/pack` (the rank's tables), a
+    `render/chunk` a chunk (the rank's partial, with `render/kernel` and
+    `render/fold`; counter `rank_segments`, the segments this rank
+    traced), a `render/all_reduce` a chunk (counter `all_reduce_bytes`,
+    the framebuffer's bytes) and `render/mean`."""
     from raytracer_tpu_torch.render.checkpoint import BackgroundSaver, RenderCheckpoint
 
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
@@ -401,8 +410,9 @@ def render_image_sharded(
                 print(f"pass {p + 1}/{spp // k} ({(p + 1) * k}/{spp} spp)", flush=True)
         return acc / float(spp)
 
-    renderer = regen_renderer(scene, cam, settings, mesh, wavefront=wavefront, metrics=metrics,
-                               bilinear_stochastic=bilinear_stochastic)
+    with tr.span("render/pack"):
+        renderer = regen_renderer(scene, cam, settings, mesh, wavefront=wavefront,
+                                  metrics=metrics, bilinear_stochastic=bilinear_stochastic)
     chunk = default_spp_chunk(scene, settings, wavefront=wavefront,
                               log_budget_bytes=log_budget_bytes, ranks=mesh.size)
     if metrics is not None:
@@ -426,9 +436,14 @@ def render_image_sharded(
     try:
         while done < spp and (max_chunks is None or chunks_run < max_chunks):
             step = min(chunk, spp - done)
-            fb, segs, it = regen_partial(renderer, step, chunk_seed(seed, chunk_idx),
-                                         mesh.position, mesh.size)
-            dist.all_reduce(fb)
+            with tr.span("render/chunk"):
+                fb, segs, it = regen_partial(renderer, step, chunk_seed(seed, chunk_idx),
+                                             mesh.position, mesh.size)
+                if tr.enabled():
+                    tr.count("rank_segments", segs.sum())
+            with tr.span("render/all_reduce"):
+                tr.count("all_reduce_bytes", fb.numel() * fb.element_size())
+                dist.all_reduce(fb)
             acc = acc + fb
             if metrics is not None and segs.numel():
                 stats[0] += segs.sum()
@@ -455,4 +470,5 @@ def render_image_sharded(
         dist.all_reduce(stats)
         metrics.update(done, segments=int(stats[0]), warp_slots=int(stats[1]),
                        iterations=int(stats[2]))
-    return (acc / float(max(done, 1))).reshape(h, w, 3)
+    with tr.span("render/mean"):
+        return (acc / float(max(done, 1))).reshape(h, w, 3)

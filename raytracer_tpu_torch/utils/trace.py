@@ -21,7 +21,9 @@ records
   after one device sync (none on a machine without a card);
 * the deltas over the span of the port's kernel launches
   (utils/launches.py's counters), of host syncs (below) and of the
-  counters that `count(key, n)` adds to every open span of the thread;
+  counters that `count(key, n)` adds to every open span of the thread
+  (`n` an int, or a one-element tensor that `collect()` reads after its
+  device sync, so counting a device value syncs nothing inside the span);
 * a `torch.profiler.record_function(name)` over its extent, so that under
   any profiler the span lands on the profiler's own timeline beside the
   device activity, and an idle gap or a kernel can be put down to the
@@ -37,6 +39,10 @@ mode, warning filters and `warnings.showwarning`. An explicit
 replays the warnings of its device threads on the calling thread when a
 backward ends, so the syncs of a backward count toward the span around
 it (the train step's `backward`).
+
+Across ranks, `gather(spans)` brings each rank's collected spans to rank 0
+over the default process group (a collective, run outside timed work), so
+that one rank can compare the ranks' spans item by item.
 
 `phase(name, timings, device)` is a span that, given a `timings` dict,
 ends with a device sync and adds its wall seconds to `timings[name]`
@@ -56,6 +62,7 @@ import time
 import warnings
 
 import torch
+import torch.distributed as dist
 
 # The text of the warning PyTorch's sync debug mode gives at every sync.
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -102,7 +109,7 @@ _REC = _Recorder()
 
 class _Span:
     __slots__ = ("name", "id", "parent", "item", "t0", "t1", "ev0", "ev1", "launches",
-                 "syncs", "counts", "rf")
+                 "syncs", "counts", "pending", "rf")
 
     def __init__(self, name: str):
         self.name = name
@@ -114,6 +121,7 @@ class _Span:
         self.parent = stack[-1].id if stack else None
         self.item = stack[0].item if stack else self.id
         self.counts = {}
+        self.pending = []  # (key, one-element tensor) read by collect()
         self.rf = torch.profiler.record_function(self.name)
         self.rf.__enter__()
         self.launches = rec.launch_count()
@@ -198,13 +206,23 @@ def phase(name: str, timings: dict | None = None, device=None, also: tuple = ())
     return _Phase(name, timings, device, also)
 
 
-def count(key: str, n: int = 1) -> None:
+def enabled() -> bool:
+    """Whether the recorder is on: work done only to feed a counter is
+    skipped when it is off."""
+    return _REC.on
+
+
+def count(key: str, n=1) -> None:
     """Add `n` to counter `key` of every span open on this thread (no-op
-    when the recorder is off)."""
+    when the recorder is off). `n` is an int, or a one-element tensor
+    whose value `collect()` reads after its device sync."""
     if not _REC.on:
         return
     for s in _REC.stack():
-        s.counts[key] = s.counts.get(key, 0) + n
+        if isinstance(n, torch.Tensor):
+            s.pending.append((key, n))
+        else:
+            s.counts[key] = s.counts.get(key, 0) + n
 
 
 def enable() -> None:
@@ -252,6 +270,10 @@ def collect() -> list[dict]:
     done, rec.finished = rec.finished, []
     if any(s.ev0 is not None for s in done):
         torch.cuda.synchronize()
+    for s in done:
+        for key, n in s.pending:
+            s.counts[key] = s.counts.get(key, 0) + int(n)
+        s.pending = []
     child_ns: dict = {}
     for s in done:
         if s.parent is not None:
@@ -266,4 +288,15 @@ def collect() -> list[dict]:
             "device_ms": s.ev0.elapsed_time(s.ev1) if s.ev0 is not None else None,
             "launches": s.launches, "syncs": s.syncs, "counts": dict(s.counts),
         })
+    return out
+
+
+def gather(spans: list, dst: int = 0):
+    """Every rank's collected `spans` on rank `dst`, in rank order (None on
+    the other ranks); a collective over the default process group, which
+    every rank calls. Without a group, [spans]."""
+    if not dist.is_initialized():
+        return [spans]
+    out = [None] * dist.get_world_size() if dist.get_rank() == dst else None
+    dist.gather_object(spans, out, dst=dst)
     return out
