@@ -101,8 +101,15 @@ counters reset just before and read just after:
   train path's read shapes against its twin and bit-identical over two
   runs, timed beside its byte bound, the twin's index_add_ and PyTorch's
   index_put_(accumulate=True); every call of one bucketed step at phase 7's
-  shape held and timed at its own shape; that step in turns with the same
-  step whose table reads are plain advanced indexing.
+  shape, on the eager replay, held and timed at its own shape; that step in
+  turns with the same step whose table reads are plain advanced indexing;
+* the replay kernels (phase 21, csrc/replay_kernel.cu) at the train path's
+  shape on one step's own tape and lanes: the forward and the adjoint
+  against their twins bit for bit, the adjoint bit-identical over two
+  launches, each timed beside its bound with the reduction, the twins and
+  the eager replay; the kernel path's reduced gradients against the eager
+  replay's autograd; two steps from one state and seed bit-identical, with
+  their launches; the step in turns on the eager replay and the kernels.
 
 The noise instantiations of kernels 2 and 3 (perlin, simple_light) read
 the marble's Perlin tables from the block's shared memory
@@ -280,6 +287,30 @@ GATHER_POSITIONS = 720_000
 GATHER_HOT_SHARE = 0.6
 GATHER_REPS = 20
 GATHER_STEP_TURNS = ("plain", "gather", "gather", "plain")
+# Phase 21: the replay kernels at the train cell's shape (phase 7's), timed
+# over this many launches each, and the train step in turns on the eager
+# replay and on the kernels. The reduced gradients against the eager
+# replay's autograd on the card: the colour leaves by the gap of norms,
+# every leaf by its median row (the benchmark's grad_row_gap). The two are
+# float32 evaluations of one function in different orders (the eager
+# replay's three-term sums are CUDA reductions), and the r = 1000 ground's
+# expanded-form sphere test cancels about five digits, so the rays that
+# leave the ground differ in their last digits and a few near-tangent hits
+# part: the first readings were 5.1e-4 and 2.3e-3 (colours) and at most
+# 0.030 (mat_fuzz's median row), the parent's own grad_row_gap against the
+# float64 reference reads 0.02-0.03, and the sphere normal's derivative cut
+# reads 0.33-0.38 there (PERF.md section 2).
+REPLAY_REPS = 20
+REPLAY_STEP_TURNS = ("eager", "kernel", "kernel", "eager")
+REPLAY_COLOUR_LEAVES = ("mat_albedo", "tex_c0")
+REPLAY_COLOUR_GAP = 1e-2
+REPLAY_ROW_GAP = 0.1
+# FP32 operations a lane-bounce of the forward and of the adjoint (which
+# recomputes the forward), counted from csrc/replay_kernel.cu's source for
+# a Lambertian sphere hit (a dielectric adds about 60 to each): the
+# operations side of the kernels' bounds.
+REPLAY_FORWARD_OPS = 150
+REPLAY_ADJOINT_OPS = 450
 
 # Least time bounds: utils/bounds.py (NVIDIA's published H100 SXM peaks at
 # 700 W, and the FP32 operations of csrc/closest_hit.cuh's candidates).
@@ -2107,8 +2138,8 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
             with deterministic():
                 (loss_s, g_s), counts = counted(lambda: steps["shard"](params, seed))
                 loss_p, g_p = steps["plain"](params, seed)
-            check_launches("the sharded bucketed step", counts,
-                           ("persistent_tape", "table_gather"))
+            check_launches("the sharded bucketed step", counts, ("persistent_tape", "table_gather",
+                                                                  "replay_path", "replay_adjoint"))
             unequal = [k for k in g_p if not torch.equal(g_p[k], g_s[k])]
             if counts["persistent_tape"] != 1 or float(loss_s) != float(loss_p) or unequal:
                 fail(f"phase 16: sharded step launches {counts}, loss {float(loss_s)} vs "
@@ -2718,11 +2749,13 @@ def gather_phase(smi) -> dict:
     index_add_ on the card's tensors (atomics, not deterministic) and
     PyTorch's index_put_(accumulate=True), autograd's backward of
     table[idx] that the port no longer calls. Then one bucketed step at
-    phase 7's shape with every gather backward recorded, each call held
-    against its twin and the calls timed at their own shapes, summed; and
-    the step with its reads plain (TableGather.apply replaced by
-    advanced indexing) in turns with the gather step, their gradients
-    side by side."""
+    phase 7's shape on the eager replay (`eager_replay`: the reads this
+    kernel serves there; phase 21 holds the replay kernels, whose rows it
+    sums too) with every gather backward recorded, each call held against
+    its twin and the calls timed at their own shapes, summed; and that
+    step with its reads plain (TableGather.apply replaced by advanced
+    indexing) in turns with the gather step, their gradients side by
+    side."""
     import numpy as np
     import torch
 
@@ -2762,11 +2795,12 @@ def gather_phase(smi) -> dict:
     params, rebuild = split_scene(start)
     step = make_bucketed_grad_fn(rebuild, cam, target, width=st.width, height=st.height,
                                  samples_per_pass=st.samples_per_pixel, max_depth=st.max_depth)
-    step(params, TRAIN_SEEDS[0])  # warm
-    gk.LAUNCHES = 0
-    torch.cuda.synchronize()
-    with GatherRecorder(gk) as calls:
-        step(params, TRAIN_SEEDS[0])
+    with eager_replay():
+        step(params, TRAIN_SEEDS[0])  # warm
+        gk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        with GatherRecorder(gk) as calls:
+            step(params, TRAIN_SEEDS[0])
     torch.cuda.synchronize()
     launches = gk.LAUNCHES
     step_rec = dict(launches=launches, calls=len(calls.calls),
@@ -2787,19 +2821,20 @@ def gather_phase(smi) -> dict:
 
     real_apply = gk.TableGather.apply
     turns, grads = [], {}
-    try:
-        for mode in GATHER_STEP_TURNS:
-            gk.TableGather.apply = real_apply if mode == "gather" else (lambda t, i: t[i])
-            timings = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, g = step(params, TRAIN_SEEDS[1], timings)
-            torch.cuda.synchronize()
-            turns.append(dict(mode=mode, wall_s=time.perf_counter() - t0, loss=float(loss),
-                              **timings))
-            grads.setdefault(mode, g)
-    finally:
-        gk.TableGather.apply = real_apply
+    with eager_replay():
+        try:
+            for mode in GATHER_STEP_TURNS:
+                gk.TableGather.apply = real_apply if mode == "gather" else (lambda t, i: t[i])
+                timings = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, g = step(params, TRAIN_SEEDS[1], timings)
+                torch.cuda.synchronize()
+                turns.append(dict(mode=mode, wall_s=time.perf_counter() - t0, loss=float(loss),
+                                  **timings))
+                grads.setdefault(mode, g)
+        finally:
+            gk.TableGather.apply = real_apply
     rec["step_turns"] = turns
     rec["gradient_gap"] = {
         k: float((grads["gather"][k] - grads["plain"][k]).norm()
@@ -2809,6 +2844,211 @@ def gather_phase(smi) -> dict:
           f"bucketed step at 400x225@8spp depth 50: {json.dumps(step_rec)}; the step in turns "
           f"with plain reads: {json.dumps(turns)}, gradient gap (norm of the difference over "
           f"the plain step's norm) {json.dumps(rec['gradient_gap'])}; {smi}", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def eager_replay(on: bool = True):
+    """The bucketed step's replay on the eager path (`trace` with autograd)
+    whatever the scene, while `on`: diff/bucketed.py:takes_replay_kernel
+    answers no."""
+    from raytracer_tpu_torch.diff import bucketed as bk
+
+    real = bk.takes_replay_kernel
+    if on:
+        bk.takes_replay_kernel = lambda scene, device: False
+    try:
+        yield
+    finally:
+        bk.takes_replay_kernel = real
+
+
+def median_row_gap(a, b):
+    """The median over rows with a nonzero reference norm of |row norm -
+    row norm| / reference row norm (`b` the reference), as the benchmark's
+    grad_row_gap reads one leaf."""
+    import torch
+
+    ra = a.reshape(a.shape[0], -1).norm(dim=1)
+    rb = b.reshape(b.shape[0], -1).norm(dim=1)
+    on = rb > 0
+    if not bool(on.any()):
+        return 0.0
+    return float(((ra[on] - rb[on]).abs() / rb[on]).median())
+
+
+def replay_phase(smi, counted, check_launches) -> dict:
+    """Phase 21: the replay kernels (csrc/replay_kernel.cu) at the train
+    cell's shape, rand_spheres 400x225@8spp depth 50, on one step's own
+    tape, lanes and cotangent.
+
+    The forward kernel against its twin (radiance, scratch state,
+    segments) and the adjoint against its twin (every lane-bounce's
+    cotangent row and index, the per-lane cotangents), bit for bit; the
+    adjoint twice, bit-identical. Each kernel's device time (CUDA events
+    behind a spin kernel) beside its bound, the reduction's, the twins'
+    and the eager replay's (forward and autograd's backward, synced host
+    clock). The reduction of the adjoint's rows against their float64 sums
+    within its rounding bound, and the reduced gradients of the kernel
+    path against the eager replay's autograd on the same inputs
+    (REPLAY_COLOUR_GAP, REPLAY_ROW_GAP). Two train steps from the same
+    state and seed, bit-identical, with their launches; then the step in
+    turns on the eager replay and on the kernels (`timings` phases)."""
+    import torch
+
+    from raytracer_tpu_torch.core.camera import camera_frame, camera_rays
+    from raytracer_tpu_torch.diff import bucketed as bk
+    from raytracer_tpu_torch.diff.grad import render_linear_diff, split_scene
+    from raytracer_tpu_torch.geometry.intersect import quad_derived
+    from raytracer_tpu_torch.materials.packed import primitive_table
+    from raytracer_tpu_torch.ops import ctr_rng
+    from raytracer_tpu_torch.ops import gather_kernel as gk
+    from raytracer_tpu_torch.ops import replay_kernel as rk
+    from raytracer_tpu_torch.scenes.registry import get_scene
+
+    rec = {}
+    scene, cam, st = get_scene("rand_spheres", **TRAIN_CFG)
+    w, h, k, depth_max = st.width, st.height, st.samples_per_pixel, st.max_depth
+    with torch.no_grad():
+        target = render_linear_diff(scene.to("cuda"), cam, 7, width=w, height=h,
+                                    samples_per_pass=k, max_depth=depth_max)
+    start = dataclasses.replace(scene, tex_c0=scene.tex_c0 * 0.5).to("cuda")
+    params, rebuild = split_scene(start)
+    seed = TRAIN_SEEDS[0]
+    rad, tape = bk.tape_forward(params, rebuild, None, cam, seed, k * w * h, width=w, height=h,
+                                max_depth=depth_max, sky_gradient=False, device="cuda")
+    _, ct_lane, lane_depth, _ = bk.finish(rad, tape, target, samples_per_pass=k)
+    lanes = bk.replay_lanes(lane_depth, False, None)
+    depth = lane_depth[lanes]
+    offs, rows = rk.scratch_layout(depth)
+    qd = quad_derived(start)
+    table, geom = primitive_table(start, qd), rk.geom_table(start, qd)
+    pix = lanes % (w * h)
+    o0, d0 = camera_rays(camera_frame(cam, w, h).to("cuda"), pix % w, pix // w,
+                         ctr_rng.camera_uniforms(seed, lanes))
+    bg = cam.background.cuda()
+    grad = ct_lane[lanes].contiguous()
+    args = (table, geom, start.num_spheres, tape, lanes, offs, depth)
+
+    def twins():
+        f = rk.replay_forward_plain(*args, rows, o0, d0, bg, seed, False)
+        return f, rk.replay_adjoint_plain(*args, f, grad, bg, seed, False)
+
+    fwd = rk.replay_forward(*args, rows, o0, d0, bg, seed, False)
+    (fwd_p, adj_p), plain_ms = timed(twins)
+    adj = rk.replay_adjoint(*args, fwd, grad, bg, seed, False)
+    again = rk.replay_adjoint(*args, fwd, grad, bg, seed, False)
+    torch.cuda.synchronize()
+    unequal, max_abs = {}, {}
+    for label, a, b in (("forward", fwd, fwd_p), ("adjoint", adj, adj_p)):
+        for name, x, y in zip(a._fields, a, b):
+            gap = (x.double() - y.double()).abs().nan_to_num(0)
+            max_abs[f"{label}.{name}"] = float(gap.max()) if gap.numel() else 0.0
+            if not torch.equal(x, y):
+                unequal[f"{label}.{name}"] = dict(
+                    equal_share=float((x == y).float().mean()),
+                    max_abs=max_abs[f"{label}.{name}"])
+    repeat = all(torch.equal(x, y) for x, y in zip(adj, again))
+    segs = int(fwd.segments.sum())
+    rec["shape"] = dict(lanes=int(lanes.shape[0]), scratch_rows=rows, segments=segs,
+                        deepest=int(fwd.segments.max()), table_rows=int(table.shape[0]))
+    rec["twin_max_abs"] = max_abs
+    if unequal or not repeat:
+        fail(f"phase 21: the replay kernels vs their twins: unequal {json.dumps(unequal)}, "
+             f"adjoint bit-identical over two launches {repeat}; {json.dumps(rec['shape'])}")
+
+    # The reduction against the same rows summed in float64 on the host,
+    # within the float32 rounding of its fixed order.
+    g_table, g_geom = rk.reduce_rows(adj, table.shape[0])
+    got = g_table.clone()
+    got[:, rk.GEOM_COLS] = g_geom
+    plan = gk.launch_plan(table.shape[0], rk.ROW_COLS, rows,
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    want = gk.gather_backward_plain(adj.rows.double().cpu(), adj.index.long().cpu(),
+                                    table.shape[0])
+    tol = gk.rounding_bound(adj.rows, adj.index.long(), table.shape[0], plan)
+    err = (got.double().cpu() - want).abs()
+    if not bool((err <= tol).all()):
+        fail(f"phase 21: the rows' reduction off their float64 sums by "
+             f"{float((err - tol).max())} over its rounding bound")
+    rec["reduction"] = dict(max_abs_err=float(err.max()), worst_err_over_bound=float(
+        (err / tol.clamp_min(1e-300)).max()), plan=plan._asdict())
+
+    n = lanes.shape[0]
+    fwd_bytes = segs * (4 + 4 * rk.STATE_COLS) + n * (24 + 8 + 8 + 4 + 12 + 4)
+    adj_bytes = segs * (4 + 4 * rk.STATE_COLS) + rows * (4 * rk.ROW_COLS + 4) + n * (
+        12 + 8 + 8 + 4 + 4 + 4 * rk.LANE_COLS)
+    red_bytes = rows * (4 * rk.ROW_COLS + 4) + table.numel() * 4
+    times = dict(
+        forward_ms=time_device(lambda: rk.replay_forward(*args, rows, o0, d0, bg, seed, False),
+                               REPLAY_REPS),
+        adjoint_ms=time_device(lambda: rk.replay_adjoint(*args, fwd, grad, bg, seed, False),
+                               REPLAY_REPS),
+        reduce_ms=time_device(lambda: rk.reduce_rows(adj, table.shape[0]), REPLAY_REPS))
+    bounds = dict(forward=bound(segs * REPLAY_FORWARD_OPS, fwd_bytes),
+                  adjoint=bound(segs * REPLAY_ADJOINT_OPS, adj_bytes),
+                  reduce=bound(rows * rk.ROW_COLS, red_bytes))
+    rec["kernels"] = dict(**times, bound_ms={k_: v[0] for k_, v in bounds.items()},
+                          bound_by={k_: v[1] for k_, v in bounds.items()},
+                          plain_ms=plain_ms)
+
+    # The reduced gradients and the eager replay on the same inputs.
+    grads, walls = {}, {}
+    for mode in ("kernel", "eager", "kernel", "eager"):
+        with eager_replay(mode == "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = bk.replay_grads(params, rebuild, None, cam, seed, tape, ct_lane, lanes,
+                                lane_depth, width=w, height=h, max_depth=depth_max,
+                                sky_gradient=False)
+            torch.cuda.synchronize()
+        walls.setdefault(mode, []).append((time.perf_counter() - t0) * 1e3)
+        grads.setdefault(mode, g)
+    rec["kernels"]["replay_grads_ms"] = walls["kernel"]
+    rec["kernels"]["eager_replay_ms"] = walls["eager"]
+    gaps = {key: dict(norm_gap=float((grads["kernel"][key] - grads["eager"][key]).norm()
+                                     / grads["eager"][key].norm().clamp_min(1e-30)),
+                      row_gap=median_row_gap(grads["kernel"][key], grads["eager"][key]))
+            for key in grads["eager"]}
+    rec["gradient_gaps"] = gaps
+    bad = [key for key, v in gaps.items()
+           if v["row_gap"] > REPLAY_ROW_GAP
+           or (key in REPLAY_COLOUR_LEAVES and v["norm_gap"] > REPLAY_COLOUR_GAP)
+           or not bool(torch.isfinite(grads["kernel"][key]).all())]
+    if bad:
+        fail(f"phase 21: the kernel path's gradients off the eager replay's in {bad}: "
+             f"{json.dumps(gaps)}")
+
+    # Two steps from the same state and seed, counted; then the step in turns.
+    step = bk.make_bucketed_grad_fn(rebuild, cam, target, width=w, height=h, samples_per_pass=k,
+                                    max_depth=depth_max)
+    (loss_a, g_a), counts = counted(lambda: step(params, TRAIN_SEEDS[1]))
+    loss_b, g_b = step(params, TRAIN_SEEDS[1])
+    check_launches("phase 21 step", counts,
+                   ("persistent_tape", "table_gather", "replay_path", "replay_adjoint"))
+    if not (counts["replay_path"] == counts["replay_adjoint"] == counts["table_gather"] == 1
+            and float(loss_a) == float(loss_b)
+            and all(torch.equal(g_a[key], g_b[key]) for key in g_a)):
+        fail(f"phase 21: two steps from one state and seed: launches {counts}, loss "
+             f"{float(loss_a)} / {float(loss_b)}, gradients equal "
+             f"{[torch.equal(g_a[key], g_b[key]) for key in g_a]}")
+    rec["step_launches"] = counts
+    turns = []
+    for mode in REPLAY_STEP_TURNS:
+        timings = {}
+        with eager_replay(mode == "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = step(params, TRAIN_SEEDS[2], timings)
+            torch.cuda.synchronize()
+        turns.append(dict(mode=mode, wall_s=time.perf_counter() - t0, loss=float(loss),
+                          **timings))
+    rec["step_turns"] = turns
+    print(f"phase 21 replay kernels at rand_spheres 400x225@8spp depth 50: "
+          f"{json.dumps(rec['shape'])}, forward and adjoint bit-equal to their twins, the "
+          f"adjoint bit-identical over two launches; {json.dumps(rec['kernels'])}; gradient "
+          f"gaps to the eager replay {json.dumps(gaps)}; two steps bit-identical, launches "
+          f"{json.dumps(counts)}; the step in turns {json.dumps(turns)}; {smi}", flush=True)
     return rec
 
 
@@ -3191,6 +3431,7 @@ def main() -> int:
     phase_start["8"] = time.perf_counter()
     from raytracer_tpu_torch.ops import culled_kernel as ck
     from raytracer_tpu_torch.ops import gather_kernel as gk
+    from raytracer_tpu_torch.ops import replay_kernel as rk
     from raytracer_tpu_torch.ops import wavefront_kernel as wk
 
     k5 = step_kernel_check()
@@ -3215,7 +3456,8 @@ def main() -> int:
     counters = (("closest_hit", ik, "LAUNCHES"), ("closest_hit_clustered", ik, "LAUNCHES_CLUSTERED"),
                 ("persistent_render", pk, "LAUNCHES"),
                 ("persistent_tape", pk, "LAUNCHES_TAPE"), ("culled", ck, "LAUNCHES"),
-                ("wavefront_step", wk, "LAUNCHES"), ("table_gather", gk, "LAUNCHES"))
+                ("wavefront_step", wk, "LAUNCHES"), ("table_gather", gk, "LAUNCHES"),
+                ("replay_path", rk, "LAUNCHES"), ("replay_adjoint", rk, "LAUNCHES_ADJOINT"))
 
     def counted(fn):
         """(fn(), launches of every kernel during it), the counts zeroed
@@ -3413,6 +3655,11 @@ def main() -> int:
     phase_start["20"] = time.perf_counter()
     gather_rec = gather_phase(smi)
     record["table_gather"] = gather_rec
+
+    # ---- phase 21: the replay kernels ----
+    phase_start["21"] = time.perf_counter()
+    replay_rec = replay_phase(smi, counted, check_launches)
+    record["replay"] = replay_rec
 
     k1r, k2m, k3t = k1_path["bounce_0"], k2["main_shape"], k3["train_shape"]
     b2 = bound(hit_ops(k2m["segments"], k2m["ns"], k2m["nq"]),
@@ -3652,21 +3899,58 @@ def main() -> int:
             "route": "cuda",
             "source": "raytracer_tpu_torch/csrc/gather_kernel.cu",
             "replaces": None,
-            "launches": gather_rec["step"]["launches"],
+            "launches": replay_rec["step_launches"]["table_gather"],
             "on_main_path": True,
-            "path": "training, bucketed backend: the backward of the replay's table reads in "
-                    "one step at 400x225@8spp depth 50 (phase 20)",
-            "max_abs_err": max(v["max_abs_err"] for v in gather_rec["shapes"].values()),
-            "ms": gather_rec["step"]["ms"],
+            "path": "training, bucketed backend: the sum of the replay kernels' lane-bounce "
+                    "rows into the tables (ops/replay_kernel.py:reduce_rows) in one step at "
+                    "400x225@8spp depth 50 (phase 21)",
+            "max_abs_err": max(replay_rec["reduction"]["max_abs_err"],
+                               *(v["max_abs_err"] for v in gather_rec["shapes"].values())),
+            "ms": replay_rec["kernels"]["reduce_ms"],
             "plain_ms": None,
-            "bound_ms": gather_rec["step"]["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": gather_rec["step"]["library_ms"],
-            "shape": f"the step's {gather_rec['step']['calls']} backward calls at their own "
-                     f"positions ({gather_rec['step']['rows']} in all); ms, bound_ms and "
-                     "library_ms (index_put_ with accumulate, autograd's backward of "
-                     "table[idx]) summed over the calls",
+            "bound_ms": replay_rec["kernels"]["bound_ms"]["reduce"],
+            "bound_by": replay_rec["kernels"]["bound_by"]["reduce"],
+            "library_ms": None,
+            "shape": f"{replay_rec['shape']['scratch_rows']} rows of {rk.ROW_COLS} columns "
+                     f"into the {replay_rec['shape']['table_rows']}-row table",
             "cell_shapes": gather_rec["shapes"],
+            "eager_path": {
+                "path": "textured scenes' eager replay: the backward of its table reads in "
+                        "one step at 400x225@8spp depth 50 on rand_spheres run eagerly "
+                        "(phase 20)",
+                "launches": gather_rec["step"]["launches"],
+                "ms": gather_rec["step"]["ms"],
+                "bound_ms": gather_rec["step"]["bound_ms"],
+                "library_ms": gather_rec["step"]["library_ms"],
+                "shape": f"the step's {gather_rec['step']['calls']} backward calls at their "
+                         f"own positions ({gather_rec['step']['rows']} in all); ms, bound_ms "
+                         "and library_ms (index_put_ with accumulate, autograd's backward of "
+                         "table[idx]) summed over the calls",
+            },
+        },
+        {
+            "name": "replay_path",
+            "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/replay_kernel.cu",
+            "replaces": None,
+            "launches": replay_rec["step_launches"]["replay_path"],
+            "adjoint_launches": replay_rec["step_launches"]["replay_adjoint"],
+            "on_main_path": True,
+            "path": "training, bucketed backend: the replay's forward and adjoint in one step "
+                    "at 400x225@8spp depth 50 (phase 21)",
+            "max_abs_err": max(replay_rec["twin_max_abs"].values()),
+            "ms": replay_rec["kernels"]["forward_ms"] + replay_rec["kernels"]["adjoint_ms"],
+            "plain_ms": replay_rec["kernels"]["plain_ms"],
+            "bound_ms": (replay_rec["kernels"]["bound_ms"]["forward"]
+                         + replay_rec["kernels"]["bound_ms"]["adjoint"]),
+            "bound_by": replay_rec["kernels"]["bound_by"]["adjoint"],
+            "library_ms": None,
+            "eager_replay_ms": replay_rec["kernels"]["eager_replay_ms"],
+            "shape": f"rand_spheres 400x225@8spp depth 50, one step's "
+                     f"{replay_rec['shape']['lanes']} replayed lanes, "
+                     f"{replay_rec['shape']['segments']} lane-bounces; ms and bound_ms the "
+                     "forward's and the adjoint's summed, the reduction beside them",
+            "split": replay_rec["kernels"],
         },
     ]
     # The sharded paths' launches (phase 16), each counted around its own run.
@@ -3687,6 +3971,8 @@ def main() -> int:
             "launches"]["wavefront_step"]),
         "table_gather": dict(
             sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["table_gather"]),
+        "replay_path": dict(
+            sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["replay_path"]),
     }
     for entry in kernels:
         entry["sharded_launches"] = sharded[entry["name"]]

@@ -19,21 +19,28 @@ One step:
 2. **Finish**: the image, the MSE loss, the per-lane cotangent of the loss
    from the forward image, and each lane's depth min(last hit + 2,
    max_depth) from the tape.
-3. **Replay**: the differentiable `trace` of those lanes with the tape
-   intersector (diff/tape.py) and the same counter-RNG uniforms, whose
-   radiance dotted with the cotangents has the loss gradient as its
-   gradient. Lanes of depth 1 missed everything at once: their radiance is
-   the flat background, which no scene parameter touches, so they are
-   skipped (unless the sky gradient makes the background depend on the ray).
+3. **Replay**: those lanes retraced from the tape's winners with the same
+   counter-RNG uniforms, whose radiance dotted with the cotangents has the
+   loss gradient as its gradient (`replay_loss`). The input decides how
+   (`takes_replay_kernel`): on CUDA tensors of a scene without noise or
+   image textures, the replay kernels (ops/replay_kernel.py:ReplayPath:
+   one thread replays a lane's whole path, another sweeps its adjoint
+   back, their rows summed into the tables in a fixed order); otherwise
+   the eager replay, the differentiable `trace` with the tape intersector
+   (diff/tape.py), differentiated by autograd. Lanes of depth 1 missed
+   everything at once: their radiance is the flat background, which no
+   scene parameter touches, so they are skipped (unless the sky gradient
+   makes the background depend on the ray).
 
 What the JAX package needed and this port does not: the two-phase forward
 (`fwd_cap`), because a TPU tile of 8K lanes drains at its deepest lane
 while a warp drains at its deepest of 32, so one launch to max_depth is the
 design here; and the depth ladder with its padded bucket sizes
 (`default_depth_ladder`, `_PadMemo`), which served XLA's static shapes and
-compile cache. The eager replay instead works at each bounce on the lanes
-still alive, so its work follows the real lane-bounces with no padding;
-the gradient is the same sum.
+compile cache. The replay kernels run each lane to its own depth, and the
+eager replay works at each bounce on the lanes still alive, so the work
+follows the real lane-bounces with no padding; the gradient is the same
+sum.
 
 With `edge_image_fns` (the zero-valued edge images of diff/boundary.py,
 shadow_edge.py, mirror_edge.py and refracted_edge.py), the step adds their
@@ -57,7 +64,7 @@ from raytracer_tpu_torch.core.camera import Camera, camera_frame, camera_rays
 from raytracer_tpu_torch.diff.tape import make_tape_intersect_fn
 from raytracer_tpu_torch.geometry.intersect import quad_derived
 from raytracer_tpu_torch.integrator.wavefront import trace, trace_tape_scene
-from raytracer_tpu_torch.materials.packed import texture_tables
+from raytracer_tpu_torch.materials.packed import primitive_table, texture_tables
 from raytracer_tpu_torch.ops import ctr_rng
 from raytracer_tpu_torch.ops.persistent_kernel import (
     pack_camera_scalars_bg,
@@ -65,6 +72,7 @@ from raytracer_tpu_torch.ops.persistent_kernel import (
     render_persistent_tape,
     unsupported_reason,
 )
+from raytracer_tpu_torch.ops.replay_kernel import geom_table, replay_kernel_reason, replay_path
 from raytracer_tpu_torch.utils import trace as tr
 
 
@@ -244,17 +252,19 @@ def replay_lanes(lane_depth, sky_gradient: bool, rebuild_camera):
 
 
 def replay_grads(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, tape, ct_lane,
-                 lanes, *, width: int, height: int, max_depth: int, sky_gradient: bool,
-                 timings=None):
-    """Gradients, nested like `params`, of `replay_loss` over `lanes`: the
+                 lanes, lane_depth, *, width: int, height: int, max_depth: int,
+                 sky_gradient: bool, timings=None):
+    """Gradients, nested like `params`, of `replay_loss` over `lanes` (each
+    sample's depth `lane_depth`, as `lane_depths` gives it): the
     replay's forward and backward are the phases "replay_forward" (with
-    the replay's counters `bounces` and `lanes`, summed over its bounces)
-    and "backward" of utils/trace.py, timed into `timings` when given."""
+    the replay's counters: `replays_kernel` and `replay_kernel_segments`,
+    or `replays_eager` with the eager replay's `bounces` and `lanes`) and
+    "backward" of utils/trace.py, timed into `timings` when given."""
     leaves = [t for _, t in flat_leaves(params)]
     with tr.phase("replay_forward", timings, tape.device):
         scene, cam_p = _scene_and_camera(params, rebuild, rebuild_camera, cam)
         replay = replay_loss(
-            scene, cam_p, seed, tape, ct_lane, lanes,
+            scene, cam_p, seed, tape, ct_lane, lanes, lane_depth,
             width=width, height=height, max_depth=max_depth, sky_gradient=sky_gradient,
         )
     with tr.phase("backward", timings, tape.device):
@@ -262,23 +272,47 @@ def replay_grads(params: dict, rebuild, rebuild_camera, cam: Camera, seed: int, 
                          if replay.requires_grad else [None] * len(leaves))
 
 
-def replay_loss(scene, cam: Camera, seed: int, tape, ct_lane, lanes, *,
+def takes_replay_kernel(scene, device) -> bool:
+    """Whether `replay_loss` replays on the replay kernels: tensors on a
+    CUDA device and a scene `replay_kernel_reason` accepts."""
+    return torch.device(device).type == "cuda" and replay_kernel_reason(scene) is None
+
+
+def replay_loss(scene, cam: Camera, seed: int, tape, ct_lane, lanes, lane_depth, *,
                 width: int, height: int, max_depth: int, sky_gradient: bool):
     """sum(radiance * ct_lane) over the sample ids `lanes`, the radiance
-    replayed with autograd from `tape` and the counter-RNG uniforms in
-    `scene` and `cam` (built from the parameters): its gradient in them is
-    those lanes' share of the loss gradient."""
+    replayed to each sample's `lane_depth` (`lane_depths` of the tape)
+    from `tape` and the counter-RNG uniforms in `scene` and `cam`
+    (built from the parameters): its gradient in them is those lanes'
+    share of the loss gradient. The input decides how: CUDA tensors of a
+    scene `replay_kernel_reason` accepts take the replay kernels
+    (ops/replay_kernel.py:ReplayPath, its adjoint by hand); other scenes
+    and CPU tensors the eager replay, `trace` with the tape's intersect
+    hook, differentiated by autograd. Each replay counts `replays_kernel`
+    or `replays_eager` (utils/trace.py), and the kernel's
+    `replay_kernel_segments`, its traced lane-bounces."""
     dev = tape.device
     n = width * height
     pix = lanes % n
     frame = camera_frame(cam, width, height).to(dev)
     o, d = camera_rays(frame, pix % width, pix // width, ctr_rng.camera_uniforms(seed, lanes))
-    rad = trace(
-        scene, o, d, cam.background.to(dev),
-        lambda bounce, idx: ctr_rng.bounce_uniforms(seed, lanes[idx], bounce),
-        max_depth=max_depth, sky_gradient=sky_gradient,
-        intersect_fn=make_tape_intersect_fn(tape[:, lanes]),
-    )
+    background = cam.background.to(dev)
+    if takes_replay_kernel(scene, dev):
+        tr.count("replays_kernel")
+        qd = quad_derived(scene)
+        rad, segs = replay_path(primitive_table(scene, qd), geom_table(scene, qd), o, d,
+                                background, tape, lanes, lane_depth[lanes], seed=seed,
+                                ns=scene.num_spheres, sky_gradient=sky_gradient)
+        if tr.enabled():
+            tr.count("replay_kernel_segments", segs.sum())
+    else:
+        tr.count("replays_eager")
+        rad = trace(
+            scene, o, d, background,
+            lambda bounce, idx: ctr_rng.bounce_uniforms(seed, lanes[idx], bounce),
+            max_depth=max_depth, sky_gradient=sky_gradient,
+            intersect_fn=make_tape_intersect_fn(tape[:, lanes]),
+        )
     return (rad * ct_lane[lanes]).sum()
 
 
@@ -329,7 +363,7 @@ def make_bucketed_grad_fn(
             loss, ct_lane, lane_depth, ct_img = finish(rad, tape, target, samples_per_pass=k)
             lanes = replay_lanes(lane_depth, sky_gradient, rebuild_camera)
         grads = replay_grads(params, rebuild, rebuild_camera, cam, seed, tape, ct_lane, lanes,
-                             width=width, height=height, max_depth=max_depth,
+                             lane_depth, width=width, height=height, max_depth=max_depth,
                              sky_gradient=sky_gradient, timings=timings)
         if edge_image_fns:
             with tr.span("edges"):

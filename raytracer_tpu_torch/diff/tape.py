@@ -6,7 +6,10 @@ A forward that needs no gradient records only the winning primitive of each
 path (which primitive, which dielectric branch, metal absorption, the end)
 is a function of that tape and the path's uniforms, so the replay does not
 search primitives: it looks the winner up and recomputes its t with
-autograd (geometry.intersect.winner_t_diff), O(1) per lane-bounce.
+autograd (geometry.intersect.winner_t_diff), O(1) per lane-bounce. This
+hook is the eager replay's; on the card, scenes without noise or image
+textures replay in ops/replay_kernel.py instead (diff/bucketed.py:
+replay_loss).
 """
 
 from __future__ import annotations

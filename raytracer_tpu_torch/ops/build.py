@@ -82,6 +82,14 @@ SIGNATURES = {
     # grad, idx, idx_is_64, n, rows, cols, tile_rows, tiles, blocks, warps,
     # partial, out, sum_threads, stream
     "rt_gather_backward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # table, geom, ns, tape, total, lanes, offs, depth, n_lanes, o0, d0, bg,
+    # seed, max_depth, sky_gradient, radiance, state, segs, threads, stream
+    "rt_replay_forward": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                          _I, _I, _I, _P, _P, _P, _I, _P],
+    # table, geom, ns, tape, total, lanes, offs, depth, segs, n_lanes, state,
+    # grad, bg, seed, sky_gradient, rows, idx, lane_out, threads, stream
+    "rt_replay_adjoint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
+                          _P, _P, _I, _I, _P, _P, _P, _I, _P],
 }
 
 

@@ -7,10 +7,11 @@ autograd Function: the forward is `index_select`, and the backward is
 `gather_backward`, which launches the hand-written CUDA kernel of
 `csrc/gather_kernel.cu` on CUDA tensors and takes its plain twin,
 `gather_backward_plain` (index_add_), on CPU tensors. Elsewhere it is
-plain advanced indexing. The replay's reads of the primitive table, the
-sphere centres and radii and the quad normals and offsets take it
+plain advanced indexing. The eager replay's reads of the primitive table,
+the sphere centres and radii and the quad normals and offsets take it
 (materials/materials.py:resolve_and_shade, geometry/intersect.py:
-winner_t_diff).
+winner_t_diff), and the replay kernels sum their lane-bounce cotangent rows
+with `gather_backward` (ops/replay_kernel.py:reduce_rows).
 
 Why: PyTorch's backward of `table[idx]` on the card is index_put_ with
 accumulate, which sorts the indices and walks each row's duplicates with

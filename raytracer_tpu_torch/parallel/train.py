@@ -146,9 +146,10 @@ def make_sharded_bucketed_grad_fn(rebuild, cam: Camera, target, mesh: Mesh, *, w
             return nest_like(params, [None] * len(flat_leaves(params)))
         with tr.phase("replay_forward", timings, dev), torch.no_grad():
             ct_lane = lane_cotangent(ct_img, rt.samples, k)
-            lanes = replay_lanes(lane_depths(rt.tape), sky_gradient, None)
+            lane_depth = lane_depths(rt.tape)
+            lanes = replay_lanes(lane_depth, sky_gradient, None)
         return replay_grads(params, rebuild, None, cam, rt.seed, rt.tape, ct_lane, lanes,
-                            timings=timings, **shape_kw)
+                            lane_depth, timings=timings, **shape_kw)
 
     def step(params, seed: int, timings=None):
         with tr.phase("tape_forward", timings, dev):

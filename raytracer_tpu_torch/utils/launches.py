@@ -21,6 +21,7 @@ from raytracer_tpu_torch.ops import (
     gather_kernel,
     intersect_kernel,
     persistent_kernel,
+    replay_kernel,
     wavefront_kernel,
 )
 
@@ -33,6 +34,8 @@ COUNTERS = (
     ("culled_closest_hit", culled_kernel, "LAUNCHES"),
     ("wavefront_step", wavefront_kernel, "LAUNCHES"),
     ("table_gather", gather_kernel, "LAUNCHES"),
+    ("replay_path", replay_kernel, "LAUNCHES"),
+    ("replay_adjoint", replay_kernel, "LAUNCHES_ADJOINT"),
 )
 
 
