@@ -24,7 +24,7 @@ counters reset just before and read just after:
   render_image render of rand_spheres_large with 50,001 spheres, at
   400x225, 64 spp, depth 8, each clustered on the host and rendered in one
   launch of kernel 2's culled instantiation;
-* the large-scene path (phase 10): `_render_large_scene` on
+* the large-scene path (phase 10): `render_loop`'s large-scene path on
   rand_spheres_large at the same shape, clustered as the persistent path
   clusters it, camera rays through the cluster-culled kernel 4, bounces
   through kernel 1's clustered entry (and no dense kernel 1), its mean
@@ -140,13 +140,13 @@ and perlin) and prints its warp occupancy under the sample queue, phase 7a
 the whole gradient step on the card against the step on the CPU, phase 7
 kernel 1 against its twin on the scan step's own rays and times it at
 each of the step's launches at its own ray count (as phase 10 does for
-`_render_large_scene`'s bounce launches), phase 8 kernel 5
+the large-scene path's bounce launches), phase 8 kernel 5
 against its twin at perlin's path shape (and the wavefront-step path
 against kernel 2 on rand_spheres and on perlin with its textures), and
 phase 9 kernel 4 against its twin and kernel 1 on rand_spheres_large's
 camera rays, with its per-lane and warp-union bounds on its two-level
 table and on the TPU kernel's flat one; phase 10 holds every clustered
-kernel-1 launch of `_render_large_scene` against its twin bit for bit and
+kernel-1 launch of the large-scene path against its twin bit for bit and
 times each at its own rays. Every phase prints one line; any failure raises and exits
 non-zero.
 The second-to-last line is the per-kernel JSON record, the last line
@@ -2038,7 +2038,8 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
     they wait until the timed work below is over.
 
     NCCL at one rank, full width: render_large_scene_sharded on
-    rand_spheres_large 400x225@64spp d8 against _render_large_scene
+    rand_spheres_large 400x225@64spp d8 against one device's large-scene
+    path (render_loop)
     (bit-equal, the same kernel-4 and clustered kernel-1 launches);
     render_image_sharded on rng-table perlin against render_image
     (bit-equal, the same kernel-5 launches); the sharded bucketed step at
@@ -2064,7 +2065,6 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
     from raytracer_tpu_torch.diff.grad import render_linear_diff, split_scene
     from raytracer_tpu_torch.parallel.mesh import close_group, init_group, make_mesh
     from raytracer_tpu_torch.parallel.shard import (
-        regen_partial,
         render_image_sharded,
         render_large_scene_sharded,
     )
@@ -2096,7 +2096,8 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
             scene = scene.to("cuda")
             imgs, large = {}, {}
             for mode, fn in (
-                    ("plain", lambda: driver._render_large_scene(scene, cam, st, seed=0)),
+                    ("plain", lambda: driver.render_loop(scene, cam, st, path="large_scene",
+                                                         seed=0)),
                     ("shard", lambda: render_large_scene_sharded(scene, cam, st, mesh, seed=0))):
                 imgs[mode], counts = counted(fn)
                 large[mode] = dict(launches=counts)
@@ -2215,8 +2216,8 @@ def distribution_phase(cli, smi, counted, check_launches, main_png: Path) -> dic
     while done < st.samples_per_pixel:
         step = min(chunk, st.samples_per_pixel - done)
         seed = driver.chunk_seed(0, c)
-        acc = acc + (regen_partial(renderer, step, seed, 0, 2)[0]
-                     + regen_partial(renderer, step, seed, 1, 2)[0])
+        acc = acc + (driver.regen_partial(renderer, step, seed, 0, 2)[0]
+                     + driver.regen_partial(renderer, step, seed, 1, 2)[0])
         done, c = done + step, c + 1
     want = (acc / float(st.samples_per_pixel)).reshape(st.height, st.width, 3).cpu()
     got = torch.load(OUT_DIR / "gloo_render.pt")
@@ -3545,7 +3546,7 @@ def main() -> int:
     # same shape and seed: an A/B against the persistent render's mean.
     # Its first render clusters the scene cold; the second finds the
     # clustering cached.
-    from raytracer_tpu_torch.render.driver import _render_large_scene
+    from raytracer_tpu_torch.render.driver import render_loop
 
     scene, cam, st = get_scene("rand_spheres_large", spp=64)
     scene = scene.to("cuda")
@@ -3555,8 +3556,8 @@ def main() -> int:
         recorder = ClusteredRecorder(ik) if cached else contextlib.nullcontext()
         t0 = time.perf_counter()
         with recorder:
-            img, counts = counted(lambda: _render_large_scene(scene, cam, st, seed=0,
-                                                              metrics=metrics))
+            img, counts = counted(lambda: render_loop(scene, cam, st, path="large_scene",
+                                                      seed=0, metrics=metrics))
         reports.append(dict(metrics.snapshot(), wall_s=time.perf_counter() - t0))
         check_launches("large-scene path", counts, ("culled", "closest_hit_clustered"))
     large_hits = recorder
@@ -3571,7 +3572,7 @@ def main() -> int:
     paths["large_scene"] = dict(report=reports[1], report_cold=reports[0], launches=counts,
                                 linear_mean=lin_mean.round(4).tolist(),
                                 persistent_mean=want.tolist(), closest_hit_clustered=k1_large)
-    print(f"phase 10 large_scene path, _render_large_scene on rand_spheres_large 400x225@64spp "
+    print(f"phase 10 large_scene path, render_loop on rand_spheres_large 400x225@64spp "
           f"depth 8: {json.dumps(paths['large_scene'])}", flush=True)
 
     # The slice's CLI renders at 400x225, 100 spp, depth 50, each through
@@ -3787,7 +3788,7 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/intersect_kernel.py:115",
             "launches": paths["large_scene"]["launches"]["closest_hit_clustered"],
             "on_main_path": True,
-            "path": "render, large-scene path: _render_large_scene's bounce rays on "
+            "path": "render, large-scene path: render_loop's bounce rays on "
                     "rand_spheres_large (phase 10)",
             "max_abs_err": k1_large["max_abs"],
             "ms": k1_large["ms"],
@@ -3859,7 +3860,7 @@ def main() -> int:
             "replaces": "raytracer_tpu/ops/culled_kernel.py:255",
             "launches": paths["large_scene"]["launches"]["culled"],
             "on_main_path": True,
-            "path": "render, large-scene path: _render_large_scene on rand_spheres_large "
+            "path": "render, large-scene path: render_loop on rand_spheres_large "
                     "(phase 10, the A/B against the persistent path)",
             "max_abs_err": max(v["max_abs"] for k_, v in k4.items() if k_.startswith("vs_")),
             "ms": k4["ms"],

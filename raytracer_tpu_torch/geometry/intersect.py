@@ -15,7 +15,7 @@ everywhere; visibility-boundary terms are the edge estimators' job.
 `LargeSceneTables` holds the JAX large-scene path's tables (the dense
 tables and the TPU kernel 4's flat cluster table), which the tests hold
 against JAX; the port's large-scene path
-(render/driver.py:_render_large_scene) walks the render's own cluster
+(render/driver.py:large_scene_block) walks the render's own cluster
 table instead.
 """
 

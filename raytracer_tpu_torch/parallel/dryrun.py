@@ -42,11 +42,12 @@ from raytracer_tpu_torch.geometry.scene import SceneBuilder
 from raytracer_tpu_torch.ops import intersect_kernel as ik
 from raytracer_tpu_torch.ops import persistent_kernel as pk
 from raytracer_tpu_torch.parallel.mesh import close_group, init_group, make_mesh
-from raytracer_tpu_torch.parallel.shard import regen_partial, regen_renderer, render_regen_sharded
+from raytracer_tpu_torch.parallel.shard import render_regen_sharded
 from raytracer_tpu_torch.parallel.train import (
     make_sharded_bucketed_grad_fn,
     make_sharded_scan_grad_fn,
 )
+from raytracer_tpu_torch.render.driver import chunk_renderer, regen_partial
 from raytracer_tpu_torch.scenes.registry import get_scene
 
 GRAD_RTOL = 1e-5
@@ -156,7 +157,7 @@ def dryrun_multichip(world: int, device="cuda") -> dict:
     before = pk.LAUNCHES
     fb, stats = render_regen_sharded(scene, cam, 1, mesh, **kw)
     out["regen_launches"] = pk.LAUNCHES - before
-    renderer = regen_renderer(scene, cam, settings, mesh, wavefront=1024)
+    renderer = chunk_renderer(scene, cam, settings, dev, wavefront=1024)
     want = _summed([regen_partial(renderer, 5, 1, p, world)[0] for p in range(world)])
     _check_image("regen render", fb.reshape(-1, 3), want, exact)
     if stats.segments < n * 5:

@@ -20,7 +20,8 @@ an explicit coordinator, or as a group of one rank; `close_group` ends it.
 The backend is NCCL for CUDA and gloo for the CPU unless the caller names
 one; a backend that fails to start raises, and no other is tried. The JAX
 package's `ray_sharding` and `replicated` (NamedShardings) have no torch
-counterpart: a rank's block of a flat lane axis is `lane_block`.
+counterpart: a rank's block of a flat lane axis is render/driver.py's
+`lane_block`.
 """
 
 from __future__ import annotations
@@ -189,12 +190,3 @@ def multihost_mesh(sample_parallel: int | None = None, *, device=None) -> Mesh:
     if sample_parallel is None:
         sample_parallel = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
     return make_mesh(None, sample_parallel, device=device)
-
-
-def lane_block(n: int, position: int, size: int) -> tuple[int, int]:
-    """[start, stop) of position's contiguous block of a flat axis of n
-    lanes split over `size` positions (the last blocks may be short or
-    empty)."""
-    per = -(-n // size)
-    start = min(n, position * per)
-    return start, min(n, start + per)

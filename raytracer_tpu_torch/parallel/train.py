@@ -14,7 +14,7 @@ a test sums the positions in one process.
 * `make_sharded_scan_grad_fn`: the differentiable `trace` (closest hits by
   kernel 1 on CUDA, geometry.intersect.intersect_scene_kernel_diff) over
   the position's tile and sample slots of one pass, each lane keyed by its
-  global sample id (parallel/shard.py:pass_block).
+  global sample id (render/driver.py:pass_block).
 * `make_sharded_bucketed_grad_fn`: the tape-forward step
   (diff/bucketed.py): each rank runs the tape forward (kernel 3, or
   trace_tape_scene on scenes kernel 3 does not shade) on its share of
@@ -41,8 +41,8 @@ from raytracer_tpu_torch.diff.bucketed import (
     tape_forward,
 )
 from raytracer_tpu_torch.geometry.intersect import intersect_scene_kernel_diff
-from raytracer_tpu_torch.parallel.mesh import Mesh, lane_block
-from raytracer_tpu_torch.parallel.shard import pass_block, rank_seed, rank_share
+from raytracer_tpu_torch.parallel.mesh import Mesh
+from raytracer_tpu_torch.render.driver import lane_block, pass_block, rank_seed, rank_share
 from raytracer_tpu_torch.utils import trace as tr
 
 
@@ -70,7 +70,7 @@ def make_sharded_scan_grad_fn(rebuild, cam: Camera, target, mesh: Mesh, *, width
                               sky_gradient: bool = False):
     """`step(params, seed) -> (loss, grads)`: the MSE of one differentiable
     render of samples_per_pass samples per pixel (a multiple of the samples
-    axis) against `target`, sharded as `render_pass_sharded` shards a pass,
+    axis) against `target`, sharded as the sharded pass loop shards a pass,
     and its gradients summed over the ranks. `step.partial(params, seed,
     position)` is a position's (n_pixels, 3) radiance sums (zero outside
     its tile) with autograd, `step.grads(params, partial, ct_img)` its

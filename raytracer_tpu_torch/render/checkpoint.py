@@ -31,7 +31,7 @@ from raytracer_tpu_torch.render.driver import (
     DEFAULT_WAVEFRONT,
     LOG_BUDGET_BYTES,
     default_spp_chunk,
-    render_chunks,
+    render_loop,
     render_path,
     resolve_device,
 )
@@ -148,6 +148,31 @@ class BackgroundSaver:
                 f.result()
 
 
+def resume(path: str, fingerprint: str, acc: torch.Tensor, ranks) -> tuple[int, int]:
+    """(samples per pixel done, next chunk) of the checkpoint at `path`,
+    (0, 0) without one. `ranks.root` (driver.Ranks) reads the file into
+    `acc` (in place) and `ranks` broadcasts its state and sums. A
+    checkpoint of another configuration raises ValueError on every
+    position."""
+    state = torch.zeros(3, dtype=torch.int64, device=acc.device)  # found (1) / refused (2)
+    if ranks.root:
+        ck = load_checkpoint(path)
+        if ck is not None and ck.config_hash != fingerprint:
+            state[0] = 2
+        elif ck is not None:
+            state[:] = torch.tensor([1, ck.done_spp, ck.chunk_idx])
+            acc.copy_(torch.from_numpy(np.ascontiguousarray(ck.acc, np.float32)).reshape(
+                acc.shape))
+    found, done, chunk_idx = ranks.broadcast(state).tolist()
+    if found == 2:
+        raise ValueError(
+            f"checkpoint {path} was written under a different scene/camera/settings/"
+            f"{ranks.what} configuration; refusing to resume (delete it to restart)")
+    if found:
+        ranks.broadcast(acc)
+    return done, chunk_idx
+
+
 def render_with_checkpoints(
     scene: Scene,
     cam: Camera,
@@ -164,9 +189,9 @@ def render_with_checkpoints(
     bilinear_stochastic: bool | None = None,
     metrics=None,
 ) -> torch.Tensor:
-    """Render through `driver.render_chunks`, saving a checkpoint after each
-    chunk; returns the linear mean radiance (H, W, 3) on `device` (partial
-    when `max_chunks` stopped it early).
+    """Render through `driver.render_loop` on one device, saving a
+    checkpoint after each chunk; returns the linear mean radiance (H, W, 3)
+    on `device` (partial when `max_chunks` stopped it early).
 
     The default chunk is `render_image`'s (driver.default_spp_chunk), so an
     uninterrupted render equals `render_image`'s bit for bit; `wavefront`
@@ -175,61 +200,20 @@ def render_with_checkpoints(
     `bilinear_stochastic`, `device` and `metrics` are render_image's. With
     `checkpoint_path` the render resumes from the file when it is there
     (refusing one written under another configuration) and saves after
-    every chunk on a BackgroundSaver thread; the device-to-host copy of the
-    sums is made here, after the chunk, so the saver reads a snapshot."""
+    every chunk on a BackgroundSaver thread, which gets a host copy of the
+    sums made after the chunk."""
     dev = resolve_device(device)
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     if spp_per_chunk is None:
         spp_per_chunk = default_spp_chunk(scene, settings, wavefront=wavefront,
                                           log_budget_bytes=log_budget_bytes)
-    fingerprint = config_fingerprint(
-        scene, cam, settings, spp_per_chunk, seed,
-        extra=(render_path(scene), wavefront, bilinear_stochastic, dev.type),
-    )
-    done, chunk_idx = 0, 0
-    acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
+    checkpoint = None
     if checkpoint_path:
-        ck = load_checkpoint(checkpoint_path)
-        if ck is not None:
-            if ck.config_hash != fingerprint:
-                raise ValueError(
-                    f"checkpoint {checkpoint_path} was written under a "
-                    "different scene/camera/settings/chunking configuration; "
-                    "refusing to resume (delete it to restart)"
-                )
-            done, chunk_idx = ck.done_spp, ck.chunk_idx
-            acc = torch.from_numpy(np.ascontiguousarray(ck.acc, np.float32)).reshape(
-                w * h, 3).to(dev)
-            if progress:
-                print(f"resumed at {done}/{spp} spp", flush=True)
-
-    saver = BackgroundSaver(checkpoint_path) if checkpoint_path else None
-    chunks = render_chunks(
-        scene, cam, settings, device=dev, seed=seed, spp_per_chunk=spp_per_chunk,
-        start_chunk=chunk_idx, wavefront=wavefront, log_budget_bytes=log_budget_bytes,
-        progress=progress, metrics=metrics, bilinear_stochastic=bilinear_stochastic,
-    )
-    chunks_run = 0
-    try:
-        while done < spp and (max_chunks is None or chunks_run < max_chunks):
-            idx, done, fb = next(chunks)
-            # A new tensor each chunk: nothing of a saved state is changed
-            # in place.
-            acc = acc + fb
-            chunk_idx = idx + 1
-            chunks_run += 1
-            if saver is not None:
-                host = acc.reshape(h, w, 3).to("cpu", copy=True).numpy()
-                saver.submit(RenderCheckpoint(acc=host, done_spp=done, seed=seed,
-                                              chunk_idx=chunk_idx, config_hash=fingerprint))
-        if done >= spp:
-            # Run the generator to its end: the metrics' totals come after
-            # the last chunk.
-            next(chunks, None)
-    finally:
-        chunks.close()
-        if saver is not None:
-            saver.wait()
-    if saver is not None:
-        saver.raise_errors()
-    return (acc / float(max(done, 1))).reshape(h, w, 3)
+        checkpoint = (checkpoint_path, config_fingerprint(
+            scene, cam, settings, spp_per_chunk, seed,
+            extra=(render_path(scene), wavefront, bilinear_stochastic, dev.type),
+        ))
+    return render_loop(scene, cam, settings, device=dev, seed=seed, wavefront=wavefront,
+                       log_budget_bytes=log_budget_bytes, spp_per_chunk=spp_per_chunk,
+                       progress=progress, metrics=metrics,
+                       bilinear_stochastic=bilinear_stochastic, checkpoint=checkpoint,
+                       max_chunks=max_chunks)

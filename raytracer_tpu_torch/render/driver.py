@@ -20,12 +20,17 @@ scenes).
   as for the persistent path (`cluster_for_render`), then passes of k
   samples per pixel, camera rays through the cluster-culled kernel 4 and
   bounces through kernel 1's clustered entry, both walking that cluster
-  table (`_render_large_scene`).
+  table (`large_scene_block`).
 * "wavefront_step": the other scenes it does not serve: the regenerative
   loop with kernel 5 as each iteration's front half and the shading
   epilogue in PyTorch (integrator/wavefront.py:render_wavefront_step),
   images filtered by the deterministic 4-tap where the scene asks for
   bilinear filtering.
+
+Every path runs in one loop, `render_loop`: chunks (or passes) of the spp
+budget, each a position's partial joined by a `Ranks`. One device is
+position 0 of 1 and joins nothing; parallel/shard.py's MeshRanks joins the
+positions of a mesh with torch.distributed, which this module never calls.
 
 The TPU's VMEM slot model (regen_max_slots), its gather-band wavefront
 heuristic (pick_wavefront) and its tile rounding do not apply: the
@@ -135,12 +140,20 @@ def spp_chunk_for(n_pixels: int, spp: int, wavefront: int, budget: int) -> int:
     return chunk
 
 
-def samples_per_pass_for(spp: int, num_pixels: int,
-                         target_rays: int = TARGET_RAYS_PER_PASS) -> int:
-    """Largest k <= target_rays / num_pixels that divides spp, so passes * k
-    == spp exactly."""
-    ideal = max(1, min(spp, target_rays // max(1, num_pixels)))
-    return next(k for k in range(ideal, 0, -1) if spp % k == 0)
+def samples_per_pass_for(spp: int, num_pixels: int, target_rays: int = TARGET_RAYS_PER_PASS,
+                         samples_axis: int = 1) -> int:
+    """Largest k that divides spp, so passes * k == spp exactly, with k a
+    multiple of `samples_axis` (the mesh's samples axis, over which a
+    pass's slots split evenly) and k * num_pixels <= target_rays where it
+    can be. A valid k exists iff spp is a multiple of samples_axis;
+    otherwise ValueError."""
+    if spp % samples_axis != 0:
+        raise ValueError(
+            f"spp={spp} must be a multiple of the sample-axis size ({samples_axis}) for the "
+            "pass-based sharded render; use regenerative=True (the default), which splits "
+            "any spp exactly")
+    ideal = max(samples_axis, min(spp, target_rays // max(1, num_pixels)))
+    return next(k for k in range(ideal, 0, -1) if spp % k == 0 and k % samples_axis == 0)
 
 
 def render_path(scene: Scene) -> str:
@@ -263,6 +276,33 @@ def chunk_seed(seed: int, idx: int) -> int:
     return seed if idx == 0 else int(ctr_rng.hash_i32(seed, idx, 0))
 
 
+# Counter of the rank-seed stream: rank_seed hashes (seed, position, this);
+# chunk_seed hashes (seed, chunk, 0), so the two streams never share an input.
+RANK_SEED_CTR = 1
+
+
+def rank_seed(seed: int, position: int) -> int:
+    """Seed of mesh position `position` in a chunk seeded `seed`: position 0
+    keeps the seed (so one device renders what position 0 of 1 renders),
+    the others hash (seed, position)."""
+    return seed if position == 0 else int(ctr_rng.hash_i32(seed, position, RANK_SEED_CTR))
+
+
+def rank_share(total: int, position: int, size: int) -> int:
+    """Position's share of `total` samples split over `size` positions as
+    evenly as integers allow (the shares sum to total)."""
+    return total // size + (1 if position < total % size else 0)
+
+
+def lane_block(n: int, position: int, size: int) -> tuple[int, int]:
+    """[start, stop) of position's contiguous block of a flat axis of n
+    lanes split over `size` positions (the last blocks may be short or
+    empty)."""
+    per = -(-n // size)
+    start = min(n, position * per)
+    return start, min(n, start + per)
+
+
 def resolve_device(device) -> torch.device:
     """The render device; a CUDA request without a card raises (no
     fallback hides the device)."""
@@ -291,7 +331,7 @@ def default_spp_chunk(scene: Scene, settings: RenderSettings, *,
     by `ranks`), else the largest chunk whose device memory (log,
     framebuffer, fold scratch) fits `log_budget_bytes`, that budget holding
     each of `ranks` ranks' share of the chunk (spp_chunk_for; a sharded
-    render splits every chunk over its ranks, parallel/shard.py)."""
+    render splits every chunk over its ranks, `regen_partial`)."""
     n_pix = settings.width * settings.height
     spp = settings.samples_per_pixel
     path = render_path(scene)
@@ -336,7 +376,7 @@ class ChunkRenderer(NamedTuple):
 def chunk_renderer(scene: Scene, cam: Camera, settings: RenderSettings, dev, *,
                    wavefront: int = DEFAULT_WAVEFRONT, metrics=None,
                    bilinear_stochastic: bool | None = None, clusters=None) -> ChunkRenderer:
-    """Pack `scene` for `render_chunks`' chunks on `dev` (persistent or
+    """Pack `scene` for `render_loop`'s chunks on `dev` (persistent or
     wavefront-step path): persistent scenes of more than
     CLUSTERED_SCENE_PRIMS primitives are clustered first
     (`cluster_for_render`; `metrics` records it). `clusters`, a
@@ -345,7 +385,7 @@ def chunk_renderer(scene: Scene, cam: Camera, settings: RenderSettings, dev, *,
     instead, at any size."""
     path = render_path(scene)
     if path == "large_scene":
-        raise ValueError("the large-scene path renders in passes (_large_scene_chunks)")
+        raise ValueError("the large-scene path renders in passes (render_loop)")
     w, h = settings.width, settings.height
     cam_scalars = pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).to(dev)
     if clusters is not None:
@@ -362,74 +402,217 @@ def chunk_renderer(scene: Scene, cam: Camera, settings: RenderSettings, dev, *,
                          settings.sky_gradient)
 
 
-def render_chunks(
+def regen_partial(renderer: ChunkRenderer, spp: int, seed: int, position: int, size: int):
+    """Mesh position `position`'s partial of a regenerative chunk of `spp`
+    samples per pixel seeded `seed` over `size` positions: its
+    `rank_share` under `rank_seed(seed, position)`, as (framebuffer
+    (n_pixels, 3) radiance sums, segments per lane (N,) int32,
+    iterations). Position 0 of 1 renders the whole chunk; a position whose
+    share is 0 contributes zeros."""
+    share = rank_share(spp, position, size)
+    if share == 0:
+        dev = renderer.cam_scalars.device
+        return (torch.zeros(renderer.width * renderer.height, 3, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev), 0)
+    return renderer.render(share, rank_seed(seed, position))
+
+
+class Ranks:
+    """The positions `render_loop` splits a render over and how their
+    partials join. This base is one device: position 0 of a (1, 1) mesh,
+    whose partial of a chunk or pass is the whole of it, so every join is
+    the partial itself and nothing calls torch.distributed.
+    parallel/shard.py:MeshRanks joins the positions of a mesh."""
+
+    position, size, shape = 0, 1, (1, 1)
+    root = True  # loads and saves checkpoints, prints progress
+    what = "chunking"  # what a refused checkpoint's configuration differs in
+
+    def check_same(self, label: str, *tensors) -> None:
+        """Raise unless every position holds the same bytes in `tensors`."""
+
+    def count_segments(self, segs) -> None:
+        """Count this position's segments of a chunk, inside its span."""
+
+    def join_chunk(self, fb):
+        """A regenerative chunk's (n_pixels, 3) sums from this position's."""
+        return fb
+
+    def join_pass(self, blk, n: int):
+        """A pass's (n, 3) sums from this position's `pass_block`."""
+        return blk
+
+    def join_lanes(self, rad, per: int, total: int):
+        """A large-scene pass's (total, 3) lanes from this position's
+        `large_scene_block` (`per` lanes a position)."""
+        return rad
+
+    def reduce(self, t, op: str = "sum"):
+        """`t` summed (op "max": maxed) over the positions, in place."""
+        return t
+
+    def broadcast(self, t):
+        """Position 0's `t` on every position, in place."""
+        return t
+
+
+ONE_DEVICE = Ranks()
+
+
+def render_loop(
     scene: Scene,
     cam: Camera,
     settings: RenderSettings,
+    ranks: Ranks = ONE_DEVICE,
     *,
+    path: str | None = None,
     device="cuda",
     seed: int = 0,
-    spp_per_chunk: int | None = None,
-    start_chunk: int = 0,
     wavefront: int = DEFAULT_WAVEFRONT,
     log_budget_bytes: int = LOG_BUDGET_BYTES,
+    spp_per_chunk: int | None = None,
     progress: bool = False,
     metrics=None,
     bilinear_stochastic: bool | None = None,
-):
-    """The chunk loop of `render_image` as a generator: renders chunks
-    `start_chunk`, `start_chunk` + 1, ... of `spp_per_chunk` samples per
-    pixel (default: `default_spp_chunk`; the last chunk takes what is
-    left) and yields (chunk index, samples per pixel done after it, the
-    chunk's (n_pixels, 3) radiance sum on `device`). Chunk c renders
-    samples [c * spp_per_chunk, ...) under seed `chunk_seed(seed, c)`, so
-    any run of chunks reproduces the same chunks of an uninterrupted
-    render (render/checkpoint.py resumes from one). On the large-scene
-    path a chunk is a pass. Arguments as `render_image`'s; `metrics` gets
-    the traced-segment totals once the generator is exhausted."""
-    path = render_path(scene)
+    checkpoint: tuple[str, str] | None = None,
+    max_chunks: int | None = None,
+) -> torch.Tensor:
+    """The render's one outer loop, on one device and at each position of a
+    mesh alike: chunks c = 0, 1, ... of `spp_per_chunk` samples per pixel
+    (the last takes what is left) under chunk_seed(seed, c), each one this
+    position's partial, joined over the positions by `ranks` and added to
+    the sums. Position 0 of 1 renders every chunk whole, so a mesh of one
+    renders ONE_DEVICE's image bit for bit. Returns the linear mean radiance (H, W, 3) on `device` over the
+    samples done. `path` (default render_path(scene)) picks the partial:
+
+    * "persistent", "wavefront_step": `regen_partial` on `chunk_renderer`'s
+      tables in chunks of default_spp_chunk, joined by `ranks.join_chunk`;
+    * "large_scene", on any scene: passes of samples_per_pass_for at
+      TARGET_RAYS_PER_PASS rays a position over the scene in cluster
+      order, lane blocks (`large_scene_block`) joined by `ranks.join_lanes`,
+      their k layers summed in the unsharded order;
+    * "passes", the non-regenerative loop: passes of samples_per_pass_for,
+      a multiple of the samples axis, tiles and slots (`pass_block`)
+      joined by `ranks.join_pass`.
+
+    checkpoint: (file, fingerprint): resume from the file when it is there
+    (render/checkpoint.py:resume) and, on `ranks.root`, save after every
+    chunk on a BackgroundSaver thread. `max_chunks` stops after that many.
+
+    metrics: updated per chunk and, when the budget is done, with the
+    traced segments over the positions (and warp slots and iterations; on
+    the large-scene path each pass's deepest lane's iterations and the
+    passes) in one sync; the occupancy basis is one position's lanes.
+
+    Spans: `render/pack`, a `render/chunk` a chunk (this position's
+    partial), those `ranks` opens around its joins, and `render/mean`."""
     dev = resolve_device(device)
-    if spp_per_chunk is None:
-        spp_per_chunk = default_spp_chunk(scene, settings, wavefront=wavefront,
-                                          log_budget_bytes=log_budget_bytes)
-    if path == "large_scene":
-        yield from _large_scene_chunks(scene.to(dev), cam, settings, seed=seed, k=spp_per_chunk,
-                                       start_chunk=start_chunk, progress=progress,
-                                       metrics=metrics)
-        return
-    spp = settings.samples_per_pixel
+    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+    n, path, pos, size = w * h, path or render_path(scene), ranks.position, ranks.size
+    regenerative = path not in ("passes", "large_scene")
+    trace_kw = dict(width=w, height=h, max_depth=settings.max_depth,
+                    sky_gradient=settings.sky_gradient)
+    chunk = spp_per_chunk or (
+        samples_per_pass_for(spp, n, samples_axis=ranks.shape[1]) if path == "passes"
+        else samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS * size) if path == "large_scene"
+        else default_spp_chunk(scene, settings, wavefront=wavefront,
+                               log_budget_bytes=log_budget_bytes, ranks=size))
     with tr.span("render/pack"):
-        renderer = chunk_renderer(scene, cam, settings, dev, wavefront=wavefront,
-                                  metrics=metrics, bilinear_stochastic=bilinear_stochastic)
-    chunk = spp_per_chunk
-    if metrics is not None:
-        n, num_slots, _ = strided_schedule(settings.width * settings.height, chunk,
-                                           renderer.wavefront)
-        metrics.wavefront_lanes = n
-        metrics.retirement_log_mb = 3 * num_slots * n * 4 / 2**20
-    seg_parts = []
-    iters = 0
-    chunk_idx = start_chunk
-    done = min(spp, chunk_idx * chunk)
-    while done < spp:
-        step = min(chunk, spp - done)
-        with tr.span("render/chunk"):
-            fb, segs, it = renderer.render(step, chunk_seed(seed, chunk_idx))
-        iters += it
-        seg_parts.append(segs)
-        done += step
-        if metrics is not None:
-            metrics.update(done)
-        if progress:
-            print(f"spp {done}/{spp}", flush=True)
-        yield chunk_idx, done, fb
-        chunk_idx += 1
-    if metrics is not None:
-        if path == "persistent":
-            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
-                           warp_slots=sum(warp_slots(s) for s in seg_parts))
+        if path == "passes":
+            scene = scene.to(dev)
+        elif path == "large_scene":
+            # The scene in cluster order (prim ids and shading are its), and
+            # its cluster, sphere and quad tables.
+            scene, clusters = _clustered(scene.to(dev), cam, dev, metrics)
+            tables = (clusters, *scene_tables(scene))
+            ranks.check_same("the cluster table", tables[0].rows, tables[1], tables[2])
+            frame = camera_frame(cam, w, h).to(dev)
         else:
-            metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts), iterations=iters)
+            renderer = chunk_renderer(scene, cam, settings, dev, wavefront=wavefront,
+                                      metrics=metrics, bilinear_stochastic=bilinear_stochastic)
+            if renderer.clusters is not None:
+                ranks.check_same("the cluster table", renderer.clusters.rows,
+                                 *renderer.tables[:2])
+    # With metrics: this position's segments, warp slots and iterations, and
+    # each large-scene pass's deepest lane.
+    stats, deepest = None, []
+    if metrics is not None and path == "large_scene":
+        metrics.wavefront_lanes = -(-(chunk * n) // size)
+    elif metrics is not None and regenerative:
+        lanes, num_slots, _ = strided_schedule(n, -(-chunk // size), renderer.wavefront)
+        metrics.wavefront_lanes = lanes
+        metrics.retirement_log_mb = 3 * num_slots * lanes * 4 / 2**20
+    if metrics is not None and path != "passes":
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+
+    def chunk_sum(idx: int, step: int) -> torch.Tensor:
+        """Chunk `idx`'s (n, 3) radiance sums over `step` samples per pixel
+        on every position."""
+        c_seed = chunk_seed(seed, idx)
+        if path == "passes":
+            with tr.span("render/chunk"):
+                blk = pass_block(scene, cam, c_seed, shape=ranks.shape, position=pos,
+                                 samples_per_pass=step, **trace_kw)
+            return ranks.join_pass(blk, n)
+        if path == "large_scene":
+            with tr.span("render/chunk"):
+                rad, segs = large_scene_block(scene, tables, cam, frame, c_seed, position=pos,
+                                              size=size, k=step, **trace_kw)
+            if stats is not None:
+                stats[0] += segs.sum()
+                deepest.append(segs.max() if segs.numel() else segs.new_zeros(()))
+            lanes = ranks.join_lanes(rad, -(-(step * n) // size), step * n)
+            return lanes.reshape(step, n, 3).sum(0)
+        with tr.span("render/chunk"):
+            fb, segs, it = regen_partial(renderer, step, c_seed, pos, size)
+            ranks.count_segments(segs)
+        fb = ranks.join_chunk(fb)
+        if stats is not None and segs.numel():
+            stats[0] += segs.sum()
+            if renderer.path == "persistent":
+                stats[1] += warp_slots(segs)
+            stats[2] += it
+        return fb
+
+    acc = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    done, idx, chunks_run, saver = 0, 0, 0, None
+    if checkpoint is not None:
+        # render/checkpoint.py imports this module: imported at first use.
+        from raytracer_tpu_torch.render import checkpoint as ckpt
+
+        done, idx = ckpt.resume(*checkpoint, acc, ranks)
+        if done and progress and ranks.root:
+            print(f"resumed at {done}/{spp} spp", flush=True)
+        if ranks.root:
+            saver = ckpt.BackgroundSaver(checkpoint[0])
+    try:
+        while done < spp and (max_chunks is None or chunks_run < max_chunks):
+            step = min(chunk, spp - done)
+            acc += chunk_sum(idx, step)
+            done, idx, chunks_run = done + step, idx + 1, chunks_run + 1
+            if saver is not None:
+                host = acc.reshape(h, w, 3).to("cpu", copy=True).numpy()
+                saver.submit(ckpt.RenderCheckpoint(acc=host, done_spp=done, seed=seed,
+                                                   chunk_idx=idx, config_hash=checkpoint[1]))
+            if metrics is not None:
+                metrics.update(done)
+            if progress and ranks.root:
+                print(f"spp {done}/{spp}" if regenerative
+                      else f"pass {idx}/{-(-spp // chunk)} ({done}/{spp} spp)", flush=True)
+    finally:
+        if saver is not None:
+            saver.wait()
+    if saver is not None:
+        saver.raise_errors()
+    if stats is not None and done >= spp:
+        segments, slots, iters = ranks.reduce(stats).tolist()
+        if deepest:
+            # A pass runs one bounce iteration per segment of its deepest lane.
+            iters = int(ranks.reduce(torch.stack(deepest), "max").sum())
+        metrics.update(done, segments=segments, warp_slots=slots, iterations=iters,
+                       passes=0 if regenerative else chunks_run)
+    with tr.span("render/mean"):
+        return (acc / float(max(done, 1))).reshape(h, w, 3)
 
 
 def render_image(
@@ -448,14 +631,11 @@ def render_image(
 ) -> torch.Tensor:
     """Render the full image; returns linear mean radiance (H, W, 3) float32
     on `device`. CUDA runs the kernels; CPU runs their plain twins. The
-    scene takes `render_path(scene)`; `wavefront` sizes the persistent
-    path's lanes only. The spp budget runs in `render_chunks`' chunks.
-
-    regenerative=False renders in passes of k samples per pixel instead
-    (`render_pass`, k from samples_per_pass_for at TARGET_RAYS_PER_PASS
-    rays, pass p under chunk_seed(seed, p)): every lane traces one path to
-    its end through `trace`, with no russian roulette, whatever the
-    scene's path (the JAX driver's non-regenerative loop, driver.py:636-654).
+    scene takes `render_path(scene)` through `render_loop` on one device;
+    `wavefront` sizes the persistent path's lanes only. regenerative=False
+    renders in passes instead: every lane traces one path to its end
+    through `trace`, with no russian roulette, whatever the scene's path
+    (the JAX driver's non-regenerative loop, driver.py:636-654).
 
     bilinear_stochastic (scenes with `bilinear_textures`, as in the JAX
     driver): None (default) filters images by the unbiased stochastic
@@ -468,42 +648,18 @@ def render_image(
     JAX driver's settings, driver.py:602); the large-scene path has none.
     It is unbiased.
 
-    Persistent-path scenes of more than CLUSTERED_SCENE_PRIMS primitives
-    are clustered on the host first (`cluster_for_render`) and kernel 2
-    culls clusters.
-
-    metrics: optional utils.metrics.RenderMetrics, updated per chunk (or
-    pass) and with traced-segment totals after the last (one device sync);
-    a clustered render also records its host clustering seconds, the BVH
+    metrics: optional utils.metrics.RenderMetrics (`render_loop`'s); a
+    clustered render also records its host clustering seconds, the BVH
     builder and the cluster table's section lengths.
 
     The render is a root span `render_image` of utils/trace.py, with
     `render/pack`, a `render/chunk` a chunk (`render/kernel` and
     `render/fold` inside it) and `render/mean`."""
     with tr.span("render_image"):
-        dev = resolve_device(device)
-        w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-        if not regenerative:
-            k = samples_per_pass_for(spp, w * h)
-            scene = scene.to(dev)
-            acc = torch.zeros(h, w, 3, dtype=torch.float32, device=dev)
-            for p in range(spp // k):
-                acc += render_pass(scene, cam, chunk_seed(seed, p), width=w, height=h,
-                                   samples_per_pass=k, max_depth=settings.max_depth,
-                                   sky_gradient=settings.sky_gradient)
-                if metrics is not None:
-                    metrics.update((p + 1) * k)
-                if progress:
-                    print(f"pass {p + 1}/{spp // k} ({(p + 1) * k}/{spp} spp)", flush=True)
-            return acc / float(spp)
-        acc = torch.zeros(w * h, 3, dtype=torch.float32, device=dev)
-        for _, _, fb in render_chunks(scene, cam, settings, device=dev, seed=seed,
-                                      wavefront=wavefront, log_budget_bytes=log_budget_bytes,
-                                      progress=progress, metrics=metrics,
-                                      bilinear_stochastic=bilinear_stochastic):
-            acc += fb
-        with tr.span("render/mean"):
-            return (acc / float(spp)).reshape(h, w, 3)
+        return render_loop(scene, cam, settings, path=None if regenerative else "passes",
+                           device=device, seed=seed, wavefront=wavefront,
+                           log_budget_bytes=log_budget_bytes, progress=progress,
+                           metrics=metrics, bilinear_stochastic=bilinear_stochastic)
 
 
 def sample_camera_rays(frame, seed: int, sample_ids, *, width: int, height: int):
@@ -536,8 +692,8 @@ def trace_samples(scene: Scene, cam: Camera, frame, seed: int, sample_ids, *, wi
     russian roulette. The closest hit is trace's default (kernel 1 dense on
     CUDA) unless `intersect_fn` is given. Returns radiance (L, 3) and, with
     `return_segments`, segments (L,) int32. Lanes depend on their sample
-    ids alone, so any split of a pass's ids over ranks traces the same
-    per-lane values (parallel/shard.py)."""
+    ids alone, so any split of a pass's ids over positions traces the same
+    per-lane values (`pass_block`, `large_scene_block`)."""
     dev = scene.sph_center.device
     if isinstance(sample_ids, range):
         start = sample_ids.start
@@ -556,111 +712,60 @@ def trace_samples(scene: Scene, cam: Camera, frame, seed: int, sample_ids, *, wi
                  intersect_fn=intersect_fn)
 
 
-def render_pass(scene: Scene, cam: Camera, seed: int, *, width: int, height: int,
-                samples_per_pass: int, max_depth: int, sky_gradient: bool) -> torch.Tensor:
-    """One pass (port of raytracer_tpu/render/driver.py:render_pass): every
-    pixel's radiance sum over `samples_per_pass` samples, (height, width,
-    3) on the scene's device. Lane L is sample id L at pixel L mod
-    (width*height) (`trace_samples`)."""
+def pass_block(scene: Scene, cam: Camera, seed: int, *, shape: tuple[int, int], position: int,
+               width: int, height: int, samples_per_pass: int, max_depth: int,
+               sky_gradient: bool, intersect_fn=None):
+    """Position `position`'s part of one pass on a mesh of `shape` (tiles,
+    samples): its tile's pixels [p0, p1) (`lane_block`, pixel order) and
+    its sample slots [si * k / S, (si + 1) * k / S); lane (slot, pixel) is
+    global sample slot * n + pixel (`trace_samples`, its closest hit
+    `intersect_fn` or trace's default). Position 0 of (1, 1) is the whole
+    pass (the port of raytracer_tpu/render/driver.py:render_pass). Returns
+    the tile's (p1 - p0, 3) radiance sums over those slots."""
+    tiles, samples = shape
+    ti, si = divmod(position, samples)
     n = width * height
+    k_loc = samples_per_pass // samples
     dev = scene.sph_center.device
+    p0, p1 = lane_block(n, ti, tiles)
+    if p1 - p0 == n:  # the whole image: its slots are one run of sample ids
+        sid = range(si * k_loc * n, (si + 1) * k_loc * n)
+    else:
+        slots = torch.arange(si * k_loc, (si + 1) * k_loc, device=dev)
+        sid = (slots[:, None] * n + torch.arange(p0, p1, device=dev)[None, :]).reshape(-1)
+    if len(sid) == 0:
+        return torch.zeros(p1 - p0, 3, device=dev)
     frame = camera_frame(cam, width, height).to(dev)
-    rad = trace_samples(scene, cam, frame, seed, range(samples_per_pass * n), width=width,
-                        height=height, max_depth=max_depth, sky_gradient=sky_gradient)
-    return rad.reshape(samples_per_pass, n, 3).sum(0).reshape(height, width, 3)
+    rad = trace_samples(scene, cam, frame, seed, sid, width=width, height=height,
+                        max_depth=max_depth, sky_gradient=sky_gradient,
+                        intersect_fn=intersect_fn)
+    return rad.reshape(k_loc, p1 - p0, 3).sum(0)
 
 
-def large_scene_hit(tables):
-    """`trace`'s intersect_fn on a large-scene path's (ClusterTable, sphere
-    table, quad table): camera rays (bounce 0, coherent, in pixel order)
-    through the cluster-culled kernel 4, bounces through kernel 1's
-    clustered entry."""
+def large_scene_block(scene: Scene, tables, cam: Camera, frame, seed: int, *, position: int,
+                      size: int, width: int, height: int, k: int, max_depth: int,
+                      sky_gradient: bool):
+    """Position's contiguous block [start, stop) of a large-scene pass's
+    k * n camera rays (`lane_block`; position 0 of 1: the whole pass), lane
+    L sample id L at pixel L mod n under the pass's seed, no russian
+    roulette (the JAX package's `trace`), over the cluster-ordered scene
+    and its (ClusterTable, sphere table, quad table): camera rays (bounce
+    0, coherent, in pixel order) through the cluster-culled kernel 4,
+    bounces through kernel 1's clustered entry. Returns (radiance
+    (stop - start, 3), segments (stop - start,) int32)."""
     clusters, sph, quad = tables
+    start, stop = lane_block(k * width * height, position, size)
+    if stop == start:
+        return (torch.zeros(0, 3, device=sph.device),
+                torch.zeros(0, dtype=torch.int32, device=sph.device))
 
     def hit_fn(scene, o, d, bounce, lanes):
         hit = ck.intersect_culled if bounce == 0 else ik.intersect_clustered
         return hit(clusters, sph, quad, o.contiguous(), d.contiguous())
 
-    return hit_fn
-
-
-def _large_scene_pass(scene: Scene, tables, cam: Camera, frame, seed: int, *, width: int,
-                      height: int, k: int, max_depth: int, sky_gradient: bool):
-    """One pass of the large-scene path over a cluster-ordered scene and its
-    (ClusterTable, sphere table, quad table): k samples per pixel in one
-    batch, lane L sample id L at pixel L mod (width*height), its camera and
-    bounce uniforms the counter RNG's under this pass's seed, the hits
-    `large_scene_hit`'s; no russian roulette (the JAX package's `trace`).
-    Returns ((n_pixels, 3) radiance sum, segments (k * n_pixels,) int32)."""
-    n = width * height
-    rad, segs = trace_samples(scene, cam, frame, seed, range(k * n), width=width, height=height,
-                              max_depth=max_depth, sky_gradient=sky_gradient,
-                              intersect_fn=large_scene_hit(tables), return_segments=True)
-    return rad.reshape(k, n, 3).sum(0), segs
-
-
-def large_scene_tables(scene: Scene, cam: Camera, dev, metrics=None):
-    """(the cluster-ordered scene, its (ClusterTable, sphere table, quad
-    table)) of the large-scene path on `dev` (`_clustered`)."""
-    scene, clusters = _clustered(scene, cam, dev, metrics)
-    return scene, (clusters, *scene_tables(scene))
-
-
-def _large_scene_chunks(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
-                        k: int | None = None, start_chunk: int = 0, progress: bool = False,
-                        metrics=None):
-    """The large-scene path's passes as `render_chunks` yields them: the
-    scene clustered on the host once (`cluster_for_render`: the clustering
-    cached per geometry, the permutation applied to `scene`), then passes
-    `start_chunk`, ... of k samples per pixel (default samples_per_pass_for;
-    the last pass takes what is left) over the permuted scene, so prim ids
-    and shading are that scene's. Yields (pass index, samples per pixel
-    done after it, the pass's (n_pixels, 3) radiance sum); `metrics` also
-    records the host clustering seconds, the BVH builder and the cluster
-    table's section lengths."""
-    w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-    n = w * h
-    dev = scene.sph_center.device
-    scene, tables = large_scene_tables(scene, cam, dev, metrics)
-    frame = camera_frame(cam, w, h).to(dev)
-    if k is None:
-        k = samples_per_pass_for(spp, n, TARGET_RAYS_PER_PASS)
-    passes = -(-spp // k)
-    seg_parts = []
-    done = min(spp, start_chunk * k)
-    if metrics is not None:
-        metrics.wavefront_lanes = k * n
-    for p in range(start_chunk, passes):
-        step = min(k, spp - done)
-        with tr.span("render/chunk"):
-            fb, segs = _large_scene_pass(
-                scene, tables, cam, frame, chunk_seed(seed, p), width=w, height=h, k=step,
-                max_depth=settings.max_depth, sky_gradient=settings.sky_gradient,
-            )
-        seg_parts.append(segs)
-        done += step
-        if metrics is not None:
-            metrics.update(done)
-        if progress:
-            print(f"pass {p + 1}/{passes} ({done}/{spp} spp)", flush=True)
-        yield p, done, fb
-    if metrics is not None:
-        # A pass runs one bounce iteration per segment of its deepest lane.
-        metrics.update(done, segments=sum(int(s.sum()) for s in seg_parts),
-                       iterations=sum(int(s.max()) for s in seg_parts), passes=len(seg_parts))
-
-
-def _render_large_scene(scene: Scene, cam: Camera, settings: RenderSettings, *, seed: int,
-                        progress: bool = False, metrics=None):
-    """The large-scene path (port of raytracer_tpu/render/driver.py:290-344)
-    over `_large_scene_chunks`' passes. Returns the linear mean radiance
-    (H, W, 3) on the scene's device."""
-    w, h = settings.width, settings.height
-    acc = torch.zeros(w * h, 3, dtype=torch.float32, device=scene.sph_center.device)
-    for _, _, fb in _large_scene_chunks(scene, cam, settings, seed=seed, progress=progress,
-                                        metrics=metrics):
-        acc += fb
-    return (acc / float(settings.samples_per_pixel)).reshape(h, w, 3)
+    return trace_samples(scene, cam, frame, seed, range(start, stop), width=width, height=height,
+                         max_depth=max_depth, sky_gradient=sky_gradient, intersect_fn=hit_fn,
+                         return_segments=True)
 
 
 def render_scene(scene: Scene, cam: Camera, settings: RenderSettings, **kw) -> np.ndarray:

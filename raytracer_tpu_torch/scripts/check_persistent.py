@@ -13,7 +13,7 @@ expectation:
 * "fast": `render_image` on the scene's `render_path` (kernel 2, the
   regenerative wavefront with russian roulette, rr_max_q 0.75 from depth 5);
 * "independent": `render_image(regenerative=False)`: passes of
-  `render_pass` -> `trace` (kernel 1 for each bounce's closest hit,
+  `pass_block` -> `trace` (kernel 1 for each bounce's closest hit,
   PyTorch shading, no russian roulette, the deterministic 4-tap image
   filter).
 

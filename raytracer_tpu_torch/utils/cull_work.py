@@ -17,7 +17,7 @@ culled_bounds), and the twin's seconds. Runs on the card unless `--device
 cpu` is given.
 
 With --camera (`camera_work`) it counts, on the camera rays of
-_render_large_scene's first pass (render/driver.py:pass_camera_rays, seed
+the large-scene path's first pass (render/driver.py:pass_camera_rays, seed
 0; --samples K keeps the first K samples per pixel of the pass), the work
 of kernel 4's walk on the render's two-level table (ClusterVisit.hit_work
 on cluster_for_render's tables) and on the TPU kernel's flat table

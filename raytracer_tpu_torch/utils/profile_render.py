@@ -5,7 +5,7 @@
 
 The scene at its CLI defaults (width, spp, depth; --spp overrides), through
 the path render/driver.py:render_path gives it, or with --large-scene
-through the large-scene path (render/driver.py:_render_large_scene). One warm render, then one
+through the large-scene path (render/driver.py:render_loop). One warm render, then one
 under torch.profiler (CPU and CUDA activity). Prints one JSON line: the
 render's wall seconds, the device's busy time (the union of its kernels'
 intervals) and idle share, the kernel launches, the device time of the
@@ -44,7 +44,7 @@ def main(argv=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from raytracer_tpu_torch.render.driver import _render_large_scene, render_image, render_path
+    from raytracer_tpu_torch.render.driver import render_image, render_loop, render_path
     from raytracer_tpu_torch.scenes.registry import SCENES, get_scene
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -63,7 +63,7 @@ def main(argv=None) -> dict:
 
     def render(seed):
         if args.large_scene:
-            return _render_large_scene(scene, cam, st, seed=seed)
+            return render_loop(scene, cam, st, path="large_scene", seed=seed)
         return render_image(scene, cam, st, device="cuda", seed=seed)
 
     render(1)

@@ -28,7 +28,7 @@ Cells (each through its public wrapper, so a parent checkout runs it too):
   rand_spheres 400x225@8spp depth 50 (seed 101, texture colors halved),
   each at its own rays, summed (the step's 50 launches, recorded as the
   step makes them);
-* `k1_large` and `k4_large`: `_render_large_scene` on rand_spheres_large
+* `k1_large` and `k4_large`: render_loop's large-scene path on rand_spheres_large
   at 400x225@64spp depth 8, seed 0, its launches recorded as the render
   makes them: every bounce launch of kernel 1 (dense in a checkout whose
   large-scene path walks no cluster table, else its clustered entry),
@@ -389,7 +389,7 @@ def _path_cells() -> dict:
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
     from raytracer_tpu_torch.ops import culled_kernel as ck
     from raytracer_tpu_torch.ops import intersect_kernel as ik
-    from raytracer_tpu_torch.render.driver import _render_large_scene
+    from raytracer_tpu_torch.render.driver import render_loop
     from raytracer_tpu_torch.scenes.registry import get_scene
 
     out = {}
@@ -408,7 +408,7 @@ def _path_cells() -> dict:
     sc = scene.to("cuda")
     clustered = hasattr(ik, "intersect_clustered")
     k1 = "intersect_clustered" if clustered else "intersect"
-    calls = _recorded(lambda: _render_large_scene(sc, cam, st, seed=0),
+    calls = _recorded(lambda: render_loop(sc, cam, st, path="large_scene", seed=0),
                       [(ik, k1), (ck, "intersect_culled")])
     bounces = [c for c in calls if c[0] is not ck.intersect_culled]
     first_camera = [c for c in calls if c[0] is ck.intersect_culled][:1]

@@ -19,7 +19,7 @@ each path run once before its timed runs):
   perlin, earth and simple_light at --spp 100 (kernel 2 textured);
 * `wavefront_step`: `render_image` on perlin with rng-filled Perlin tables
   (kernel 5 and the PyTorch epilogue), ended by a device sync;
-* `large_scene`: `_render_large_scene` on rand_spheres_large at
+* `large_scene`: render_loop's large-scene path on rand_spheres_large at
   400x225@64spp depth 8 (kernels 4 and 1), each run on a scene built
   anew and moved to the card before it (its host clustering cold inside
   the wall), ended by a device sync; `large_scene_cached` the same on one
@@ -85,7 +85,7 @@ def path_runners(out_dir: Path) -> dict:
 
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.diff.grad import make_inverse_renderer, render_linear_diff
-    from raytracer_tpu_torch.render.driver import _render_large_scene, render_image
+    from raytracer_tpu_torch.render.driver import render_image, render_loop
     from raytracer_tpu_torch.scenes.registry import get_scene
     from raytracer_tpu_torch.utils.metrics import RenderMetrics
 
@@ -110,8 +110,8 @@ def path_runners(out_dir: Path) -> dict:
     def render_large(scene=None):
         if scene is None:  # new tensors: a cold host clustering
             scene = get_scene("rand_spheres_large", spp=64)[0].to("cuda")
-        return dict(wall_s=_synced(lambda: _render_large_scene(scene, large[1], large[2],
-                                                                seed=0)))
+        return dict(wall_s=_synced(lambda: render_loop(scene, large[1], large[2],
+                                                        path="large_scene", seed=0)))
 
     large = get_scene("rand_spheres_large", spp=64)
     large_sc = large[0].to("cuda")

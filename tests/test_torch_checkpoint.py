@@ -22,6 +22,8 @@ from raytracer_tpu_torch.diff.opt_checkpoint import (
     save_opt_checkpoint,
 )
 from raytracer_tpu_torch.geometry.scene import SceneBuilder
+from raytracer_tpu_torch.parallel import mesh as pmesh
+from raytracer_tpu_torch.parallel import shard
 from raytracer_tpu_torch.render import checkpoint as pckpt
 from raytracer_tpu_torch.render.driver import (
     chunk_bytes,
@@ -118,6 +120,33 @@ def test_static_scene_flag_change_refuses(tmp_path):
                                   max_chunks=1, **kw)
     with pytest.raises(ValueError, match="refusing to resume"):
         pckpt.render_with_checkpoints(b.build(bilinear_textures=True), cam, settings, **kw)
+
+
+# The config_hash that checkpoints of `_setup()` at seed 3 on the CPU carry:
+# one device at 2 spp a chunk (render_with_checkpoints) and a mesh of one
+# rank at its default chunk (render_image_sharded). A change to either
+# fingerprint leaves every checkpoint on disk unable to resume.
+PINNED_FINGERPRINTS = {
+    "single": "1e4a413ee26cbc9bbfa7c55979f6c92120d7879727b35932434a3b76d595a4ad",
+    "sharded": "cdaf923e957a29e80550c36638e3c0c5ac602edccaf6b639ed94ad5cabb6dc3c",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PINNED_FINGERPRINTS))
+def test_fingerprints_are_pinned(tmp_path, entry):
+    scene, cam, settings = _setup()
+    ckpt = str(tmp_path / "r.npz")
+    if entry == "single":
+        pckpt.render_with_checkpoints(scene, cam, settings, seed=3, spp_per_chunk=2,
+                                      device="cpu", checkpoint_path=ckpt, max_chunks=1)
+    else:
+        pmesh.init_group("cpu")
+        try:
+            shard.render_image_sharded(scene, cam, settings, pmesh.make_mesh(), seed=3,
+                                       checkpoint_path=ckpt, max_chunks=1)
+        finally:
+            pmesh.close_group()
+    assert pckpt.load_checkpoint(ckpt).config_hash == PINNED_FINGERPRINTS[entry]
 
 
 def test_version_mismatch_raises(tmp_path):

@@ -184,6 +184,11 @@ def test_culled_twin_equals_dense_search(name):
     assert float(work.float().mean()) < psc.num_spheres
 
 
+def large_scene(scene, cam, settings, **kw):
+    """The large-scene path on one CPU device, on any scene."""
+    return pdriver.render_loop(scene, cam, settings, path="large_scene", device="cpu", **kw)
+
+
 def test_large_scene_render_matches_jax():
     """rand_spheres_large with 1,000 spheres at 32x18, 2 spp, depth 8,
     through the large-scene path (kernel 4's and kernel 1's twins), against
@@ -193,7 +198,7 @@ def test_large_scene_render_matches_jax():
     jsc, jcam, jst = jbuilders.rand_spheres_large(width=32, spp=2, n_spheres=1000)
     psc, pcam, pst = pbuilders.rand_spheres_large(width=32, spp=2, n_spheres=1000)
     want = np.mean([np.asarray(jax_render_image(jsc, jcam, jst, seed=s)) for s in range(4)], axis=0)
-    got = np.mean([pdriver._render_large_scene(psc, pcam, pst, seed=s).numpy()
+    got = np.mean([large_scene(psc, pcam, pst, seed=s).numpy()
                    for s in range(4)], axis=0)
     assert np.isfinite(got).all() and got.shape == want.shape
     np.testing.assert_allclose(got.mean((0, 1)), want.mean((0, 1)), rtol=0.04)
@@ -208,14 +213,14 @@ def test_large_scene_path_counts_passes(monkeypatch):
     assert pdriver.samples_per_pass_for(6, 144, 3 * 144) == 3
     monkeypatch.setattr(pdriver, "TARGET_RAYS_PER_PASS", 3 * 144)
     metrics = RenderMetrics(total_spp=6, pixels=144)
-    img = pdriver._render_large_scene(psc, cam, st, seed=1, metrics=metrics)
+    img = large_scene(psc, cam, st, seed=1, metrics=metrics)
     assert bool(torch.isfinite(img).all()) and img.shape == (9, 16, 3)
     assert metrics.passes == 2 and metrics.traced_segments >= 144 * 6
     assert metrics.iterations >= 2
 
 
 def large_scene_launches(monkeypatch, width=48, spp=2, n_spheres=1000, seed=2):
-    """_render_large_scene on rand_spheres_large (CPU, one pass): the scene
+    """The large-scene path on rand_spheres_large (CPU, one pass): the scene
     it renders, its (ClusterTable, sphere, quad tables), and the rays of its
     kernel-4 launch and of each clustered kernel-1 launch, recorded as the
     path makes them. Also every dense kernel-1 call it makes."""
@@ -233,7 +238,7 @@ def large_scene_launches(monkeypatch, width=48, spp=2, n_spheres=1000, seed=2):
                         recorder("clustered", pik.intersect_clustered))
     monkeypatch.setattr(pik, "intersect", recorder("dense", pik.intersect))
     monkeypatch.setattr(pdriver, "TARGET_RAYS_PER_PASS", spp * st.width * st.height)
-    pdriver._render_large_scene(psc, cam, st, seed=seed)
+    large_scene(psc, cam, st, seed=seed)
     return psc, cam, calls
 
 
@@ -292,7 +297,7 @@ def test_cluster_visit_equals_the_tpu_kernels_search_on_camera_rays(monkeypatch)
 
 
 def test_large_scene_path_culls_every_search_and_launches_nothing_on_cpu(monkeypatch):
-    """_render_large_scene on CPU tensors: camera rays through kernel 4's
+    """The large-scene path on CPU tensors: camera rays through kernel 4's
     wrapper, every bounce through kernel 1's clustered entry, no dense
     kernel-1 call, all on one two-level cluster table of the permuted scene,
     and no wrapper counts a launch."""

@@ -643,7 +643,7 @@ def test_wavefront_step_kernel_matches_plain(cuda, name):
 
 
 def large_scene_launches(device, monkeypatch, width=96, spp=2, n_spheres=None):
-    """_render_large_scene on rand_spheres_large (width wide, spp samples,
+    """The large-scene path on rand_spheres_large (width wide, spp samples,
     one pass) on `device`: (its ClusterTable, sphere and quad tables, the
     (origin, direction) of its kernel-4 launch, the (origin, direction) of
     each of its clustered kernel-1 launches), recorded as the path makes
@@ -664,7 +664,7 @@ def large_scene_launches(device, monkeypatch, width=96, spp=2, n_spheres=None):
     monkeypatch.setattr(ik, "intersect_clustered",
                         recorder("clustered", ik.intersect_clustered))
     monkeypatch.setattr(driver, "TARGET_RAYS_PER_PASS", spp * st.width * st.height)
-    driver._render_large_scene(scene.to(device), cam, st, seed=3)
+    driver.render_loop(scene, cam, st, path="large_scene", device=device, seed=3)
     clusters, sph, quad = calls["culled"][0][:3]
     return (clusters, sph, quad, calls["culled"][0][3:],
             [c[3:] for c in calls["clustered"]])

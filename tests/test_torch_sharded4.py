@@ -165,7 +165,7 @@ def duplicate_seed(renderer, step, seed, p):
 
 def dropped_rank(renderer, step, seed, p):
     """Rank 3's samples left out, the other ranks' scaled by 4/3."""
-    fb = shard.regen_partial(renderer, step, seed, p, RANKS)[0]
+    fb = driver.regen_partial(renderer, step, seed, p, RANKS)[0]
     return torch.zeros_like(fb) if p == 3 else fb * (4.0 / 3.0)
 
 
@@ -173,7 +173,7 @@ def test_in_process_partials_match_the_reference():
     """The sum of the four positions' partials, worked out in one process,
     is what the reference reads: the yardstick the planted faults break."""
     g = GRID_SEEDS[0]
-    sound = in_process(g, 77, lambda r, step, s, p: shard.regen_partial(r, step, s, p, RANKS)[0])
+    sound = in_process(g, 77, lambda r, step, s, p: driver.regen_partial(r, step, s, p, RANKS)[0])
     assert compare.pixel_gap(sound, reference(g, 77)[0]) <= PIXEL_GAP
 
 
@@ -233,13 +233,13 @@ def test_host_syncs_count_under_the_root(monkeypatch):
     """A sync inside a chunk's partial counts toward the chunk's span and
     the root `render_image_sharded` (one in-process gloo rank)."""
     _, _, scene, cam, settings = program_inputs(GRID_SEEDS[0])
-    partial = shard.regen_partial
+    partial = driver.regen_partial
 
     def syncing(*args):
         warnings.warn(trace.SYNC_WARNING, UserWarning)
         return partial(*args)
 
-    monkeypatch.setattr(shard, "regen_partial", syncing)
+    monkeypatch.setattr(driver, "regen_partial", syncing)
     pmesh.init_group("cpu")
     trace.collect()
     trace.enable()

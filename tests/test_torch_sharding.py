@@ -211,7 +211,7 @@ def in_process_regen(scene, cam, settings, size, seed, **kw):
     acc = torch.zeros(settings.width * settings.height, 3)
     while done < spp:
         step = min(chunk, spp - done)
-        parts = [shard.regen_partial(renderer, step, driver.chunk_seed(seed, c), p, size)[0]
+        parts = [driver.regen_partial(renderer, step, driver.chunk_seed(seed, c), p, size)[0]
                  for p in range(size)]
         fb = parts[0]
         for p in parts[1:]:
@@ -219,6 +219,11 @@ def in_process_regen(scene, cam, settings, size, seed, **kw):
         acc = acc + fb
         done, c = done + step, c + 1
     return (acc / float(spp)).reshape(settings.height, settings.width, 3).numpy()
+
+
+def large_scene(scene, cam, settings, seed):
+    """The large-scene path on one CPU device, on any scene."""
+    return driver.render_loop(scene, cam, settings, path="large_scene", device="cpu", seed=seed)
 
 
 def hold_statistically(img, ref, mean_abs=0.08, rtol=0.05):
@@ -255,9 +260,9 @@ def test_make_mesh_needs_a_group_and_world_of_one():
 
 
 def test_lane_blocks_rank_shares_and_seeds():
-    blocks = [pmesh.lane_block(10, p, 4) for p in range(4)]
+    blocks = [driver.lane_block(10, p, 4) for p in range(4)]
     assert blocks == [(0, 3), (3, 6), (6, 9), (9, 10)]
-    assert pmesh.lane_block(2, 3, 4) == (2, 2)
+    assert driver.lane_block(2, 3, 4) == (2, 2)
     shares = [shard.rank_share(13, p, 8) for p in range(8)]
     assert sum(shares) == 13 and shares == [2] * 5 + [1] * 3
     assert shard.rank_seed(77, 0) == 77
@@ -271,15 +276,15 @@ def fake_mesh(shape):
 
 
 def test_sharded_samples_per_pass():
-    k = shard.sharded_samples_per_pass(16, 1000, fake_mesh((2, 4)), 1 << 20)
+    k = driver.samples_per_pass_for(16, 1000, 1 << 20, fake_mesh((2, 4)).shape[1])
     assert k % 4 == 0 and 16 % k == 0
-    assert shard.sharded_samples_per_pass(16, 1000, fake_mesh((1, 1)), 1 << 20) == \
+    assert driver.samples_per_pass_for(16, 1000, 1 << 20, fake_mesh((1, 1)).shape[1]) == \
         driver.samples_per_pass_for(16, 1000, 1 << 20)
 
 
 def test_sharded_samples_per_pass_uneven_spp_raises():
     with pytest.raises(ValueError, match="multiple of the sample-axis"):
-        shard.sharded_samples_per_pass(10, 1000, fake_mesh((2, 4)), 1 << 20)
+        driver.samples_per_pass_for(10, 1000, 1 << 20, fake_mesh((2, 4)).shape[1])
 
 
 def test_miss_only_exact_accounting_uneven_spp(four):
@@ -307,6 +312,36 @@ def test_world_of_one_is_render_image_bit_for_bit(path, monkeypatch):
     assert img.shape == ref.shape and torch.equal(img, ref)
 
 
+@pytest.mark.parametrize("path", ["persistent", "wavefront_step", "large_scene", "passes"])
+def test_one_device_calls_no_collective(path, monkeypatch, tmp_path):
+    """A render on one device, checkpointed or not, makes no
+    torch.distributed call: with its collectives made to raise, every path
+    renders the image it renders without them."""
+    from raytracer_tpu_torch.render import checkpoint as pckpt
+
+    scene, cam, st = step_scene() if path in ("wavefront_step", "large_scene") else tiny()
+    if path == "large_scene":
+        monkeypatch.setattr(driver, "LARGE_SCENE_PRIMS", 1)
+    regenerative = path != "passes"
+    ref = driver.render_image(scene, cam, st, device="cpu", seed=4, regenerative=regenerative)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a one-device render called torch.distributed")
+
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier", "new_group",
+                 "get_rank", "get_world_size", "init_process_group"):
+        monkeypatch.setattr(torch.distributed, name, refuse)
+    img = driver.render_image(scene, cam, st, device="cpu", seed=4, regenerative=regenerative)
+    assert torch.equal(img, ref)
+    if regenerative:
+        ckpt = str(tmp_path / "one.npz")
+        kw = dict(device="cpu", seed=4, spp_per_chunk=1, checkpoint_path=ckpt)
+        pckpt.render_with_checkpoints(scene, cam, st, max_chunks=1, **kw)
+        resumed = pckpt.render_with_checkpoints(scene, cam, st, **kw)
+        assert pckpt.load_checkpoint(ckpt).done_spp == st.samples_per_pixel
+        assert torch.isfinite(resumed).all()
+
+
 @pytest.mark.parametrize("name", ["regen", "step"])
 def test_two_ranks_are_the_sum_of_their_partials(two, name):
     _, imgs, _ = two
@@ -316,25 +351,24 @@ def test_two_ranks_are_the_sum_of_their_partials(two, name):
 
 
 def test_large_scene_passes_follow_the_ray_target(monkeypatch):
-    """The sharded large-scene path takes `_render_large_scene`'s passes
+    """The sharded large-scene path takes one device's passes
     (samples_per_pass_for at TARGET_RAYS_PER_PASS rays a rank), whatever
     path the scene would take in render_image."""
     scene, cam, st = tiny(spp=6)
     monkeypatch.setattr(driver, "TARGET_RAYS_PER_PASS", 2 * st.width * st.height)
-    monkeypatch.setattr(shard, "TARGET_RAYS_PER_PASS", 2 * st.width * st.height)
     with world_of_one() as mesh:
         img = shard.render_large_scene_sharded(scene, cam, st, mesh, seed=1)
-    ref = driver._render_large_scene(scene, cam, st, seed=1)
+    ref = large_scene(scene, cam, st, seed=1)
     assert torch.equal(img, ref)
 
 
 def test_two_rank_large_scene_is_the_unsharded_render(two):
     """Lanes keyed by global sample id and the k layers summed in the
-    unsharded order: the sharded large-scene path is _render_large_scene's
-    image bit for bit."""
+    unsharded order: the sharded large-scene path is one device's image
+    bit for bit."""
     _, imgs, _ = two
     scene, cam, st = tiny()
-    ref = driver._render_large_scene(scene, cam, st, seed=0)
+    ref = large_scene(scene, cam, st, seed=0)
     np.testing.assert_array_equal(imgs["large"], ref.numpy())
 
 
@@ -346,7 +380,7 @@ def test_four_ranks_against_in_process_and_unsharded(four):
     scene, cam, st = tiny()
     ref = driver.render_image(scene, cam, st, device="cpu", seed=0, regenerative=False)
     np.testing.assert_allclose(imgs["passes"], ref.numpy(), rtol=1e-6, atol=1e-7)
-    ref = driver._render_large_scene(scene, cam, st, seed=0)
+    ref = large_scene(scene, cam, st, seed=0)
     np.testing.assert_array_equal(imgs["large"], ref.numpy())
 
 
