@@ -49,7 +49,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.camera import Camera, RenderSettings, camera_frame, camera_rays
+from raytracer_tpu_torch.core.camera import (
+    CAMERA_FIELDS,
+    Camera,
+    RenderSettings,
+    camera_frame,
+    camera_rays,
+)
 from raytracer_tpu_torch.geometry.bvh import (
     OVERSIZE_FACTOR,
     ClusterSet,
@@ -58,7 +64,7 @@ from raytracer_tpu_torch.geometry.bvh import (
     permute_scene,
 )
 from raytracer_tpu_torch.geometry.intersect import quad_derived, scene_tables
-from raytracer_tpu_torch.geometry.scene import Scene
+from raytracer_tpu_torch.geometry.scene import FLAG_FIELDS, TENSOR_FIELDS, Scene
 from raytracer_tpu_torch.integrator.wavefront import (
     fold_scratch_bytes,
     render_wavefront_regen,
@@ -166,11 +172,37 @@ def render_path(scene: Scene) -> str:
     return "wavefront_step"
 
 
+# Entries each of this module's caches holds at most; the oldest goes first.
+CACHE_ENTRIES = 8
+
+
+def _cached(cache: dict | None, tensors: tuple, settings: tuple, build):
+    """(value, hit): the value `cache` holds for `tensors`, at their
+    current versions, and `settings`, or else build()'s, stored (with no
+    cache, build()'s alone). An entry is keyed by the tensors' identities
+    and `settings` and holds the tensors (so their ids cannot be reused)
+    and their version counters, which every in-place update bumps
+    (torch.optim's steps on make_inverse_renderer's leaves included)."""
+    if cache is None:
+        return build(), False
+    key = tuple(id(t) for t in tensors) + settings
+    versions = tuple(t._version for t in tensors)
+    hit = cache.get(key)
+    if hit is not None and hit[1] == versions and all(a is b for a, b in zip(hit[0], tensors)):
+        return hit[2], True
+    value = build()
+    cache.pop(key, None)
+    if len(cache) >= CACHE_ENTRIES:
+        cache.pop(next(iter(cache)))
+    cache[key] = (tensors, versions, value)
+    return value, False
+
+
 # The geometry tensors geometry.bvh.cluster_order reads: the clustering
 # depends on these alone.
 CLUSTER_GEOMETRY = ("sph_center", "sph_radius", "quad_q", "quad_u", "quad_v")
 # Host clustering results (ClusterOrder: the permutation and the
-# ClusterSet), keyed by the identity of the scene's geometry tensors. Bounded.
+# ClusterSet), keyed by the identity of the scene's geometry tensors.
 _CLUSTER_CACHE: dict[tuple, tuple] = {}
 
 
@@ -178,32 +210,23 @@ def _cluster_order_cached(scene: Scene):
     """geometry.bvh.cluster_order(scene) at CLUSTER_GRAIN with its oversized
     primitives isolated (geometry.bvh.isolate_oversized at
     CLUSTER_OVERSIZE), from the cache when the same geometry tensors, at
-    the same version, were clustered before at the same settings.
-
-    An entry holds the tensors it was built from (so their ids cannot be
-    reused) and their version counters, which every in-place update bumps
-    (torch.optim's steps on make_inverse_renderer's leaves included), so a
-    moved sphere is clustered anew. Only the permutation is cached:
-    cluster_for_render applies it to the scene it is given, so a
+    the same version, were clustered before at the same settings
+    (`_cached`), so a moved sphere is clustered anew. Only the permutation
+    is cached: cluster_for_render applies it to the scene it is given, so a
     dataclasses.replace that keeps the geometry but changes materials,
     textures or material ids renders its own values. The JAX driver
     (raytracer_tpu/render/driver.py:373-384) caches the permuted scene by
     the sphere-center array alone, which renders a replaced scene's old
     radii and materials; the port fixes this rather than match it."""
-    tensors = tuple(getattr(scene, f) for f in CLUSTER_GEOMETRY)
-    settings = (tuple(CLUSTER_GRAIN["sph"]), tuple(CLUSTER_GRAIN["quad"]), CLUSTER_OVERSIZE)
-    key = tuple(id(t) for t in tensors) + settings
-    versions = tuple(t._version for t in tensors)
-    hit = _CLUSTER_CACHE.get(key)
-    if hit is None or hit[1] != versions or any(a is not b for a, b in zip(hit[0], tensors)):
-        (leaf, fan), quad_grain = CLUSTER_GRAIN["sph"], CLUSTER_GRAIN["quad"]
+    (leaf, fan), quad_grain = CLUSTER_GRAIN["sph"], CLUSTER_GRAIN["quad"]
+
+    def build():
         order = cluster_order(scene, max_leaf=leaf, super_fan=fan, quad_grain=quad_grain)
-        hit = (tensors, versions, isolate_oversized(scene, order, CLUSTER_OVERSIZE))
-        _CLUSTER_CACHE.pop(key, None)
-        if len(_CLUSTER_CACHE) >= 8:
-            _CLUSTER_CACHE.pop(next(iter(_CLUSTER_CACHE)))
-        _CLUSTER_CACHE[key] = hit
-    return hit[2]
+        return isolate_oversized(scene, order, CLUSTER_OVERSIZE)
+
+    tensors = tuple(getattr(scene, f) for f in CLUSTER_GEOMETRY)
+    return _cached(_CLUSTER_CACHE, tensors, ((leaf, fan), tuple(quad_grain), CLUSTER_OVERSIZE),
+                   build)[0]
 
 
 def _order_front_to_back(fine: np.ndarray, sup: np.ndarray, eye: np.ndarray):
@@ -256,18 +279,23 @@ def cluster_for_render(scene: Scene, cam: Camera):
                                                        cam.look_from.cpu().numpy())
 
 
+def _record_clusters(metrics, builder: str, clusters, seconds: float) -> None:
+    """`metrics` (if any) records the host clustering seconds, the BVH
+    builder and the cluster table's section lengths."""
+    if metrics is not None:
+        metrics.cluster_s += seconds
+        metrics.bvh_builder = builder
+        metrics.cluster_rows = list(clusters.counts)
+
+
 def _clustered(scene: Scene, cam: Camera, dev, metrics=None):
-    """(`cluster_for_render`'s permuted scene, its ClusterTable on `dev`);
-    `metrics` records the host clustering seconds, the BVH builder and the
-    table's section lengths."""
+    """(`cluster_for_render`'s permuted scene, its ClusterTable on `dev`,
+    the BVH builder); `metrics` records the clustering (`_record_clusters`)."""
     t0 = time.perf_counter()
     scene, cs = cluster_for_render(scene, cam)
     clusters = pack_cluster_table(cs, dev)
-    if metrics is not None:
-        metrics.cluster_s += time.perf_counter() - t0
-        metrics.bvh_builder = cs.builder
-        metrics.cluster_rows = list(clusters.counts)
-    return scene, clusters
+    _record_clusters(metrics, cs.builder, clusters, time.perf_counter() - t0)
+    return scene, clusters, cs.builder
 
 
 def chunk_seed(seed: int, idx: int) -> int:
@@ -342,10 +370,25 @@ def default_spp_chunk(scene: Scene, settings: RenderSettings, *,
     return min(spp, share * ranks)
 
 
+# chunk_renderer's results, and the scene tables inside them, kept on their
+# render device between renders (`chunk_renderer`).
+_RENDERER_CACHE: dict[tuple, tuple] = {}
+_TABLE_CACHE: dict[tuple, tuple] = {}
+
+
+def clear_pack_cache() -> None:
+    """Forget every ChunkRenderer and scene table `chunk_renderer` keeps."""
+    _RENDERER_CACHE.clear()
+    _TABLE_CACHE.clear()
+
+
 class ChunkRenderer(NamedTuple):
     """The tables of a render on the persistent or wavefront-step path,
-    packed once on the render device (`chunk_renderer`); `render` renders
-    one chunk of them."""
+    packed on the render device by `chunk_renderer`, which keeps them for
+    the next render of the same scene, camera and settings; `render`
+    renders one chunk of them. A render only reads them: kernels 2 and 5
+    take the tables, `cam_scalars` and the textures as const pointers, and
+    their plain twins write nothing into them."""
 
     path: str
     tables: tuple  # sphere, quad and primitive tables (pack_persistent_tables)
@@ -382,24 +425,74 @@ def chunk_renderer(scene: Scene, cam: Camera, settings: RenderSettings, dev, *,
     (`cluster_for_render`; `metrics` records it). `clusters`, a
     geometry.bvh.ClusterSet of a scene already in its cluster order (as
     geometry.bvh.cluster_scene returns them), gives kernel 2 that table
-    instead, at any size."""
+    instead, at any size.
+
+    The result is cached, its tables left on `dev`: the next call returns
+    it when nothing it was packed from changed. Its key is the identity
+    and version (`_cached`) of each of the scene's TENSOR_FIELDS and the
+    camera's CAMERA_FIELDS, the scene's FLAG_FIELDS, the settings' width,
+    height, max_depth and sky_gradient, `dev`, `wavefront` and
+    `bilinear_stochastic`. The sphere, quad, primitive and texture tables
+    are cached apart, keyed on the scene's part alone, so a moved camera
+    repacks only the camera scalars; a clustered scene's, whose clusters
+    are ordered from the eye, key on the camera too, and on CLUSTER_GRAIN
+    and CLUSTER_OVERSIZE. A tensor edited in place or replaced packs
+    anew; each cache holds at most CACHE_ENTRIES entries, dropping the
+    oldest first. Packed without the cache: a scene or camera with a
+    tensor that requires grad (the tables would carry its graph), and an
+    explicit `clusters`. A clustered render from the cache records in
+    `metrics` the builder and the cluster table's section lengths, and no
+    clustering seconds.
+
+    Counters (utils/trace.py; `render_loop` calls this inside its
+    `render/pack` span): `pack_hits` when the whole result came from the
+    cache, else `pack_misses`, once a call."""
     path = render_path(scene)
     if path == "large_scene":
         raise ValueError("the large-scene path renders in passes (render_loop)")
+    if clusters is not None and path != "persistent":
+        raise ValueError(f"a cluster table needs the persistent path, not {path}")
     w, h = settings.width, settings.height
-    cam_scalars = pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).to(dev)
-    if clusters is not None:
-        if path != "persistent":
-            raise ValueError(f"a cluster table needs the persistent path, not {path}")
-        clusters = pack_cluster_table(clusters, dev)
-    elif path == "persistent" and scene.num_prims > CLUSTERED_SCENE_PRIMS:
-        scene, clusters = _clustered(scene, cam, dev, metrics)
-    scene = scene.to(dev)
-    textures = texture_tables(scene, quad_derived(scene),
-                              stochastic=path == "persistent" and bilinear_stochastic is not False)
-    return ChunkRenderer(path, pack_persistent_tables(scene), textures, cam_scalars, clusters,
-                         w, h, path_wavefront(path, w * h, wavefront), settings.max_depth,
-                         settings.sky_gradient)
+    stochastic = path == "persistent" and bilinear_stochastic is not False
+    clustered = (clusters is None and path == "persistent"
+                 and scene.num_prims > CLUSTERED_SCENE_PRIMS)
+    scene_t = tuple(getattr(scene, f) for f in TENSOR_FIELDS)
+    cam_t = tuple(getattr(cam, f) for f in CAMERA_FIELDS)
+    cached = clusters is None and not any(t.requires_grad for t in scene_t + cam_t)
+    table_key = (tuple(getattr(scene, f) for f in FLAG_FIELDS), dev, stochastic)
+    if clustered:
+        table_key += (tuple(CLUSTER_GRAIN["sph"]), tuple(CLUSTER_GRAIN["quad"]),
+                      CLUSTER_OVERSIZE)
+
+    def pack_tables():
+        packed, table, builder = scene, None, None
+        if clusters is not None:
+            table = pack_cluster_table(clusters, dev)
+        elif clustered:
+            packed, table, builder = _clustered(scene, cam, dev, metrics)
+        packed = packed.to(dev)
+        textures = texture_tables(packed, quad_derived(packed), stochastic=stochastic)
+        return pack_persistent_tables(packed), textures, table, builder
+
+    def pack():
+        (tables, textures, table, builder), _ = _cached(
+            _TABLE_CACHE if cached else None, scene_t + cam_t if clustered else scene_t,
+            table_key, pack_tables)
+        cam_scalars = pack_camera_scalars_bg(camera_frame(cam, w, h), cam.background).to(dev)
+        return ChunkRenderer(path, tables, textures, cam_scalars, table, w, h,
+                             path_wavefront(path, w * h, wavefront), settings.max_depth,
+                             settings.sky_gradient), builder
+
+    (renderer, builder), hit = _cached(
+        _RENDERER_CACHE if cached else None, scene_t + cam_t,
+        table_key + (w, h, settings.max_depth, settings.sky_gradient, wavefront,
+                     bilinear_stochastic), pack)
+    if builder is not None:
+        # A fresh clustering recorded its seconds in _clustered; tables from
+        # the cache record the same builder and rows, and no seconds.
+        _record_clusters(metrics, builder, renderer.clusters, 0.0)
+    tr.count("pack_hits" if hit else "pack_misses")
+    return renderer
 
 
 def regen_partial(renderer: ChunkRenderer, spp: int, seed: int, position: int, size: int):
@@ -504,8 +597,9 @@ def render_loop(
     the large-scene path each pass's deepest lane's iterations and the
     passes) in one sync; the occupancy basis is one position's lanes.
 
-    Spans: `render/pack`, a `render/chunk` a chunk (this position's
-    partial), those `ranks` opens around its joins, and `render/mean`."""
+    Spans: `render/pack` (`chunk_renderer`'s counters), a `render/chunk` a
+    chunk (this position's partial), those `ranks` opens around its joins,
+    and `render/mean`."""
     dev = resolve_device(device)
     w, h, spp = settings.width, settings.height, settings.samples_per_pixel
     n, path, pos, size = w * h, path or render_path(scene), ranks.position, ranks.size
@@ -523,7 +617,7 @@ def render_loop(
         elif path == "large_scene":
             # The scene in cluster order (prim ids and shading are its), and
             # its cluster, sphere and quad tables.
-            scene, clusters = _clustered(scene.to(dev), cam, dev, metrics)
+            scene, clusters, _ = _clustered(scene.to(dev), cam, dev, metrics)
             tables = (clusters, *scene_tables(scene))
             ranks.check_same("the cluster table", tables[0].rows, tables[1], tables[2])
             frame = camera_frame(cam, w, h).to(dev)
@@ -649,12 +743,21 @@ def render_image(
     It is unbiased.
 
     metrics: optional utils.metrics.RenderMetrics (`render_loop`'s); a
-    clustered render also records its host clustering seconds, the BVH
-    builder and the cluster table's section lengths.
+    clustered render also records its host clustering seconds (none when
+    its tables come from the cache), the BVH builder and the cluster
+    table's section lengths.
+
+    The persistent and wavefront-step paths keep the scene's packed tables
+    on `device` for the next render (`chunk_renderer`): a render of the
+    same Scene and Camera objects, their tensors not edited in place, at
+    the same settings copies nothing to the device before its chunks. An
+    edited or new tensor, another camera or other settings pack anew;
+    tensors that require grad are never cached.
 
     The render is a root span `render_image` of utils/trace.py, with
-    `render/pack`, a `render/chunk` a chunk (`render/kernel` and
-    `render/fold` inside it) and `render/mean`."""
+    `render/pack` (its counter `pack_hits` or `pack_misses`), a
+    `render/chunk` a chunk (`render/kernel` and `render/fold` inside it)
+    and `render/mean`."""
     with tr.span("render_image"):
         return render_loop(scene, cam, settings, path=None if regenerative else "passes",
                            device=device, seed=seed, wavefront=wavefront,

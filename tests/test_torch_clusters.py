@@ -321,11 +321,13 @@ def test_cluster_cache_follows_an_in_place_geometry_update():
     bit for bit, and differs from the first."""
     scene, cam, st = cache_scene()
     pdriver._CLUSTER_CACHE.clear()
+    pdriver.clear_pack_cache()
     before = render_and_cluster(scene, cam, st)
     with torch.no_grad():
         scene.sph_center[:, 0] += 5
     got = render_and_cluster(scene, cam, st)
     pdriver._CLUSTER_CACHE.clear()
+    pdriver.clear_pack_cache()
     assert_same_clustered_render(got, render_and_cluster(scene, cam, st))
     assert not torch.equal(got[1], before[1])
 
@@ -337,6 +339,7 @@ def test_cluster_cache_follows_a_replaced_scene():
     bit, and differs from the first scene's."""
     scene, cam, st = cache_scene()
     pdriver._CLUSTER_CACHE.clear()
+    pdriver.clear_pack_cache()
     before = render_and_cluster(scene, cam, st)
     dark = dataclasses.replace(scene, tex_c0=torch.zeros_like(scene.tex_c0),
                                tex_c1=torch.zeros_like(scene.tex_c1),
@@ -344,6 +347,7 @@ def test_cluster_cache_follows_a_replaced_scene():
     assert dark.sph_center is scene.sph_center
     got = render_and_cluster(dark, cam, st)
     pdriver._CLUSTER_CACHE.clear()
+    pdriver.clear_pack_cache()
     assert_same_clustered_render(got, render_and_cluster(dark, cam, st))
     assert not torch.equal(got[1], before[1])
 
