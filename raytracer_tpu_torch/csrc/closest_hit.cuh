@@ -96,6 +96,38 @@ static __device__ __forceinline__ float sphere_root(float half_b, float disc,
   return real ? t_cand : INFINITY;
 }
 
+// The scaled t of a sphere winner recomputed from its centre (row s) and
+// radius by the stable quadratic: oc = o - c, and the discriminant from the
+// perpendicular l = oc - (d.oc / |d|^2) d as |d|^2 (radius^2 - |l|^2), which
+// keeps its digits where |c|^2 - r^2 (the table's fold) has lost them: a
+// grazing hit of a small sphere far from the origin then lies on its sphere,
+// not up to ~5e-4 inside it, and the path does not re-hit it. The fold
+// rounds at about |o|^2 + |c|^2, the stable form at about r (|oc| + r), so
+// the stable root is taken only for a sphere with 4 r^2 < |o|^2 + |c|^2: a
+// ground sphere (r = 1000 at |c| = 1000, whose fold is exactly 0) keeps the
+// search's t_best, as does a winner whose two stable roots are both <=
+// T_MIN. Twin: ops/intersect_kernel.py:refine_sphere_winners (the same
+// operations, in order).
+static __device__ __forceinline__ float sphere_winner_t(const float4 s, float radius,
+                                                        const RayTerms& r, float t_best) {
+  const float ocx = r.ox - s.x;
+  const float ocy = r.oy - s.y;
+  const float ocz = r.oz - s.z;
+  const float hb = r.dx * ocx + r.dy * ocy + r.dz * ocz;
+  const float k = hb / r.a;
+  const float lx = ocx - k * r.dx;
+  const float ly = ocy - k * r.dy;
+  const float lz = ocz - k * r.dz;
+  const float h2 = radius * radius - (lx * lx + ly * ly + lz * lz);
+  const float sq = sqrtf(r.a * fmaxf(h2, 0.0f));
+  const float nhb = -hb;
+  const float t0s = nhb - sq;
+  const float t1s = nhb + sq;
+  const float t_new = (t0s > r.tmin_a) ? t0s : ((t1s > r.tmin_a) ? t1s : t_best);
+  const float c_sq = s.x * s.x + s.y * s.y + s.z * s.z;
+  return (4.0f * radius * radius < r.o_sq + c_sq) ? t_new : t_best;
+}
+
 // Sphere rows per group of sphere_candidates_range.
 constexpr int SPHERE_GROUP = 4;
 

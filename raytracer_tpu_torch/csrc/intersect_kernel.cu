@@ -36,6 +36,13 @@
 //   for the large-scene path's incoherent bounce rays, which a dense walk
 //   would take over every one of thousands of rows.
 //
+// With a `radius` table (the spheres' radii, row for row), both dense entries
+// recompute a sphere winner's t by the stable quadratic
+// (closest_hit.cuh:sphere_winner_t) before they write it; the search and its
+// winner are the same with or without it. The edge terms' traces ask for it
+// (diff/boundary.py:trace_edge_rays): they start a hair from a silhouette,
+// where the folded test puts the hit inside a small sphere.
+//
 // Plain twins: raytracer_tpu_torch/ops/intersect_kernel.py:intersect_plain
 // (one pass and split; intersect_split_plain models the split's combine),
 // ops/cluster_visit.py:ClusterVisit.hit (clustered).
@@ -57,7 +64,20 @@ __device__ __forceinline__ rt::RayTerms ray_at(const float* __restrict__ origin,
                        direction[3 * i + 1], direction[3 * i + 2]);
 }
 
-__global__ void intersect_kernel(const float4* __restrict__ sph, int ns,
+// t_best of prim p_best back from scaled-t space (INF stays INF), a sphere
+// winner's by the stable quadratic where `radius` is given.
+__device__ __forceinline__ float winner_t(const float4* __restrict__ sph,
+                                          const float* __restrict__ radius, int ns,
+                                          const rt::RayTerms& r, float t_best, int p_best) {
+  if (radius != nullptr && p_best >= 0 && p_best < ns) {
+    t_best = rt::sphere_winner_t(__ldg(sph + p_best), __ldg(radius + p_best), r, t_best);
+  }
+  const float inv_a = 1.0f / r.a;
+  return t_best * inv_a;
+}
+
+__global__ void intersect_kernel(const float4* __restrict__ sph,
+                                 const float* __restrict__ radius, int ns,
                                  const float4* __restrict__ quad, int nq,
                                  const float* __restrict__ origin,
                                  const float* __restrict__ direction, int n,
@@ -69,8 +89,7 @@ __global__ void intersect_kernel(const float4* __restrict__ sph, int ns,
   int p_best = -1;
   rt::sphere_candidates(sph, ns, r, t_best, p_best);
   rt::quad_candidates(quad, nq, ns, r, t_best, p_best);
-  const float inv_a = 1.0f / r.a;
-  t_out[i] = t_best * inv_a;  // back from scaled-t space (INF stays INF)
+  t_out[i] = winner_t(sph, radius, ns, r, t_best, p_best);
   prim_out[i] = p_best;
 }
 
@@ -95,8 +114,10 @@ __global__ void intersect_kernel_slice(const float4* __restrict__ sph, int ns,
 }
 
 // The split's second pass: each ray's word to t (the one-pass kernel's
-// rescale, INF * (1/a) on a miss) and prim (-1 on a miss).
-__global__ void intersect_kernel_finish(const float* __restrict__ origin,
+// winner_t, INF * (1/a) on a miss) and prim (-1 on a miss).
+__global__ void intersect_kernel_finish(const float4* __restrict__ sph,
+                                        const float* __restrict__ radius, int ns,
+                                        const float* __restrict__ origin,
                                         const float* __restrict__ direction, int n,
                                         const Word* __restrict__ words,
                                         float* __restrict__ t_out, int* __restrict__ prim_out) {
@@ -106,9 +127,9 @@ __global__ void intersect_kernel_finish(const float* __restrict__ origin,
   const Word w = words[i];
   const bool hit = w != MISS_WORD;
   const float t_best = hit ? __uint_as_float((uint32_t)(w >> 32)) : INFINITY;
-  const float inv_a = 1.0f / r.a;
-  t_out[i] = t_best * inv_a;
-  prim_out[i] = hit ? (int)(uint32_t)(w & 0xFFFFFFFFull) : -1;
+  const int p_best = hit ? (int)(uint32_t)(w & 0xFFFFFFFFull) : -1;
+  t_out[i] = winner_t(sph, radius, ns, r, t_best, p_best);
+  prim_out[i] = p_best;
 }
 
 __global__ void intersect_kernel_clustered(rt::CullArgs cull, const float4* __restrict__ sph,
@@ -132,18 +153,19 @@ __global__ void intersect_kernel_clustered(rt::CullArgs cull, const float4* __re
 
 // Kernel 1 dense: one pass when slice_rows <= 0, else split into
 // ceil(ns / slice_rows) slices folded through `words` (n 64-bit words of
-// the caller's). Returns cudaGetLastError() after the launches (0 =
+// the caller's). `radius` (ns floats, or null) asks for the stable t of
+// sphere winners. Returns cudaGetLastError() after the launches (0 =
 // launched).
-extern "C" int rt_intersect(const void* sph, int ns, const void* quad, int nq,
-                            const void* origin, const void* direction, int n,
+extern "C" int rt_intersect(const void* sph, const void* radius, int ns, const void* quad,
+                            int nq, const void* origin, const void* direction, int n,
                             void* t_out, void* prim_out, int slice_rows, void* words,
                             int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
   const cudaStream_t s = (cudaStream_t)stream;
   if (slice_rows <= 0) {
     intersect_kernel<<<blocks, threads, 0, s>>>(
-        (const float4*)sph, ns, (const float4*)quad, nq, (const float*)origin,
-        (const float*)direction, n, (float*)t_out, (int*)prim_out);
+        (const float4*)sph, (const float*)radius, ns, (const float4*)quad, nq,
+        (const float*)origin, (const float*)direction, n, (float*)t_out, (int*)prim_out);
     return (int)cudaGetLastError();
   }
   const int slices = ns > 0 ? (ns + slice_rows - 1) / slice_rows : 1;
@@ -153,8 +175,8 @@ extern "C" int rt_intersect(const void* sph, int ns, const void* quad, int nq,
       (const float4*)sph, ns, (const float4*)quad, nq, (const float*)origin,
       (const float*)direction, n, slice_rows, (Word*)words);
   intersect_kernel_finish<<<blocks, threads, 0, s>>>(
-      (const float*)origin, (const float*)direction, n, (const Word*)words, (float*)t_out,
-      (int*)prim_out);
+      (const float4*)sph, (const float*)radius, ns, (const float*)origin,
+      (const float*)direction, n, (const Word*)words, (float*)t_out, (int*)prim_out);
   return (int)cudaGetLastError();
 }
 

@@ -30,12 +30,22 @@ and the camera tensors that require grad, so it composes with any loss.
 
 The edge traces are pure forward evaluations: `trace` with its default
 hit, which is the closest-hit kernel (kernel 1) on CUDA tensors and its
-plain twin on CPU tensors, with russian roulette so that one deep path
-does not hold a whole batch of edge rays at the depth budget.
+plain twin on CPU tensors, each sphere winner's t by the stable quadratic
+(the silhouette's grazing hits would land inside small spheres by the
+folded test), with russian roulette so that one deep path does not hold a
+whole batch of edge rays at the depth budget.
 
 Scope, as in the JAX package: primary visibility only (shadow edges and
 silhouettes seen in mirrors or through glass are other terms), pinhole
 cameras.
+
+Inside the bucketed step's `edges/boundary` phase (utils/trace.py) the term
+opens `edges/boundary/sample` (contour and edge points, their projection,
+orientation and validity), `edges/boundary/trace` (the in/out traces) and
+`edges/boundary/splat` (the weights against the cotangent and the VJP of
+the edge points into the leaves), and counts `edge_points` (valid samples,
+a device sum read at `collect()`) and `edge_rays` (the rays handed to
+`trace`, from shapes): neither syncs.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.core.camera import CAMERA_FIELDS, Camera, CameraFrame, camera_frame
 from raytracer_tpu_torch.integrator.wavefront import trace
 from raytracer_tpu_torch.ops import ctr_rng
+from raytracer_tpu_torch.utils import trace as tr
 
 
 class EdgeSamplingConfig(NamedTuple):
@@ -133,31 +144,40 @@ def quad_edge_points(q, u, v, tau):
 
 
 def trace_edge_rays(scene, origin, direction, seed: int, *, background, max_depth: int,
-                    sky_gradient: bool, spp_edge: int):
+                    sky_gradient: bool, spp_edge: int, live=None):
     """Mean path-traced radiance (K, 3) of spp_edge paths from each of the
     rays (origin (K, 3), direction (K, 3)). Lane L of the batch (ray L mod
     K) is sample id L under `seed`, so two calls with the same seed share
     every lane's uniforms and coins (common random numbers for an in/out
-    pair). Pure forward: `trace`'s default hit (kernel 1 on CUDA tensors),
-    russian roulette from depth 5 with its survival capped at 0.75."""
+    pair). Pure forward: `trace`'s default hit (kernel 1 on CUDA tensors)
+    with each sphere winner's t by the stable quadratic (`stable_spheres`:
+    the rays start a hair from a silhouette, where the folded sphere test
+    puts a grazing hit inside a small sphere and the path re-hits it),
+    russian roulette from depth 5 with its survival capped at 0.75. Rays
+    False in `live` (K,) (invalid edge points) end after their first bounce
+    and their radiance is garbage. Counts the batch's rays as
+    `edge_rays`."""
+    tr.count("edge_rays", origin.shape[0] * spp_edge)
     rad = trace(
         scene, origin.repeat(spp_edge, 1), direction.repeat(spp_edge, 1), background,
         lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
         max_depth=max_depth, sky_gradient=sky_gradient,
         russian_roulette=True, rr_max_q=0.75,
         rr_uniform=lambda bounce, lanes: ctr_rng.rr_uniforms(seed, lanes, bounce, max_depth),
+        stable_spheres=True, live=None if live is None else live.repeat(spp_edge),
     )
     return rad.reshape(spp_edge, origin.shape[0], 3).mean(dim=0)
 
 
 def _trace_edge_radiance(scene, frame: CameraFrame, x_px, seed: int, *, background,
-                         max_depth: int, sky_gradient: bool, spp_edge: int):
+                         max_depth: int, sky_gradient: bool, spp_edge: int, live=None):
     """trace_edge_rays of the camera rays through continuous pixel
     coordinates x_px (K, 2)."""
     target = frame.pixel00 + x_px[:, 0:1] * frame.pixel_du + x_px[:, 1:2] * frame.pixel_dv
     origin = frame.center.expand_as(target)
     return trace_edge_rays(scene, origin, target - origin, seed, background=background,
-                           max_depth=max_depth, sky_gradient=sky_gradient, spp_edge=spp_edge)
+                           max_depth=max_depth, sky_gradient=sky_gradient, spp_edge=spp_edge,
+                           live=live)
 
 
 def _proj2(frame):
@@ -194,97 +214,105 @@ def make_boundary_image_fn(
         """(gradients of `params`' tensors, of the camera tensors `cam_names`)
         of sum(ct * the boundary image)."""
         with torch.no_grad():
-            scene = rebuild({k: v.detach() for k, v in params.items()})
-            dev = scene.sph_center.device
-            frame = camera_frame(cam, width, height).to(dev)
-            eye = frame.center
-            proj2 = _proj2(frame)
-            # Each piece: (x_fn(params, cam) -> (K, 2), x (K, 2), tangent
-            # (K, 2), image-space outward direction (K, 2), valid (K,),
-            # line measure of a sample).
-            pieces = []
-            if "sph_center" in params or "sph_radius" in params:
-                m = cfg.samples_per_sphere
-                phi = (torch.arange(m, dtype=torch.float32, device=dev) + 0.5) * (2.0 * math.pi / m)
+            with tr.span("edges/boundary/sample"):
+                scene = rebuild({k: v.detach() for k, v in params.items()})
+                dev = scene.sph_center.device
+                frame = camera_frame(cam, width, height).to(dev)
+                eye = frame.center
+                proj2 = _proj2(frame)
+                # Each piece: (x_fn(params, cam) -> (K, 2), x (K, 2), tangent
+                # (K, 2), image-space outward direction (K, 2), valid (K,),
+                # line measure of a sample).
+                pieces = []
+                if "sph_center" in params or "sph_radius" in params:
+                    m = cfg.samples_per_sphere
+                    phi = (torch.arange(m, dtype=torch.float32, device=dev) + 0.5) \
+                        * (2.0 * math.pi / m)
 
-                def sphere_x(p, camera):
-                    c = p.get("sph_center", scene.sph_center)
-                    r = p.get("sph_radius", scene.sph_radius)
-                    fr = camera_frame(camera, width, height).to(dev)
-                    pts, _ = sphere_contour_points(c, r, fr.center, phi)
-                    return _proj2(fr)(pts).reshape(-1, 2)
+                    def sphere_x(p, camera):
+                        c = p.get("sph_center", scene.sph_center)
+                        r = p.get("sph_radius", scene.sph_radius)
+                        fr = camera_frame(camera, width, height).to(dev)
+                        pts, _ = sphere_contour_points(c, r, fr.center, phi)
+                        return _proj2(fr)(pts).reshape(-1, 2)
 
-                c_sg, r_sg = scene.sph_center, scene.sph_radius
-                pts, valid_s = sphere_contour_points(c_sg, r_sg, eye, phi)
-                # dp/dphi of the circle's parameterization.
-                dphi = torch.stack([-torch.sin(phi), torch.cos(phi)], dim=-1)
-                zh = c_sg - eye
-                d = torch.linalg.vector_norm(zh, dim=-1, keepdim=True)
-                zh = zh / torch.clamp(d, min=1e-6)
-                e1, e2 = _perp_basis(zh)
-                r_abs = r_sg.abs()
-                rho = r_abs * torch.sqrt(torch.clamp(d[:, 0] ** 2 - r_abs ** 2, min=1e-12)) \
-                    / torch.clamp(d[:, 0], min=1e-6)
-                dpts = rho[:, None, None] * (dphi[None, :, 0:1] * e1[:, None, :]
-                                             + dphi[None, :, 1:2] * e2[:, None, :])
-                x_sg, tangent = torch.func.jvp(proj2, (pts,), (dpts,))
-                front = project_to_pixels(frame, pts)[2]
-                # Outward orientation from 3D: the surface normal (p - c)/|p - c|
-                # points out of the sphere, and its pushforward out of the
-                # projected region (a projected-center anchor fails when the
-                # center lies behind the eye plane, as a ground sphere's does).
-                n3d = pts - c_sg[:, None, :]
-                n3d = n3d / torch.clamp(torch.linalg.vector_norm(n3d, dim=-1, keepdim=True),
-                                        min=1e-12)
-                _, out2d = torch.func.jvp(proj2, (pts,), (n3d,))
-                valid = (valid_s[:, None] & front).reshape(-1)
-                pieces.append((sphere_x, x_sg.reshape(-1, 2), tangent.reshape(-1, 2),
-                               out2d.reshape(-1, 2), valid, 2.0 * math.pi / m))
+                    c_sg, r_sg = scene.sph_center, scene.sph_radius
+                    pts, valid_s = sphere_contour_points(c_sg, r_sg, eye, phi)
+                    # dp/dphi of the circle's parameterization.
+                    dphi = torch.stack([-torch.sin(phi), torch.cos(phi)], dim=-1)
+                    zh = c_sg - eye
+                    d = torch.linalg.vector_norm(zh, dim=-1, keepdim=True)
+                    zh = zh / torch.clamp(d, min=1e-6)
+                    e1, e2 = _perp_basis(zh)
+                    r_abs = r_sg.abs()
+                    rho = r_abs * torch.sqrt(torch.clamp(d[:, 0] ** 2 - r_abs ** 2, min=1e-12)) \
+                        / torch.clamp(d[:, 0], min=1e-6)
+                    dpts = rho[:, None, None] * (dphi[None, :, 0:1] * e1[:, None, :]
+                                                 + dphi[None, :, 1:2] * e2[:, None, :])
+                    x_sg, tangent = torch.func.jvp(proj2, (pts,), (dpts,))
+                    front = project_to_pixels(frame, pts)[2]
+                    # Outward orientation from 3D: the surface normal (p - c)/|p - c|
+                    # points out of the sphere, and its pushforward out of the
+                    # projected region (a projected-center anchor fails when the
+                    # center lies behind the eye plane, as a ground sphere's does).
+                    n3d = pts - c_sg[:, None, :]
+                    n3d = n3d / torch.clamp(torch.linalg.vector_norm(n3d, dim=-1, keepdim=True),
+                                            min=1e-12)
+                    _, out2d = torch.func.jvp(proj2, (pts,), (n3d,))
+                    valid = (valid_s[:, None] & front).reshape(-1)
+                    pieces.append((sphere_x, x_sg.reshape(-1, 2), tangent.reshape(-1, 2),
+                                   out2d.reshape(-1, 2), valid, 2.0 * math.pi / m))
 
-            if any(k in params for k in ("quad_q", "quad_u", "quad_v")) and scene.num_quads:
-                me = cfg.samples_per_quad_edge
-                tau = (torch.arange(me, dtype=torch.float32, device=dev) + 0.5) / me
+                if any(k in params for k in ("quad_q", "quad_u", "quad_v")) and scene.num_quads:
+                    me = cfg.samples_per_quad_edge
+                    tau = (torch.arange(me, dtype=torch.float32, device=dev) + 0.5) / me
 
-                def quad_x(p, camera):
-                    q = p.get("quad_q", scene.quad_q)
-                    u = p.get("quad_u", scene.quad_u)
-                    v = p.get("quad_v", scene.quad_v)
-                    fr = camera_frame(camera, width, height).to(dev)
-                    pts, _ = quad_edge_points(q, u, v, tau)
-                    return _proj2(fr)(pts).reshape(-1, 2)
+                    def quad_x(p, camera):
+                        q = p.get("quad_q", scene.quad_q)
+                        u = p.get("quad_u", scene.quad_u)
+                        v = p.get("quad_v", scene.quad_v)
+                        fr = camera_frame(camera, width, height).to(dev)
+                        pts, _ = quad_edge_points(q, u, v, tau)
+                        return _proj2(fr)(pts).reshape(-1, 2)
 
-                u_sg, v_sg = scene.quad_u, scene.quad_v
-                pts, dpts = quad_edge_points(scene.quad_q, u_sg, v_sg, tau)
-                x_sg, tangent = torch.func.jvp(proj2, (pts,), (dpts,))
-                front = project_to_pixels(frame, pts)[2]
-                # In-plane outward directions per edge (the interior lies
-                # toward +v, -u, -v, +u); their pushforward orients the
-                # image normal without an anchor.
-                nq = u_sg.shape[0]
-                out3d = torch.cat([(-v_sg)[:, None, :].expand(nq, me, 3),
-                                   u_sg[:, None, :].expand(nq, me, 3),
-                                   v_sg[:, None, :].expand(nq, me, 3),
-                                   (-u_sg)[:, None, :].expand(nq, me, 3)], dim=1)
-                _, out2d = torch.func.jvp(proj2, (pts,), (out3d,))
-                pieces.append((quad_x, x_sg.reshape(-1, 2), tangent.reshape(-1, 2),
-                               out2d.reshape(-1, 2), front.reshape(-1), 1.0 / me))
+                    u_sg, v_sg = scene.quad_u, scene.quad_v
+                    pts, dpts = quad_edge_points(scene.quad_q, u_sg, v_sg, tau)
+                    x_sg, tangent = torch.func.jvp(proj2, (pts,), (dpts,))
+                    front = project_to_pixels(frame, pts)[2]
+                    # In-plane outward directions per edge (the interior lies
+                    # toward +v, -u, -v, +u); their pushforward orients the
+                    # image normal without an anchor.
+                    nq = u_sg.shape[0]
+                    out3d = torch.cat([(-v_sg)[:, None, :].expand(nq, me, 3),
+                                       u_sg[:, None, :].expand(nq, me, 3),
+                                       v_sg[:, None, :].expand(nq, me, 3),
+                                       (-u_sg)[:, None, :].expand(nq, me, 3)], dim=1)
+                    _, out2d = torch.func.jvp(proj2, (pts,), (out3d,))
+                    pieces.append((quad_x, x_sg.reshape(-1, 2), tangent.reshape(-1, 2),
+                                   out2d.reshape(-1, 2), front.reshape(-1), 1.0 / me))
+
+                background = cam.background.detach().to(dev)
+                edges = []
+                for x_fn, x_sg, tangent, out2d, valid, dl in pieces:
+                    tan_norm = torch.linalg.vector_norm(tangent, dim=-1)
+                    that = tangent / torch.clamp(tan_norm, min=1e-12)[:, None]
+                    # The edge's image normal, oriented along the projected
+                    # outward direction (away from the primitive's region).
+                    n_hat = torch.stack([that[:, 1], -that[:, 0]], dim=-1)
+                    out_dot = (n_hat * out2d).sum(dim=-1)
+                    n_hat = torch.where((out_dot < 0.0)[:, None], -n_hat, n_hat)
+                    in_img = ((x_sg[:, 0] > -0.5) & (x_sg[:, 0] < width - 0.5)
+                              & (x_sg[:, 1] > -0.5) & (x_sg[:, 1] < height - 0.5))
+                    # Edge-on views: the outward pushforward vanishes and the
+                    # orientation (and the contribution) is undefined.
+                    ok = (valid & in_img & torch.isfinite(x_sg).all(dim=-1)
+                          & (out_dot.abs() > 1e-9))
+                    if tr.enabled():
+                        tr.count("edge_points", ok.sum())
+                    edges.append((x_fn, x_sg, tan_norm, n_hat, ok, dl))
 
             terms = []
-            background = cam.background.detach().to(dev)
-            for x_fn, x_sg, tangent, out2d, valid, dl in pieces:
-                tan_norm = torch.linalg.vector_norm(tangent, dim=-1)
-                that = tangent / torch.clamp(tan_norm, min=1e-12)[:, None]
-                # The edge's image normal, oriented along the projected
-                # outward direction (away from the primitive's region).
-                n_hat = torch.stack([that[:, 1], -that[:, 0]], dim=-1)
-                out_dot = (n_hat * out2d).sum(dim=-1)
-                n_hat = torch.where((out_dot < 0.0)[:, None], -n_hat, n_hat)
-                in_img = ((x_sg[:, 0] > -0.5) & (x_sg[:, 0] < width - 0.5)
-                          & (x_sg[:, 1] > -0.5) & (x_sg[:, 1] < height - 0.5))
-                # Edge-on views: the outward pushforward vanishes and the
-                # orientation (and the contribution) is undefined.
-                ok = valid & in_img & torch.isfinite(x_sg).all(dim=-1) & (out_dot.abs() > 1e-9)
-
+            for x_fn, x_sg, tan_norm, n_hat, ok, dl in edges:
                 # Radiance a hair inside and outside the edge, common random
                 # numbers. Inside a curved silhouette the hit normal turns like
                 # sqrt(eps), L_in(eps) = L_in(0) + c sqrt(eps): extrapolate to
@@ -292,25 +320,29 @@ def make_boundary_image_fn(
                 def radiance(x_px):
                     return _trace_edge_radiance(
                         scene, frame, x_px, seed, background=background, max_depth=max_depth,
-                        sky_gradient=sky_gradient, spp_edge=cfg.spp_edge)
+                        sky_gradient=sky_gradient, spp_edge=cfg.spp_edge, live=ok)
 
-                l_in = 2.0 * radiance(x_sg - cfg.eps_px * n_hat) \
-                    - radiance(x_sg - 4.0 * cfg.eps_px * n_hat)
-                l_out = radiance(x_sg + cfg.eps_px * n_hat)
+                with tr.span("edges/boundary/trace"):
+                    l_in = 2.0 * radiance(x_sg - cfg.eps_px * n_hat) \
+                        - radiance(x_sg - 4.0 * cfg.eps_px * n_hat)
+                    l_out = radiance(x_sg + cfg.eps_px * n_hat)
 
-                ix = torch.clamp(torch.round(x_sg[:, 0]).to(torch.int64), 0, width - 1)
-                iy = torch.clamp(torch.round(x_sg[:, 1]).to(torch.int64), 0, height - 1)
-                ct_px = ct[iy, ix, :]
-                w = (ct_px * (l_in - l_out)).sum(dim=-1) * tan_norm * dl * ok.to(torch.float32)
-                w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+                with tr.span("edges/boundary/splat"):
+                    ix = torch.clamp(torch.round(x_sg[:, 0]).to(torch.int64), 0, width - 1)
+                    iy = torch.clamp(torch.round(x_sg[:, 1]).to(torch.int64), 0, height - 1)
+                    ct_px = ct[iy, ix, :]
+                    w = (ct_px * (l_in - l_out)).sum(dim=-1) * tan_norm * dl \
+                        * ok.to(torch.float32)
+                    w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
                 terms.append((x_fn, w, n_hat))
 
-        if not terms:
-            return edge_leaf_grads(params, cam, cam_names, None)
-        return edge_leaf_grads(
-            params, cam, cam_names,
-            lambda leaves, camera: sum((w * (x_fn(leaves, camera) * n_hat).sum(dim=-1)).sum()
-                                       for x_fn, w, n_hat in terms))
+        with tr.span("edges/boundary/splat"):
+            if not terms:
+                return edge_leaf_grads(params, cam, cam_names, None)
+            return edge_leaf_grads(
+                params, cam, cam_names,
+                lambda leaves, camera: sum((w * (x_fn(leaves, camera) * n_hat).sum(dim=-1)).sum()
+                                           for x_fn, w, n_hat in terms))
 
     return edge_image_fn(rebuild, width, height, edge_cotangent, "boundary")
 

@@ -166,11 +166,14 @@ def intersect_scene_kernel_diff(scene: Scene, origin, direction, bounce=None, la
     return winner_t_diff(scene, quad_derived(scene), origin, direction, prim, t_nd), prim
 
 
-def intersect_scene(scene: Scene, origin, direction) -> HitRecord:
+def intersect_scene(scene: Scene, origin, direction, stable_spheres: bool = False) -> HitRecord:
     """Closest hit with its epilogue, through the kernel wrapper (CUDA
-    tensors launch the closest-hit kernel; CPU tensors take its twin)."""
+    tensors launch the closest-hit kernel; CPU tensors take its twin); with
+    `stable_spheres` a sphere winner's t is the stable quadratic's
+    (ops/intersect_kernel.py:refine_sphere_winners)."""
     sph, quad = scene_tables(scene)
-    t, prim = ik.intersect(sph, quad, origin.contiguous(), direction.contiguous())
+    radius = scene.sph_radius.detach().contiguous() if stable_spheres else None
+    t, prim = ik.intersect(sph, quad, origin.contiguous(), direction.contiguous(), radius)
     ns = scene.num_spheres
     hit = torch.isfinite(t)
     prim = torch.where(hit, prim, torch.zeros_like(prim))

@@ -105,7 +105,7 @@ def roulette(throughput, alive, depth, coin, *, start: int, lo: float, hi: float
 def _trace_loop(
     res, num_spheres: int, origin, direction, background, uniforms_at, hit_fn, *,
     max_depth: int, sky_gradient: bool, return_tape: bool, textures=None, rr=None,
-    rr_uniform_at=None,
+    rr_uniform_at=None, live=None,
 ):
     """Trace every lane's path to its end, working at each bounce on the
     lanes still alive only (compacted, so the work and the autograd graph
@@ -116,8 +116,9 @@ def _trace_loop(
     `hit_fn(origin, direction, bounce, lanes)` their winner (t (L,) with
     +inf on a miss, prim (L,)). `rr` = (start, lo, hi) turns on
     `roulette` after each bounce, its coins (L,) from
-    `rr_uniform_at(bounce, lanes)`. Returns (radiance (N, 3), tape
-    (max_depth, N) int32 or None, segments (N,) int32)."""
+    `rr_uniform_at(bounce, lanes)`. Lanes False in `live` (N,) bool end
+    after their first bounce. Returns (radiance (N, 3), tape (max_depth, N)
+    int32 or None, segments (N,) int32)."""
     n = origin.shape[0]
     dev = origin.device
     rad = torch.zeros_like(origin)
@@ -142,6 +143,8 @@ def _trace_loop(
         contrib = torch.where(scat.hit[:, None], tp * scat.emitted, tp * bg)
         rad = rad.index_put((lanes,), rad[lanes] + contrib)
         alive = scat.hit & scat.scattered
+        if live is not None and bounce == 0:
+            alive = alive & live
         if rr is not None and bounce + 1 >= rr[0]:
             alive, tp_next = roulette(
                 tp * scat.attenuation, alive, bounce + 1, rr_uniform_at(bounce, lanes),
@@ -171,6 +174,8 @@ def trace(
     rr_start_depth: int = 5,
     rr_max_q: float = 0.95,
     rr_uniform=None,
+    stable_spheres: bool = False,
+    live=None,
 ):
     """Trace one path per lane; returns radiance (N, 3), and with
     `return_tape` also the (max_depth, N) int32 winner tape: row b holds the
@@ -199,9 +204,17 @@ def trace(
     The default is the closest-hit kernel's wrapper on detached tables (its
     twin on CPU tensors), which carries no gradient through t: pass
     geometry.intersect.intersect_scene_kernel_diff for the differentiable
-    hit. Shading is differentiable in the scene; noise and image textures
-    are shaded from materials.packed.texture_tables (bilinear scenes with
-    the deterministic 4-tap filter, the tape kernel's)."""
+    hit. With `stable_spheres` the default hit takes each sphere winner's t
+    by the stable quadratic (the kernel's `radius`, ops/intersect_kernel.py:
+    refine_sphere_winners), so a grazing hit lies on its sphere. Shading is
+    differentiable in the scene; noise and image textures are shaded from
+    materials.packed.texture_tables (bilinear scenes with the deterministic
+    4-tap filter, the tape kernel's).
+
+    `live` (N,) bool ends the lanes False there after their first bounce
+    (their radiance is then that bounce's alone, for the caller to
+    discard): rays a caller has no use for drop out with the first bounce's
+    compaction, which reads no more back from the card than the loop does."""
     qd = quad_derived(scene)
     sph, quad = pack_sphere_table(scene.sph_center, scene.sph_radius), pack_quad_table(qd)
     res = primitive_table(scene, qd)
@@ -209,9 +222,10 @@ def trace(
         raise ValueError("russian_roulette needs the coins: pass rr_uniform(bounce, lanes)")
     if intersect_fn is None:
         sph, quad = sph.detach(), quad.detach()
+        radius = scene.sph_radius.detach().contiguous() if stable_spheres else None
 
         def hit_fn(o, d, bounce, lanes):
-            return intersect(sph, quad, o.detach().contiguous(), d.detach().contiguous())
+            return intersect(sph, quad, o.detach().contiguous(), d.detach().contiguous(), radius)
     else:
         def hit_fn(o, d, bounce, lanes):
             return intersect_fn(scene, o, d, bounce, lanes)
@@ -221,7 +235,7 @@ def trace(
         max_depth=max_depth, sky_gradient=sky_gradient, return_tape=return_tape,
         textures=texture_tables(scene, qd),
         rr=(rr_start_depth, 0.05, rr_max_q) if russian_roulette else None,
-        rr_uniform_at=rr_uniform,
+        rr_uniform_at=rr_uniform, live=live,
     )
     out = (rad,) + ((tape,) if return_tape else ()) + ((segs,) if return_segments else ())
     return out if len(out) > 1 else rad

@@ -43,9 +43,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # sph, ns, quad, nq, origin, direction, n, t_out, prim_out, slice_rows,
-    # words, threads, stream
-    "rt_intersect": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    # sph, radius, ns, quad, nq, origin, direction, n, t_out, prim_out,
+    # slice_rows, words, threads, stream
+    "rt_intersect": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     # clusters, n_sph_super, n_sph, n_quad_super, n_quad, sph, ns, quad, nq,
     # origin, direction, n, t_out, prim_out, threads, stream
     "rt_intersect_clustered": [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P],

@@ -14,6 +14,12 @@ is the plain model of that combine). `intersect_clustered` runs the
 two-level cluster walk over a cluster-ordered scene (the large-scene
 path's bounce rays); its twin is ops/cluster_visit.py:ClusterVisit.hit.
 
+Given the spheres' radii (`radius`), the dense search recomputes each
+sphere winner's t by the stable quadratic (`refine_sphere_winners`): the
+folded |c|^2 - r^2 keeps two or three digits of r^2 for a small sphere far
+from the origin, and a grazing hit then lands up to ~5e-4 inside it. The
+winner is the same either way.
+
 Tables: spheres (S, 4) [cx, cy, cz, |c|^2 - r^2] with 1e30 for dummy rows;
 quads (Q, 12) [n, n.Q, av, bv, Q.av, Q.bv] with a zero normal for dummy rows.
 Results: t (N,) float32 (+inf on a miss), prim (N,) int32 (-1 on a miss;
@@ -153,14 +159,48 @@ def slab_inv(direction):
     return 1.0 / torch.where(direction.abs() < SLAB_TINY, tiny, direction)
 
 
-def intersect_plain(sph_table, quad_table, origin, direction):
-    """Plain PyTorch twin of the kernel: (t (N,), prim (N,) int32)."""
+def refine_sphere_winners(sph_table, radius, origin, direction, t_s, prim, a):
+    """Scaled t (N,) of the winners (t_s, prim) with each sphere winner's
+    recomputed from its centre and radius by the stable quadratic: oc = o -
+    c, and the discriminant |d|^2 (r^2 - |l|^2) from the perpendicular l =
+    oc - (d.oc / |d|^2) d, for a sphere with 4 r^2 < |o|^2 + |c|^2 (the fold
+    rounds at about |o|^2 + |c|^2, the stable form at about r (|oc| + r)).
+    Other winners, and one whose stable roots are both <= T_MIN, keep t_s.
+    Twin of csrc/closest_hit.cuh:sphere_winner_t, operation for
+    operation."""
+    if sph_table.shape[0] == 0:
+        return t_s
+    is_sphere = (prim >= 0) & (prim < sph_table.shape[0])
+    row = torch.where(is_sphere, prim, torch.zeros_like(prim)).long()
+    c, r = sph_table[row], radius[row]
+    (ox, oy, oz), (dx, dy, dz), _, _, o_sq = _ray_terms(origin, direction)
+    ocx, ocy, ocz = ox - c[:, 0], oy - c[:, 1], oz - c[:, 2]
+    hb = dx * ocx + dy * ocy + dz * ocz
+    k = hb / a
+    lx, ly, lz = ocx - k * dx, ocy - k * dy, ocz - k * dz
+    h2 = r * r - (lx * lx + ly * ly + lz * lz)
+    sq = torch.sqrt(a * torch.clamp(h2, min=0.0))
+    nhb = -hb
+    t0s, t1s = nhb - sq, nhb + sq
+    tmin_a = T_MIN * a
+    t_new = torch.where(t0s > tmin_a, t0s, torch.where(t1s > tmin_a, t1s, t_s))
+    c_sq = c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
+    small = 4.0 * r * r < o_sq + c_sq
+    return torch.where(is_sphere & small, t_new, t_s)
+
+
+def intersect_plain(sph_table, quad_table, origin, direction, radius=None):
+    """Plain PyTorch twin of the kernel: (t (N,), prim (N,) int32); with
+    `radius` (S,) the sphere winners' t by `refine_sphere_winners`."""
     n = origin.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     prim = torch.empty(n, dtype=torch.int32, device=origin.device)
     for s in range(0, n, PLAIN_CHUNK):
         e = min(n, s + PLAIN_CHUNK)
         t_s, p, a = closest_hit_scaled(sph_table, quad_table, origin[s:e], direction[s:e])
+        if radius is not None:
+            t_s = refine_sphere_winners(sph_table, radius, origin[s:e], direction[s:e], t_s, p,
+                                        a)
         t[s:e] = t_s * (1.0 / a)  # back from scaled-t space (INF stays INF)
         prim[s:e] = p
     return t, prim
@@ -237,8 +277,10 @@ def check_float4_rows(**tables):
             raise ValueError(f"{name}: rows are read as float4 and need 16-byte alignment")
 
 
-def intersect(sph_table, quad_table, origin, direction):
-    """Closest hit for a flat ray batch: (t (N,) f32, prim (N,) i32).
+def intersect(sph_table, quad_table, origin, direction, radius=None):
+    """Closest hit for a flat ray batch: (t (N,) f32, prim (N,) i32); with
+    the spheres' radii `radius` (S,) each sphere winner's t is the stable
+    quadratic's (`refine_sphere_winners`).
 
     CPU tensors take `intersect_plain`; CUDA tensors launch the CUDA kernel
     (or raise), split (`split_rows`) when its blocks cannot fill the card,
@@ -250,8 +292,10 @@ def intersect(sph_table, quad_table, origin, direction):
     check_tensor("origin", origin, torch.float32, (None, 3), dev)
     n = origin.shape[0]
     check_tensor("direction", direction, torch.float32, (n, 3), dev)
+    if radius is not None:
+        check_tensor("radius", radius, torch.float32, (sph_table.shape[0],), dev)
     if dev.type == "cpu":
-        return intersect_plain(sph_table, quad_table, origin, direction)
+        return intersect_plain(sph_table, quad_table, origin, direction, radius)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_float4_rows(sph_table=sph_table, quad_table=quad_table)
@@ -266,7 +310,8 @@ def intersect(sph_table, quad_table, origin, direction):
     words = torch.empty(n if rows else 0, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rt_intersect(
-        sph_table.data_ptr(), sph_table.shape[0], quad_table.data_ptr(), quad_table.shape[0],
+        sph_table.data_ptr(), None if radius is None else radius.data_ptr(),
+        sph_table.shape[0], quad_table.data_ptr(), quad_table.shape[0],
         origin.data_ptr(), direction.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
         rows, words.data_ptr() if rows else None, THREADS, stream,
     )

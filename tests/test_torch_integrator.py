@@ -477,6 +477,25 @@ def test_roulette_step_matches_jax_formula():
         np.testing.assert_array_equal(got_tp.numpy(), np.asarray(want_tp))
 
 
+def test_trace_live_ends_lanes_after_their_first_bounce():
+    """Lanes False in `live` take one bounce (one segment) and the others
+    trace bit for bit as without the mask, with and without roulette and the
+    stable sphere hits."""
+    scene = mixed_scene(pscene.SceneBuilder)
+    cam, _ = pcam.make_camera(1.0, 16, **CAM_KW)
+    o, d, uni = _trace_inputs(cam, 16, 2, 5)
+    live = torch.arange(o.shape[0]) % 3 != 0
+    for kw in ({}, dict(russian_roulette=True, rr_start_depth=2, rr_max_q=0.75,
+                        rr_uniform=lambda b, lanes: prng.rr_uniforms(5, lanes, b, 6),
+                        stable_spheres=True)):
+        full, segs = pwf.trace(scene, o, d, cam.background, uni, max_depth=6,
+                               return_segments=True, **kw)
+        part, segs_live = pwf.trace(scene, o, d, cam.background, uni, max_depth=6,
+                                    return_segments=True, live=live, **kw)
+        assert torch.equal(part[live], full[live]) and torch.equal(segs_live[live], segs[live])
+        assert bool((segs_live[~live] == 1).all()) and bool((segs[~live] > 1).any())
+
+
 def test_trace_roulette_unbiased_against_jax():
     """In a closed diffuse box lit by an emitter (every path long), the
     port's trace with russian roulette from depth 2 has the image mean of

@@ -155,3 +155,54 @@ def test_wrapper_validates_inputs():
         pik.intersect(torch.zeros(2, 5), quad, o, o)
     with pytest.raises(ValueError):
         pik.intersect(sph, quad, o, torch.zeros(3, 5).T)  # non-contiguous
+
+
+def grazing_rays(centers, radii, eye, inset, n_phi=64):
+    """float32 rays from `eye` through points a fraction `inset` of each
+    sphere's radius inside its visible contour (float64 geometry), and
+    the float64 centres and radii of the spheres they aim at."""
+    c, r, e = (torch.as_tensor(x, dtype=torch.float64) for x in (centers, radii, eye))
+    z = c - e
+    dist = z.norm(dim=1, keepdim=True)
+    zh = z / dist
+    e1 = torch.linalg.cross(zh, torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64).expand_as(zh))
+    e1 = e1 / e1.norm(dim=1, keepdim=True)
+    e2 = torch.linalg.cross(zh, e1)
+    phi = torch.arange(n_phi, dtype=torch.float64) * (2 * np.pi / n_phi)
+    rho = (r * (1 - inset))[:, None, None]
+    aim = c[:, None] + rho * (phi.cos()[None, :, None] * e1[:, None] + phi.sin()[None, :, None]
+                             * e2[:, None])
+    d = (aim - e).reshape(-1, 3)
+    return (e.expand_as(d).float().contiguous(), d.float().contiguous(),
+            c.repeat_interleave(n_phi, 0), r.repeat_interleave(n_phi, 0))
+
+
+def test_stable_sphere_winners_lie_on_their_spheres():
+    """Camera rays grazing small spheres far from the origin (rand_spheres'
+    r = 0.2 at |c| ~ 12, the eye at (13, 2, 3)): with the radii, the twin's
+    sphere winners lie on their spheres to 1e-5, where the folded |c|^2 -
+    r^2 alone puts them 1e-4 or more inside; the winners are the same, and
+    the ground sphere (r = 1000, whose fold is exactly 0) keeps the fold's
+    t bit for bit."""
+    centers = [[0.0, -1000.0, 0.0], [11.2, 0.2, 3.1], [-4.3, 0.2, 10.8], [7.6, 0.2, -8.9],
+               [-11.5, 0.2, -1.7]]
+    radii = [1000.0, 0.2, 0.2, 0.2, 0.2]
+    sph = pik.pack_sphere_table(torch.tensor(centers), torch.tensor(radii))
+    quad = torch.zeros(0, 12)
+    eye = [13.0, 2.0, 3.0]
+    o, d, c, r = grazing_rays(centers[1:], radii[1:], eye, inset=0.01)
+    t0, p0 = pik.intersect(sph, quad, o, d)
+    t1, p1 = pik.intersect(sph, quad, o, d, torch.tensor(radii))
+    assert torch.equal(p0, p1) and bool((p0 >= 1).all())
+
+    def off(t):
+        p = o.double() + t.double()[:, None] * d.double()
+        return ((p - c).norm(dim=1) - r).abs()
+
+    assert float(off(t1).max()) < 1e-5, float(off(t1).max())
+    assert float(off(t0).max()) > 1e-4, float(off(t0).max())
+    go, gd = torch.tensor([eye] * 3), torch.tensor([[-1.0, -0.1, 0.0], [0.0, -0.2, -1.0],
+                                                   [-1.0, -0.3, -1.0]])
+    tg0, pg0 = pik.intersect(sph, quad, go, gd)
+    tg1, pg1 = pik.intersect(sph, quad, go, gd, torch.tensor(radii))
+    assert pg0.tolist() == [0, 0, 0] and torch.equal(pg0, pg1) and torch.equal(tg0, tg1)

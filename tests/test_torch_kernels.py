@@ -754,6 +754,35 @@ def test_intersect_kernel_split_matches_plain(cuda, n):
     assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 720000])
+def test_intersect_kernel_stable_spheres_match_plain(cuda, n):
+    """Dense kernel 1 with the spheres' radii (each sphere winner's t by
+    the stable quadratic), split (1000 rays) and in one pass: t and prim
+    bit-equal to its twin on rand_spheres' table, on random rays and on
+    rays from the eye a hair inside each sphere's silhouette; prim equal to
+    the search without the radii."""
+    scene = get_scene("rand_spheres")[0].to(cuda)
+    sph, quad = scene_tables(scene)
+    radius = scene.sph_radius.contiguous()
+    o, d = random_rays(n, (-12, 0.05, -12), (12, 6, 12), seed=n, device=cuda)
+    eye = torch.tensor([13.0, 2.0, 3.0], device=cuda)
+    c = scene.sph_center[1:]
+    z = c - eye
+    side = torch.linalg.cross(z, torch.tensor([0.0, 1.0, 0.0], device=cuda).expand_as(z))
+    side = side / side.norm(dim=1, keepdim=True)
+    aim = c + (scene.sph_radius[1:].abs() * 0.99)[:, None] * side
+    k = min(n // 2, aim.shape[0])
+    o[:k], d[:k] = eye, aim[:k] - eye
+    for rays in (o, d):
+        assert rays.is_contiguous()
+    t_k, p_k = ik.intersect(sph, quad, o, d, radius)
+    t_p, p_p = ik.intersect_plain(sph, quad, o, d, radius)
+    _, p_0 = ik.intersect(sph, quad, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(p_k, p_p) and torch.equal(p_k, p_0)
+
+
 @pytest.mark.parametrize("n,slice_rows", [(1, 36), (31, 36), (32, 52), (33, 4), (1000, 100),
                                           (4096, 488), (4096, 500)])
 def test_split_combine_equals_the_twin(n, slice_rows):

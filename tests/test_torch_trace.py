@@ -2,9 +2,10 @@
 off by default and invisible to a profiler, spans nested with their
 parents, items and self times, on the profiler's timeline, the span trees
 of an image and of a train step, outputs bit-equal with the recorder on
-and off, the train steps' `timings` keys, and the host-sync counter with
-its restore. One `cuda`-marked test counts syncs on the card; this file
-imports no JAX, so it runs there as it is:
+and off, the train steps' `timings` keys, the edge terms' spans and
+counters, and the host-sync counter with its restore. Two `cuda`-marked
+tests count syncs on the card; this file imports no JAX, so it runs there
+as it is:
 
     python -m pytest --noconftest -o markers="cuda: needs a CUDA device" \\
         -m cuda tests/test_torch_trace.py
@@ -17,6 +18,7 @@ import pytest
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from raytracer_tpu_torch.diff.grad import make_inverse_renderer
 from raytracer_tpu_torch.render.driver import render_image
@@ -29,6 +31,8 @@ torch.set_num_threads(1)
 RENDER_SPANS = {"render_image", "render/pack", "render/chunk", "render/kernel", "render/fold",
                 "render/mean", "to_u8"}
 STEP_PHASES = ("tape_forward", "loss_cotangent", "replay_forward", "backward", "optimizer")
+EDGE_TERMS = ("boundary", "shadow")
+EDGE_PARTS = ("sample", "trace", "splat")
 
 
 @pytest.fixture
@@ -66,6 +70,36 @@ def train_step(seed=1, steps=1, timings=None):
         backend="bucketed", device="cpu")
     losses = [step(seed + i, timings) for i in range(steps)]
     return losses, params, opt
+
+
+def edge_step(seed=1, device="cpu"):
+    """One bucketed step with the primary-silhouette and shadow-edge terms
+    on a tiny simple_light (four spheres, so every edge sample is taken)."""
+    scene, cam, st = get_scene("simple_light", width=16, spp=2, max_depth=4)
+    target = torch.full((st.height, st.width, 3), 0.5)
+    _, _, step = make_inverse_renderer(
+        scene, cam, target, width=st.width, height=st.height, samples_per_pass=2, max_depth=4,
+        boundary=True, shadow_edges=True, backend="bucketed", device=device)
+    return step(seed)
+
+
+class SyncingOps(TorchDispatchMode):
+    """Counts the operations that make a CUDA host wait: a tensor read as a
+    Python number, nonzero, masked_select, unique and indexing by a boolean
+    mask."""
+
+    NAMES = {"_local_scalar_dense", "nonzero", "masked_select", "unique", "_unique2"}
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        masks = name in ("index", "index_put", "index_put_") and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in args[1] if i is not None)
+        self.n += name in self.NAMES or masks
+        return func(*args, **(kwargs or {}))
 
 
 def tree(spans):
@@ -148,6 +182,66 @@ def test_train_step_span_tree_and_counters(recorder):
     assert replay["counts"]["lanes"] >= replay["counts"]["bounces"]
     step = next(s for s in spans if s["name"] == "step")
     assert {s["item"] for s in spans if s["name"] in STEP_PHASES} == {step["id"]}
+
+
+def test_edge_spans_and_counters_add_no_sync(monkeypatch):
+    """Each edge term's phase holds its `sample`, `trace` and `splat` spans,
+    with `edge_points` and `edge_rays` counted; with the recorder on, the
+    terms make no more syncing operations than with it off."""
+    from raytracer_tpu_torch.diff import bucketed
+
+    compose, syncing = bucketed.compose_edges, []
+
+    def counted(*args, **kwargs):
+        with SyncingOps() as mode:
+            out = compose(*args, **kwargs)
+        syncing.append(mode.n)
+        return out
+
+    monkeypatch.setattr(bucketed, "compose_edges", counted)
+    edge_step()
+    trace.collect()
+    trace.enable()
+    try:
+        edge_step()
+        spans = trace.collect()
+    finally:
+        trace.disable()
+        trace.collect()
+    assert syncing[0] == syncing[1] > 0
+    t = tree(spans)
+    assert {t[f"edges/{term}"] for term in EDGE_TERMS} == {"edges"} and t["edges"] == "step"
+    for term in EDGE_TERMS:
+        assert {t[f"edges/{term}/{part}"] for part in EDGE_PARTS} == {f"edges/{term}"}
+        mine = [s for s in spans if s["name"].startswith(f"edges/{term}/")]
+        points = sum(s["counts"].get("edge_points", 0) for s in mine)
+        rays = sum(s["counts"].get("edge_rays", 0) for s in mine)
+        assert points > 0 and rays > 0
+        assert all(s["counts"].get("lanes", 0) > 0 for s in mine
+                   if s["name"].endswith("/trace"))
+
+
+@pytest.mark.cuda
+def test_edge_counters_take_no_sync_on_the_card(cuda, monkeypatch):
+    """The syncs inside the edge terms with their counters counting and with
+    `edge_points` and `edge_rays` dropped are the same."""
+    count = trace.count
+
+    def syncs():
+        trace.collect()
+        trace.enable()
+        try:
+            edge_step(device=cuda)
+            return sum(s["syncs"] for s in trace.collect() if s["name"] == "edges")
+        finally:
+            trace.disable()
+            trace.collect()
+
+    edge_step(device=cuda)
+    counting = syncs()
+    monkeypatch.setattr(trace, "count", lambda key, n=1: None if key.startswith("edge_")
+                        else count(key, n))
+    assert syncs() == counting
 
 
 def test_sharded_step_phases_cover_the_replay_set_up(recorder):
