@@ -41,9 +41,9 @@ counters reset just before and read just after:
   the CLI with --checkpoint (its PNG byte-equal to phase 5's);
 * the training path with the silhouette edge term (phase 12): five
   bucketed Adam steps of make_inverse_renderer(boundary=True) at phase 7's
-  shape, kernel 3 the forward and kernel 1 every bounce of the edge
-  traces (each of the first step's kernel-1 calls held against its twin
-  and timed at its own rays), then one scan step with the edge term; the
+  shape, kernel 3 the forward and the edge path kernel every edge trace
+  (each of the first step's traces held against its twin, the eager
+  trace, and timed at its own rays), then one scan step with the edge term; the
   edge gradient on the card against the CPU's at a small shape, and
   diff/opt_checkpoint.py's run_optimization stopped and resumed on the
   card;
@@ -54,9 +54,9 @@ counters reset just before and read just after:
   shadow_edges=True) on rand_spheres at 400x225, 8 spp, depth 50, training
   sph_center, sph_radius and tex_c0, three bucketed Adam steps after one
   warm-up step: kernel 3 the forward, kernel 1 the shadow term's receiver
-  search and every bounce of both terms' edge traces (each of the first
-  counted step's kernel-1 calls held against its twin and timed at its
-  own rays, split by term);
+  search and the edge path kernel both terms' edge traces (each of the
+  first counted step's calls held against its twin and timed at its own
+  rays, split by term);
 * the other edge estimators and the trainable camera (phase 15): the
   mirror (its visibility probe a kernel-1 launch), refracted and
   exhaustive shadow gradients on their test scenes on the card against
@@ -77,7 +77,7 @@ counters reset just before and read just after:
   --repeats 1` over every row (its last line must say "ok": true: every
   row ran, finite, each render at least its camera rays in segments, each
   row's kernels launched: kernel 2 on every render, kernel 3 on the
-  bucketed steps, kernel 1 on the scan steps and the edge traces), and
+  bucketed steps, kernel 1 on the scan steps and the shadow receivers), and
   `python -m raytracer_tpu_torch.scripts.check_persistent` at its default
   spp (exit 0: the sample counter, eight scenes and the 10K clustered
   render agree statistically with their independent renders);
@@ -808,6 +808,82 @@ class HitRecorder:
         return dict(launches=len(calls), rays=sum(self.counts[lo:hi]), ms=ms,
                     plain_ms=plain_ms if plain else None, bound_ms=bound_ms,
                     bound_by=max(by, key=by.get))
+
+
+class EdgePathRecorder:
+    """Stands in for diff/boundary.py's edge_path_scene (the edge traces' one
+    launch of the edge path kernel a call) while a path runs and passes
+    every call on to it: keeps each call's scene, a copy of its rays and
+    its arguments (`calls`) and its lanes (`counts`)."""
+
+    def __init__(self):
+        from raytracer_tpu_torch.diff import boundary
+
+        self.boundary, self.real = boundary, boundary.edge_path_scene
+        self.counts, self.calls = [], []
+
+    def __enter__(self):
+        self.boundary.edge_path_scene = self
+        return self
+
+    def __exit__(self, *exc):
+        self.boundary.edge_path_scene = self.real
+
+    def __call__(self, scene, origin, direction, background, seed, **kw):
+        self.counts.append(origin.shape[0] * kw["spp_edge"])
+        self.calls.append((scene, origin.detach().clone(), direction.detach().clone(),
+                           background.detach().clone(), seed, dict(kw, count_segments=False)))
+        return self.real(scene, origin, direction, background, seed, **kw)
+
+    def held_and_timed(self, lo=0, hi=None):
+        """Calls lo to hi (all by default), each held against its plain twin
+        (integrator/wavefront.py:trace with the same arguments) bit for bit
+        on its live lanes, zeros on the others, and timed at its own inputs
+        (device time behind a spin kernel), with its bound (the closest
+        hits of its lane-bounces; shading not counted) and its twin's time:
+        {launches, lanes, segments, ms, plain_ms, bound_ms, bound_by}
+        summed over the calls."""
+        import torch
+
+        from raytracer_tpu_torch.integrator.wavefront import trace
+        from raytracer_tpu_torch.ops import ctr_rng
+
+        ms = plain_ms = bound_ms = 0.0
+        segments, by = 0, {"operations": 0, "bytes": 0}
+        calls = self.calls[lo:hi]
+        for i, (scene, o, d, bg, seed, kw) in enumerate(calls):
+            spp, depth, live = kw["spp_edge"], kw["max_depth"], kw["live"]
+
+            def kernel():
+                return self.real(scene, o, d, bg, seed, **kw)
+
+            def twin():
+                return trace(
+                    scene, o.repeat(spp, 1), d.repeat(spp, 1), bg,
+                    lambda b, lanes: ctr_rng.bounce_uniforms(seed, lanes, b), max_depth=depth,
+                    sky_gradient=kw["sky_gradient"], russian_roulette=True, rr_max_q=0.75,
+                    rr_uniform=lambda b, lanes: ctr_rng.rr_uniforms(seed, lanes, b, depth),
+                    stable_spheres=True, live=None if live is None else live.repeat(spp))
+
+            rad_k, segs = self.real(scene, o, d, bg, seed, **dict(kw, count_segments=True))
+            rad_p = twin()
+            on = (torch.ones(o.shape[0] * spp, dtype=torch.bool, device=o.device)
+                  if live is None else live.repeat(spp))
+            torch.cuda.synchronize()
+            if not (torch.equal(rad_k[on], rad_p[on]) and not bool(rad_k[~on].any())):
+                fail(f"edge path kernel, call {lo + i} ({o.shape[0]} rays x {spp}): radiance "
+                     f"equal on {float((rad_k[on] == rad_p[on]).float().mean())} of the live "
+                     f"lanes' entries against its twin, off by at most "
+                     f"{max_float_diff(rad_k[on], rad_p[on])}")
+            ms += time_device(kernel, reps=10, warm=2)
+            plain_ms += time_cuda(twin, reps=1)
+            n = int(segs)
+            segments += n
+            b = bound(hit_ops(n, scene.num_spheres, scene.num_quads), n * (24 + 8))
+            bound_ms += b[0]
+            by[b[1]] += 1
+        return dict(launches=len(calls), lanes=sum(self.counts[lo:hi]), segments=segments,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=max(by, key=by.get))
 
 
 class ClusteredRecorder:
@@ -1579,15 +1655,16 @@ def boundary_phase(train_kw, smi):
     """Phase 12: make_inverse_renderer(boundary=True) at phase 7's shape and
     start (rand_spheres 400x225, 8 spp, depth 50, the default trainables,
     texture colors halved), through kernel 3 (the bucketed forward) and
-    kernel 1 (every bounce of every edge trace).
+    the edge path kernel (every edge trace, one launch a call).
 
     BOUNDARY_STEPS bucketed Adam steps, each printed with its wall split
     (tape forward, loss/cotangent, replay forward, backward, edges,
-    optimizer); kernel 3's launches (one a step) and kernel 1's (the edge
-    traces only) counted. Every kernel-1 call of the first step is
-    recorded and held against its twin bit for bit, then timed at its own
-    rays (device time, summed, with its bound). Then one scan step with the
-    boundary term (kernel 1 in the render and in the edge traces), the
+    optimizer); kernel 3's launches (one a step), the edge path kernel's
+    (three a step) and kernel 1's (none) counted. Every edge trace of the
+    first step is recorded and held against its twin bit for bit on its
+    live lanes, then timed at its own rays (device time, summed, with its
+    bound and its twin's time). Then one scan step with the boundary term
+    (kernel 1 in the render, the edge path kernel in the traces), the
     edge gradient on the card against the CPU's (hold_edge_gradients), and
     run_optimization stopped and resumed on the card
     (optimization_resume_check)."""
@@ -1595,6 +1672,7 @@ def boundary_phase(train_kw, smi):
 
     from raytracer_tpu_torch.diff.grad import boundary_config, make_inverse_renderer, \
         render_linear_diff
+    from raytracer_tpu_torch.ops import edge_path_kernel as ek
     from raytracer_tpu_torch.ops import intersect_kernel as ik
     from raytracer_tpu_torch.ops import persistent_kernel as pk
     from raytracer_tpu_torch.scenes.registry import get_scene
@@ -1611,9 +1689,10 @@ def boundary_phase(train_kw, smi):
     steps = []
     ik.LAUNCHES = 0
     pk.LAUNCHES_TAPE = 0
+    ek.LAUNCHES = 0
     torch.cuda.synchronize()
     for i, seed in enumerate(TRAIN_SEEDS[:BOUNDARY_STEPS]):
-        recorder = HitRecorder(ik) if i == 0 else contextlib.nullcontext()
+        recorder = EdgePathRecorder() if i == 0 else contextlib.nullcontext()
         timings = {}
         with recorder:
             t0 = time.perf_counter()
@@ -1632,17 +1711,17 @@ def boundary_phase(train_kw, smi):
               f"{s_['loss_cotangent']:.4f} + replay forward {s_['replay_forward']:.4f} + backward "
               f"{s_['backward']:.4f} + edges {s_['edges']:.4f} + optimizer "
               f"{s_['optimizer']:.4f} s (edges {s_['edges'] / wall:.1%}); {smi}", flush=True)
-    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE)
-    if launches["persistent_tape"] != BOUNDARY_STEPS or launches["closest_hit"] <= 0:
+    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE,
+                    edge_path=ek.LAUNCHES)
+    if (launches["persistent_tape"] != BOUNDARY_STEPS or launches["closest_hit"] != 0
+            or launches["edge_path"] != 3 * BOUNDARY_STEPS):
         fail(f"phase 12: launches {launches} in {BOUNDARY_STEPS} boundary steps")
     edge_rays = 3 * (scene.num_spheres * cfg.samples_per_sphere) * cfg.spp_edge
-    if hits.counts[0] != scene.num_spheres * cfg.samples_per_sphere * cfg.spp_edge:
-        fail(f"phase 12: the first edge trace's camera rays {hits.counts[0]}, expected "
-             f"{scene.num_spheres} spheres x {cfg.samples_per_sphere} x {cfg.spp_edge}")
-    held = hold_hits(hits)
-    k1_edges = dict(hits.timed_sum(), held=held, rays_per_launch=hits.counts,
-                    launches_in_all_steps=launches["closest_hit"],
-                    camera_rays_per_trace=hits.counts[0], edge_paths_per_step=edge_rays)
+    if hits.counts != [scene.num_spheres * cfg.samples_per_sphere * cfg.spp_edge] * 3:
+        fail(f"phase 12: the first step's edge traces of {hits.counts} lanes, expected three "
+             f"of {scene.num_spheres} spheres x {cfg.samples_per_sphere} x {cfg.spp_edge}")
+    edge_paths = dict(hits.held_and_timed(), lanes_per_launch=hits.counts,
+                      launches_in_all_steps=launches["edge_path"], edge_paths_per_step=edge_rays)
     del hits.calls
     # One scan step with the boundary term.
     params_s, _, step_s = make_inverse_renderer(start, cam, target, backend="scan",
@@ -1660,37 +1739,19 @@ def boundary_phase(train_kw, smi):
         fail(f"phase 12 scan step: loss {scan_loss}, closest-hit launches {scan_launches}")
     edge_check = hold_edge_gradients()
     resume = optimization_resume_check()
-    rec = dict(steps=steps, launches=launches, closest_hit_edges=k1_edges,
+    rec = dict(steps=steps, launches=launches, edge_path_kernel=edge_paths,
                edge_config=cfg._asdict(), scan_step=dict(scan_t, loss=scan_loss,
                                                         closest_hit_launches=scan_launches),
                edge_cuda_vs_cpu_rel_to_max=edge_check, run_optimization=resume)
     print(f"phase 12 boundary term: {BOUNDARY_STEPS} bucketed steps, launches "
-          f"{json.dumps(launches)}; kernel 1 in the first step's edge traces: "
-          f"{k1_edges['launches']} launches, {k1_edges['rays']} rays, {k1_edges['ms']:.3f} ms "
-          f"summed by CUDA events (bound {k1_edges['bound_ms']:.3f} ms, twin "
-          f"{k1_edges['plain_ms']:.1f} ms), every call bit-equal to its twin; rays per launch "
-          f"{hits.counts}; scan step {json.dumps(rec['scan_step'])}; edge gradient CUDA vs "
+          f"{json.dumps(launches)}; the edge path kernel in the first step's edge traces: "
+          f"{edge_paths['launches']} launches, {edge_paths['lanes']} lanes, "
+          f"{edge_paths['segments']} lane-bounces, {edge_paths['ms']:.3f} ms summed by CUDA "
+          f"events (bound {edge_paths['bound_ms']:.3f} ms, twin {edge_paths['plain_ms']:.1f} "
+          f"ms), every call bit-equal to its twin on its live lanes; scan step {json.dumps(rec['scan_step'])}; edge gradient CUDA vs "
           f"CPU {json.dumps(edge_check)}; run_optimization resumed on the card "
           f"{json.dumps(resume)}; {smi}", flush=True)
     return rec
-
-
-@contextlib.contextmanager
-def mark_calls(module, name, hits, marks):
-    """While it is open, each call of module.name (a function the module
-    imported) appends to `marks` the number of kernel-1 calls that `hits`
-    (a HitRecorder) had recorded before it."""
-    real = getattr(module, name)
-
-    def marked(*args, **kwargs):
-        marks.append(len(hits.counts))
-        return real(*args, **kwargs)
-
-    setattr(module, name, marked)
-    try:
-        yield
-    finally:
-        setattr(module, name, real)
 
 
 def grad_full_phase(train_kw, smi):
@@ -1704,16 +1765,18 @@ def grad_full_phase(train_kw, smi):
     One warm-up step, then GRAD_FULL_STEPS counted steps, each printed with
     its wall split (tape forward, loss/cotangent, replay forward, backward,
     edges/boundary, edges/shadow, optimizer); kernel 3's launches (one a
-    step) and kernel 1's counted. Every kernel-1 call of the first counted
-    step is recorded and held against its twin bit for bit, then timed at
-    its own rays and split by term: the boundary term's traces, the shadow
-    term's receiver search (one ray a pixel) and its traces. The loss and
-    every gradient must be finite."""
+    step), kernel 1's (the shadow term's receiver search, one a step) and
+    the edge path kernel's (the terms' traces, six a step) counted. Every
+    kernel-1 call and edge trace of the first counted step is recorded and
+    held against its twin bit for bit (a trace on its live lanes), then
+    timed at its own rays, split by term: the boundary term's traces, the
+    shadow term's receiver search (one ray a pixel) and its traces. The
+    loss and every gradient must be finite."""
     import torch
 
-    from raytracer_tpu_torch.diff import shadow_edge
     from raytracer_tpu_torch.diff.grad import boundary_config, make_inverse_renderer, \
         render_linear_diff, shadow_config
+    from raytracer_tpu_torch.ops import edge_path_kernel as ek
     from raytracer_tpu_torch.ops import intersect_kernel as ik
     from raytracer_tpu_torch.ops import persistent_kernel as pk
     from raytracer_tpu_torch.scenes.registry import get_scene
@@ -1733,21 +1796,22 @@ def grad_full_phase(train_kw, smi):
     step(TRAIN_SEEDS[0])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    steps, marks = [], []
+    steps = []
     ik.LAUNCHES = 0
     pk.LAUNCHES_TAPE = 0
+    ek.LAUNCHES = 0
     torch.cuda.synchronize()
     for i, seed in enumerate(TRAIN_SEEDS[1:1 + GRAD_FULL_STEPS]):
         recorder = HitRecorder(ik) if i == 0 else contextlib.nullcontext()
+        paths = EdgePathRecorder() if i == 0 else contextlib.nullcontext()
         timings = {}
-        with recorder, (mark_calls(shadow_edge, "intersect_scene", recorder, marks) if i == 0
-                        else contextlib.nullcontext()):
+        with recorder, paths:
             t0 = time.perf_counter()
             loss = float(step(seed, timings))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if i == 0:
-            hits = recorder
+            hits, edges = recorder, paths
         if not (math.isfinite(loss) and all(bool(torch.isfinite(p.grad).all())
                                             for p in params.values())):
             fail(f"phase 14 grad_full step {seed}: loss {loss} or its gradients not finite")
@@ -1759,33 +1823,36 @@ def grad_full_phase(train_kw, smi):
               f"edges/boundary {s_['edges/boundary']:.4f} + edges/shadow "
               f"{s_['edges/shadow']:.4f} + optimizer {s_['optimizer']:.4f} s (edges "
               f"{s_['edges'] / wall:.1%}); {smi}", flush=True)
-    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE)
-    if launches["persistent_tape"] != GRAD_FULL_STEPS or launches["closest_hit"] <= 0:
+    launches = dict(closest_hit=ik.LAUNCHES, persistent_tape=pk.LAUNCHES_TAPE,
+                    edge_path=ek.LAUNCHES)
+    if (launches["persistent_tape"] != GRAD_FULL_STEPS
+            or launches["closest_hit"] != GRAD_FULL_STEPS
+            or launches["edge_path"] != 6 * GRAD_FULL_STEPS):
         fail(f"phase 14: launches {launches} in {GRAD_FULL_STEPS} grad_full steps")
     n_pix = st.width * st.height
-    shadow_rays = scfg.receivers * scfg.sources_per_receiver * scfg.samples_per_sphere \
+    boundary_lanes = scene.num_spheres * bcfg.samples_per_sphere * bcfg.spp_edge
+    shadow_lanes = scfg.receivers * scfg.sources_per_receiver * scfg.samples_per_sphere \
         * scfg.spp_edge
-    split = marks[0] if len(marks) == 1 else -1
-    if not (0 < split < len(hits.counts) - 1 and hits.counts[split] == n_pix
-            and hits.counts[split + 1] == shadow_rays
-            and hits.counts[0] == scene.num_spheres * bcfg.samples_per_sphere * bcfg.spp_edge):
-        fail(f"phase 14: kernel-1 calls {hits.counts}, shadow term from call {marks}; expected "
-             f"{n_pix} receiver rays, then {shadow_rays} first-bounce shadow rays")
+    if hits.counts != [n_pix] or edges.counts != [boundary_lanes] * 3 + [shadow_lanes] * 3:
+        fail(f"phase 14: kernel-1 calls of {hits.counts} rays, edge traces of {edges.counts} "
+             f"lanes; expected one of {n_pix} receiver rays, three traces of {boundary_lanes} "
+             f"silhouette lanes, then three of {shadow_lanes} first-bounce shadow lanes")
     held = hold_hits(hits)
-    k1 = {"boundary": hits.timed_sum(hi=split),
-          "shadow_receivers": hits.timed_sum(lo=split, hi=split + 1),
-          "shadow_traces": hits.timed_sum(lo=split + 1)}
-    k1["all"] = {key: sum(v[key] for v in k1.values()) for key in ("launches", "rays", "ms",
-                                                                  "plain_ms", "bound_ms")}
-    rec = dict(steps=steps, warm_up_s=warm_s, launches=launches, closest_hit=k1, held=held,
-               rays_per_launch=hits.counts, shadow_from_call=split,
+    timed = {"boundary_traces": edges.held_and_timed(hi=3),
+             "shadow_receivers": hits.timed_sum(),
+             "shadow_traces": edges.held_and_timed(lo=3)}
+    timed["all"] = {key: sum(v[key] for v in timed.values()) for key in ("launches", "ms",
+                                                                        "plain_ms", "bound_ms")}
+    rec = dict(steps=steps, warm_up_s=warm_s, launches=launches, timed=timed, held=held,
+               receiver_rays=hits.counts, trace_lanes=edges.counts,
                boundary_config=bcfg._asdict(), shadow_config=scfg._asdict(),
                trainable=GRAD_FULL_TRAINABLE)
-    del hits.calls
+    del hits.calls, edges.calls
     print(f"phase 14 grad_full: {GRAD_FULL_STEPS} bucketed steps after a {warm_s:.3f} s warm-up, "
-          f"launches {json.dumps(launches)}; kernel 1 in the first counted step, every call "
-          f"bit-equal to its twin ({json.dumps(held)}), by CUDA events at each call's own rays: "
-          f"{json.dumps(k1)}; rays per launch {hits.counts}; {smi}", flush=True)
+          f"launches {json.dumps(launches)}; in the first counted step kernel 1 (the receivers, "
+          f"bit-equal to its twin: {json.dumps(held)}) and the edge path kernel (every trace "
+          f"bit-equal to its twin on its live lanes), by CUDA events at each call's own "
+          f"inputs: {json.dumps(timed)}; trace lanes {edges.counts}; {smi}", flush=True)
     return rec
 
 
@@ -3764,15 +3831,12 @@ def main() -> int:
             "bounce_0": {k: k1r[k] for k in ("rays", "ms", "plain_ms")},
             "split": {n: {k: v[k] for k in ("ms", "plain_ms", "slice_rows", "slices")}
                       for n, v in k1_split.items()},
-            "edge_term": {k: bnd["closest_hit_edges"][k] for k in (
-                "launches", "rays", "ms", "plain_ms", "bound_ms", "bound_by",
-                "launches_in_all_steps", "camera_rays_per_trace")},
-            "edge_term_path": f"training, bucketed backend with boundary=True: the edge traces "
-                              f"of one step (phase 12), {BOUNDARY_STEPS} steps",
-            "grad_full": dict(full["closest_hit"], launches_in_all_steps=full["launches"][
-                "closest_hit"]),
+            "grad_full": dict(full["timed"]["shadow_receivers"],
+                              launches_in_all_steps=full["launches"]["closest_hit"]),
             "grad_full_path": f"training, grad_full (boundary and shadow_edges, phase 14): the "
-                              f"first of {GRAD_FULL_STEPS} counted steps, by term",
+                              f"shadow term's receiver search of the first of "
+                              f"{GRAD_FULL_STEPS} counted steps (the edge traces take the edge "
+                              "path kernel)",
             "launches_rng_table_step": [s_["launches"]["closest_hit"]
                                         for s_ in rng_rec["steps"]["rng"]],
             "rng_table_tape_forward": rng_rec["tape_forward"]["closest_hit"],
@@ -3953,6 +4017,29 @@ def main() -> int:
                      "forward's and the adjoint's summed, the reduction beside them",
             "split": replay_rec["kernels"],
         },
+        {
+            "name": "edge_path",
+            "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/edge_path_kernel.cu",
+            "replaces": None,
+            "launches": full["launches"]["edge_path"],
+            "on_main_path": True,
+            "path": f"training, grad_full (boundary and shadow_edges, phase 14): the edge "
+                    f"traces of {GRAD_FULL_STEPS} steps, six a step",
+            "max_abs_err": 0.0,
+            "ms": full["timed"]["boundary_traces"]["ms"] + full["timed"]["shadow_traces"]["ms"],
+            "plain_ms": (full["timed"]["boundary_traces"]["plain_ms"]
+                         + full["timed"]["shadow_traces"]["plain_ms"]),
+            "bound_ms": (full["timed"]["boundary_traces"]["bound_ms"]
+                         + full["timed"]["shadow_traces"]["bound_ms"]),
+            "bound_by": full["timed"]["shadow_traces"]["bound_by"],
+            "library_ms": None,
+            "shape": f"rand_spheres 400x225 depth 50, the first counted step's six traces at "
+                     f"their own inputs ({full['trace_lanes']} lanes); ms, plain_ms (the eager "
+                     "trace) and bound_ms summed over the calls",
+            "boundary_term": bnd["edge_path_kernel"],
+            "by_term": {k: full["timed"][k] for k in ("boundary_traces", "shadow_traces")},
+        },
     ]
     # The sharded paths' launches (phase 16), each counted around its own run.
     dl, gd = dist_rec["large_scene"]["shard"]["launches"], gloo0["dryrun"]
@@ -3974,6 +4061,7 @@ def main() -> int:
             sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["table_gather"]),
         "replay_path": dict(
             sharded_step_nccl_one_rank=dist_rec["sharded_step"]["launches"]["replay_path"]),
+        "edge_path": {},
     }
     for entry in kernels:
         entry["sharded_launches"] = sharded[entry["name"]]

@@ -122,10 +122,15 @@ class CameraFrame:
     defocus_angle_radians: torch.Tensor  # ()
 
     def to(self, device) -> "CameraFrame":
-        return dataclasses.replace(
-            self,
-            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)},
-        )
+        """The frame on `device`, its fields moved as one flat tensor: one
+        copy (one host sync from the CPU to a card, not one a field), each
+        field a view of it, differentiable like the fields' own moves."""
+        fields = [getattr(self, f.name) for f in dataclasses.fields(self)]
+        flat = torch.cat([x.reshape(-1) for x in fields]).to(device)
+        parts = flat.split([x.numel() for x in fields])
+        return dataclasses.replace(self, **{
+            f.name: p.reshape(x.shape)
+            for f, p, x in zip(dataclasses.fields(self), parts, fields)})
 
 
 def camera_frame(cam: Camera, width: int, height: int) -> CameraFrame:

@@ -28,12 +28,12 @@ lane ids) so that an occluded edge cancels. The term is a
 whose backward injects the edge-sampled cotangent into the geometry leaves
 and the camera tensors that require grad, so it composes with any loss.
 
-The edge traces are pure forward evaluations: `trace` with its default
-hit, which is the closest-hit kernel (kernel 1) on CUDA tensors and its
-plain twin on CPU tensors, each sphere winner's t by the stable quadratic
-(the silhouette's grazing hits would land inside small spheres by the
-folded test), with russian roulette so that one deep path does not hold a
-whole batch of edge rays at the depth budget.
+The edge traces (`trace_edge_rays`) are pure forward evaluations: on CUDA
+tensors one launch of the edge path kernel a call (ops/edge_path_kernel.py),
+on CPU tensors its plain twin `trace`, each sphere winner's t by the stable
+quadratic (the silhouette's grazing hits would land inside small spheres
+by the folded test), with russian roulette so that one deep path does not
+hold a whole batch of edge rays at the depth budget.
 
 Scope, as in the JAX package: primary visibility only (shadow edges and
 silhouettes seen in mirrors or through glass are other terms), pinhole
@@ -44,8 +44,8 @@ opens `edges/boundary/sample` (contour and edge points, their projection,
 orientation and validity), `edges/boundary/trace` (the in/out traces) and
 `edges/boundary/splat` (the weights against the cotangent and the VJP of
 the edge points into the leaves), and counts `edge_points` (valid samples,
-a device sum read at `collect()`) and `edge_rays` (the rays handed to
-`trace`, from shapes): neither syncs.
+a device sum read at `collect()`) and `edge_rays` (the rays traced, from
+shapes), and `trace_edge_rays` its own counters: none syncs.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from raytracer_tpu_torch.core import vecmath as vm
 from raytracer_tpu_torch.core.camera import CAMERA_FIELDS, Camera, CameraFrame, camera_frame
 from raytracer_tpu_torch.integrator.wavefront import trace
 from raytracer_tpu_torch.ops import ctr_rng
+from raytracer_tpu_torch.ops.edge_path_kernel import edge_path_scene, takes_edge_path_kernel
 from raytracer_tpu_torch.utils import trace as tr
 
 
@@ -93,8 +94,8 @@ def project_to_pixels(frame: CameraFrame, p):
 def _perp_basis(zh):
     """Orthonormal (e1, e2) perpendicular to zh (..., 3), the helper axis
     picked without a branch."""
-    y = torch.tensor([0.0, 1.0, 0.0], dtype=zh.dtype, device=zh.device).expand_as(zh)
-    x = torch.tensor([1.0, 0.0, 0.0], dtype=zh.dtype, device=zh.device).expand_as(zh)
+    axes = torch.eye(3, dtype=zh.dtype, device=zh.device)  # made on the device: no copy
+    y, x = axes[1].expand_as(zh), axes[0].expand_as(zh)
     up = torch.where(zh[..., 1:2].abs() < 0.9, y, x)
     e1 = vm.cross(zh, up)
     e1 = e1 / torch.linalg.vector_norm(e1, dim=-1, keepdim=True)
@@ -149,23 +150,40 @@ def trace_edge_rays(scene, origin, direction, seed: int, *, background, max_dept
     rays (origin (K, 3), direction (K, 3)). Lane L of the batch (ray L mod
     K) is sample id L under `seed`, so two calls with the same seed share
     every lane's uniforms and coins (common random numbers for an in/out
-    pair). Pure forward: `trace`'s default hit (kernel 1 on CUDA tensors)
-    with each sphere winner's t by the stable quadratic (`stable_spheres`:
-    the rays start a hair from a silhouette, where the folded sphere test
+    pair). Pure forward, each sphere winner's t by the stable quadratic
+    (the rays start a hair from a silhouette, where the folded sphere test
     puts a grazing hit inside a small sphere and the path re-hits it),
     russian roulette from depth 5 with its survival capped at 0.75. Rays
-    False in `live` (K,) (invalid edge points) end after their first bounce
-    and their radiance is garbage. Counts the batch's rays as
-    `edge_rays`."""
+    False in `live` (K,) (invalid edge points) have no use: their radiance
+    is garbage.
+
+    The input decides how: CUDA tensors of a scene the edge path kernel
+    shades take one launch of it (ops/edge_path_kernel.py: every lane's
+    whole path, the rays False in `live` traced not at all); CPU tensors
+    and other scenes its plain twin, the eager `trace` (kernel 1 a bounce
+    on the card), where those rays end after their first bounce. Counts
+    the batch's rays as `edge_rays`, the call as `edge_traces_kernel` or
+    `edge_traces_eager`, and the kernel's traced lane-bounces as
+    `edge_path_segments` (a device sum read at `collect()`)."""
     tr.count("edge_rays", origin.shape[0] * spp_edge)
-    rad = trace(
-        scene, origin.repeat(spp_edge, 1), direction.repeat(spp_edge, 1), background,
-        lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
-        max_depth=max_depth, sky_gradient=sky_gradient,
-        russian_roulette=True, rr_max_q=0.75,
-        rr_uniform=lambda bounce, lanes: ctr_rng.rr_uniforms(seed, lanes, bounce, max_depth),
-        stable_spheres=True, live=None if live is None else live.repeat(spp_edge),
-    )
+    if takes_edge_path_kernel(scene, origin.device):
+        tr.count("edge_traces_kernel")
+        rad, segs = edge_path_scene(scene, origin, direction, background, seed,
+                                    spp_edge=spp_edge, max_depth=max_depth,
+                                    sky_gradient=sky_gradient, live=live,
+                                    count_segments=tr.enabled())
+        if segs is not None:
+            tr.count("edge_path_segments", segs)
+    else:
+        tr.count("edge_traces_eager")
+        rad = trace(
+            scene, origin.repeat(spp_edge, 1), direction.repeat(spp_edge, 1), background,
+            lambda bounce, lanes: ctr_rng.bounce_uniforms(seed, lanes, bounce),
+            max_depth=max_depth, sky_gradient=sky_gradient,
+            russian_roulette=True, rr_max_q=0.75,
+            rr_uniform=lambda bounce, lanes: ctr_rng.rr_uniforms(seed, lanes, bounce, max_depth),
+            stable_spheres=True, live=None if live is None else live.repeat(spp_edge),
+        )
     return rad.reshape(spp_edge, origin.shape[0], 3).mean(dim=0)
 
 

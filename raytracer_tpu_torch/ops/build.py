@@ -90,6 +90,13 @@ SIGNATURES = {
     # grad, bg, seed, sky_gradient, rows, idx, lane_out, threads, stream
     "rt_replay_adjoint": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
                           _P, _P, _I, _I, _P, _P, _P, _I, _P],
+    # sph, radius, ns, quad, nq, res, origin, direction, live, k, n,
+    # background, seed, max_depth, rr_start, rr_lo, rr_hi, sky_gradient,
+    # radiance, segments_total, tex_rows, images, image_dims, img_h, img_w,
+    # filter, noise, grid_divisor, threads, stream
+    "rt_edge_path": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I,
+                     _P, _I, _I, _I, _F, _F, _I,
+                     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

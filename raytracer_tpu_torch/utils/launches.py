@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from raytracer_tpu_torch.ops import (
     culled_kernel,
+    edge_path_kernel,
     gather_kernel,
     intersect_kernel,
     persistent_kernel,
@@ -36,6 +37,7 @@ COUNTERS = (
     ("table_gather", gather_kernel, "LAUNCHES"),
     ("replay_path", replay_kernel, "LAUNCHES"),
     ("replay_adjoint", replay_kernel, "LAUNCHES_ADJOINT"),
+    ("edge_path", edge_path_kernel, "LAUNCHES"),
 )
 
 
